@@ -26,7 +26,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 #: every kernel source of the port, by library name
-SOURCES = {"packed_dir_allow": os.path.join(CSRC, "packed_dir_allow.cu")}
+SOURCES = {
+    name: os.path.join(CSRC, f"{name}.cu")
+    for name in ("packed_dir_allow", "fused_ports_reach")
+}
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,4 +1,4 @@
-"""The packed any-port reachability kernel and its plain PyTorch version.
+"""The port's hand-written CUDA kernels and their plain PyTorch versions.
 
 ``packed_dir_allow`` is the port of the Pallas TPU kernel
 ``kubernetes_verification_tpu/ops/pallas_kernels.py::packed_dir_allow``:
@@ -15,7 +15,15 @@ only CPU tensors reach the plain version ``packed_dir_allow_reference``. ``packe
 directions with a word-wise AND and the packed self-traffic diagonal, in plain
 torch on the words, as the JAX package does in XLA outside its kernel.
 
-The TPU kernel's pack matrices (``_pack_matrices``) have no counterpart: they
+``fused_ports_reach`` is the port of the Pallas TPU kernel
+``kubernetes_verification_tpu/ops/pallas_kernels.py::fused_ports_stripe``:
+the whole port-bitmap reach in one K walk over the virtual-policy segments of
+both directions, flushing each segment's ``counts > 0`` into per-element
+egress-plane / ``gi_any`` / ``conj`` state, then the default-allow expansion
+and the bit-pack (``csrc/fused_ports_reach.cu``; plain version
+``fused_ports_reach_reference``).
+
+The TPU kernels' pack matrices (``_pack_matrices``) have no counterpart: they
 exist only because Mosaic cannot do a lane-splitting reshape.
 """
 from __future__ import annotations
@@ -34,8 +42,12 @@ __all__ = [
     "packed_reach",
     "k_major",
     "launch",
+    "fused_ports_reach",
+    "fused_ports_reach_reference",
+    "check_mask_count",
     "N_TILE",
     "K_STEP",
+    "FUSED_MAX_MASKS",
 ]
 
 #: the kernel's output tile (rows and columns): N must be a multiple
@@ -44,6 +56,12 @@ N_TILE = 128
 K_STEP = 64
 #: dst columns per step of the plain version's loop
 _REF_TILE = 4096
+#: the most ported masks R ``fused_ports_reach`` takes: its per-element state
+#: holds the R + 1 egress planes and two flags in at most two 32-bit words
+FUSED_MAX_MASKS = 61
+#: dst columns per step of ``fused_ports_reach_reference``'s loop (its
+#: per-element state is int64, twice the float32 counts)
+_REF_TILE_PORTS = 2048
 
 
 def _check(a, b, not_iso, default_allow_axis):
@@ -200,3 +218,173 @@ def packed_reach(
     if self_traffic:
         or_diagonal(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# fused_ports_reach: the port-bitmap reach
+# ---------------------------------------------------------------------------
+
+
+def check_mask_count(r: int) -> None:
+    """``ConfigError`` unless ``fused_ports_reach`` takes R = ``r`` ported
+    masks."""
+    if r > FUSED_MAX_MASKS:
+        raise ConfigError(
+            f"R={r} ported masks is over fused_ports_reach's limit of "
+            f"{FUSED_MAX_MASKS}; solve with use_kernel=False (the torch "
+            "mask-group sweep), or coarsen the cluster's port specs"
+        )
+
+
+def _check_fused(at, bt, plan, ov, niso_i, niso_e):
+    if at.dtype != torch.int8 or bt.dtype != torch.int8:
+        raise ConfigError(f"fused_ports_reach takes int8 operands, got {at.dtype}/{bt.dtype}")
+    if at.dim() != 2 or at.shape != bt.shape:
+        raise ConfigError(
+            f"at {tuple(at.shape)} and bt {tuple(bt.shape)} must both be [N, K']"
+        )
+    n, kp = at.shape
+    if n % N_TILE or kp % K_STEP or kp == 0:
+        raise ConfigError(
+            f"N={n} must be a multiple of the kernel tile {N_TILE} and "
+            f"K'={kp} a positive multiple of the K step {K_STEP}"
+        )
+    if plan.dtype != torch.int32 or plan.dim() != 2 or plan.shape[1] != 3 or not len(plan):
+        raise ConfigError(f"plan must be int32 [S >= 1, 3], got {tuple(plan.shape)} {plan.dtype}")
+    if ov.dtype != torch.int64 or ov.dim() != 1:
+        raise ConfigError(f"ov must be int64 [R], got {tuple(ov.shape)} {ov.dtype}")
+    check_mask_count(ov.shape[0])
+    for name, v in (("niso_i", niso_i), ("niso_e", niso_e)):
+        if v.dtype != torch.int32 or tuple(v.shape) != (n,):
+            raise ConfigError(f"{name} must be int32 [{n}], got {tuple(v.shape)} {v.dtype}")
+    if len({t.device for t in (at, bt, plan, ov, niso_i, niso_e)}) != 1:
+        raise ConfigError("fused_ports_reach's operands must be on one device")
+    if not all(t.is_contiguous() for t in (at, bt, plan, ov, niso_i, niso_e)):
+        raise ConfigError("fused_ports_reach takes contiguous tensors")
+
+
+def _plan_segments(plan: torch.Tensor, kp: int, r: int) -> list:
+    """``(k0, k1, kind, slab)`` per plan row; ``ConfigError`` unless the
+    segments tile ``[0, K')`` in whole, non-empty K steps and each kind's
+    slab is in range (0, 1: an egress plane ≤ R, R the full block; 2: an
+    ingress mask < R; 3: the ingress full block)."""
+    segs, k0 = [], 0
+    for end, kind, slab in plan.tolist():
+        k1 = end * K_STEP
+        ok_slab = {0: 0 <= slab <= r, 1: 0 <= slab <= r, 2: 0 <= slab < r, 3: True}.get(kind)
+        if k1 <= k0 or not ok_slab:
+            raise ConfigError(f"bad plan row {(end, kind, slab)} (R={r}, K'={kp})")
+        segs.append((k0, k1, kind, slab))
+        k0 = k1
+    if k0 != kp:
+        raise ConfigError(f"the plan ends at K={k0}, not at K'={kp}")
+    return segs
+
+
+def fused_ports_reach_reference(
+    at: torch.Tensor,
+    bt: torch.Tensor,
+    plan: torch.Tensor,
+    ov: torch.Tensor,
+    niso_i: torch.Tensor,
+    niso_e: torch.Tensor,
+    *,
+    default_allow: bool,
+) -> torch.Tensor:
+    """The plain version: per segment a dst-tiled exact float32 product
+    (counts ≤ K' < 2²⁴, TF32 off), ``> 0``, and the same flush as the
+    kernel into int64 per-element state (egress planes as bits 0..R); then
+    the default-allow expansion and the pack. Any device."""
+    _check_fused(at, bt, plan, ov, niso_i, niso_e)
+    n, kp = at.shape
+    r = ov.shape[0]
+    segs = _plan_segments(plan, kp, r)
+    masks = ov.tolist() + [(1 << (r + 1)) - 1]  # kind 3 overlaps every plane
+    a_segs = [at[:, k0:k1].to(torch.float32).contiguous() for k0, k1, _, _ in segs]
+    di_all = niso_i > 0
+    de = (niso_e > 0)[:, None]
+    out = torch.empty((n, n // 32), dtype=torch.int32, device=at.device)
+    for d0 in range(0, n, _REF_TILE_PORTS):
+        d1 = min(n, d0 + _REF_TILE_PORTS)
+        planes = torch.zeros((n, d1 - d0), dtype=torch.int64, device=at.device)
+        gi_any = torch.zeros((n, d1 - d0), dtype=torch.bool, device=at.device)
+        conj = torch.zeros_like(gi_any)
+        for (k0, k1, kind, slab), a in zip(segs, a_segs):
+            with exact_fp32():
+                ok = (a @ bt[d0:d1, k0:k1].to(torch.float32).T) > 0
+            if kind <= 1:  # egress: plane `slab` (R: the full block)
+                planes |= ok.to(torch.int64) << slab
+            else:  # ingress: AND the planes it overlaps
+                conj |= ok & ((planes & masks[slab if kind == 2 else r]) != 0)
+                gi_any |= ok
+        reach = conj
+        if default_allow:
+            di = di_all[None, d0:d1]
+            reach = reach | (di & de) | (di & (planes != 0)) | (de & gi_any)
+        out[:, d0 // 32 : d1 // 32] = pack_bool_cols(reach)
+    return out
+
+
+def fused_ports_reach(
+    at: torch.Tensor,  # int8 [N, K'] src-side VP rows, K-contiguous
+    bt: torch.Tensor,  # int8 [N, K'] dst-side VP rows, K-contiguous
+    plan: torch.Tensor,  # int32 [S, 3]: (segment end in K steps, kind, slab)
+    ov: torch.Tensor,  # int64 [R]: per ported mask, the egress planes it overlaps
+    niso_i: torch.Tensor,  # int32 [N]: 1 where the dst is not ingress-isolated
+    niso_e: torch.Tensor,  # int32 [N]: 1 where the src is not egress-isolated
+    *,
+    default_allow: bool,
+) -> torch.Tensor:
+    """int32 [N, N/32]: the port-bitmap reach words (the reference's uint32
+    bit pattern), before the self-traffic diagonal and ``col_mask``.
+
+    The K axis is ``[egress ported segments | egress full block | ingress
+    ported segments | ingress full block]``, each segment padded on its own
+    with zero columns to a ``K_STEP`` multiple; ``plan`` row s ends segment
+    s. An egress segment sets plane bit ``slab`` of each (src, dst) element
+    where its count is > 0 (bit R: the full block); an ingress segment
+    ORs ``ok`` into ``gi_any`` and ``ok ∧ (planes & ov[slab] ≠ 0)`` into
+    ``conj`` (the full block: any plane). Then ``conj ∨ (di∧de) ∨
+    (di∧ge_any) ∨ (de∧gi_any)`` with ``default_allow``. ``ov[m]`` has bit R
+    set: the full egress block overlaps every mask.
+
+    CPU tensors take the plain version; a CUDA tensor launches the kernel,
+    counted in ``fused_ports_reach.launches``. R above ``FUSED_MAX_MASKS``
+    raises ``ConfigError`` on either."""
+    _check_fused(at, bt, plan, ov, niso_i, niso_e)
+    if at.device.type == "cpu":
+        return fused_ports_reach_reference(
+            at, bt, plan, ov, niso_i, niso_e, default_allow=default_allow
+        )
+    if at.device.type != "cuda":
+        raise BackendError(
+            f"fused_ports_reach runs on cuda or cpu, not {at.device}", backend="torch"
+        )
+    from .cuda_build import load_library
+
+    n, kp = at.shape
+    out = torch.empty((n, n // 32), dtype=torch.int32, device=at.device)
+    if any(t.data_ptr() % 16 for t in (at, bt, out)):
+        raise BackendError("fused_ports_reach needs 16-byte aligned operands",
+                           backend="torch")
+    fn = load_library("fused_ports_reach").fused_ports_reach_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(at.device):
+        stream = torch.cuda.current_stream(at.device).cuda_stream
+        rc = fn(
+            at.data_ptr(), bt.data_ptr(), plan.data_ptr(), ov.data_ptr(),
+            niso_i.data_ptr(), niso_e.data_ptr(), out.data_ptr(),
+            n, kp, plan.shape[0], ov.shape[0], int(default_allow), stream,
+        )
+    if rc != 0:
+        raise BackendError(
+            f"fused_ports_reach launch failed: cudaError {rc} "
+            f"(N={n}, K'={kp}, segments={plan.shape[0]}, R={ov.shape[0]})",
+            backend="torch",
+        )
+    fused_ports_reach.launches += 1
+    return out
+
+
+fused_ports_reach.launches = 0

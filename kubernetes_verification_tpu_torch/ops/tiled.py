@@ -15,7 +15,9 @@ The port of the any-port path of ``kubernetes_verification_tpu.ops.tiled``:
 * **bit-packed output**: int32 [N, ⌈N/32⌉] words with the reference's uint32
   bit pattern (100k² pairs = 1.25 GB instead of 10 GB bool).
 
-The port-bitmap path (multi-atom encodings) is not ported yet.
+A multi-atom encoding (``encode_cluster(compute_ports=True)`` with port specs)
+takes the port-bitmap path of ``ops/tiled_ports.py``: the mask-group sweep,
+or on a CUDA device the fused kernel ``ops/kernels.py::fused_ports_reach``.
 """
 from __future__ import annotations
 
@@ -54,13 +56,9 @@ __all__ = [
 _I8 = torch.int8
 _I32 = torch.int32
 
-#: where a multi-atom (port-bitmap) solve is queued
-_PORTS_TODO = (
-    "the port-bitmap path (a multi-atom encoding, encode_cluster("
-    "compute_ports=True) with port specs) is not ported yet: ROADMAP.md, "
-    "'Modules to port', the port-bitmap path with fused_ports_stripe. Encode "
-    "with compute_ports=False for the any-port solve."
-)
+#: cap on R, the distinct ported masks after run-splitting (the JAX
+#: package's ``ops/tiled.py::_MAX_PORT_MASKS``)
+_MAX_PORT_MASKS = 128
 
 
 def _grant_peers_full(
@@ -121,20 +119,22 @@ def _rows(block, lo: int, hi: int):
 
 
 def _peers_by_slot(
-    block: GrantBlock, total: int, chunk: int,
+    block: GrantBlock, slots: torch.Tensor, total: int, chunk: int,
     pod_kv, pod_key, ns_kv, ns_key, pod_ns, pol_ns,
 ) -> torch.Tensor:
-    """int8 [total, N]: OR of each policy's grant peer rows, computed in
-    G-chunks so no [G, N] array is ever resident (at 100k pods a full peer
-    matrix alone would be several GB). The OR is an int32 ``index_add_``
-    followed by ``> 0``: integer sums are exact whatever the order of the
-    device's atomic adds."""
+    """int8 [total, N]: OR of each slot's grant peer rows (grant ``g`` goes
+    to slot ``slots[g]``), computed in G-chunks so no [G, N] array is ever
+    resident (at 100k pods a full peer matrix alone would be several GB).
+    The slot axis is the policy axis for the any-port solve and the
+    virtual-policy axis for the port-bitmap path. The OR is an int32
+    ``index_add_`` followed by ``> 0``: integer sums are exact whatever the
+    order of the device's atomic adds."""
     N = pod_kv.shape[0]
     acc = torch.zeros((total, N), dtype=_I32, device=pod_kv.device)
     for g0 in range(0, block.pol.shape[0], chunk):
         blk = _rows(block, g0, g0 + chunk)
         peers = _grant_peers_full(blk, pod_kv, pod_key, ns_kv, ns_key, pod_ns, pol_ns)
-        acc.index_add_(0, blk.pol.long(), peers.to(_I32))
+        acc.index_add_(0, slots[g0 : g0 + chunk].long(), peers.to(_I32))
     return (acc > 0).to(_I8)
 
 
@@ -173,6 +173,12 @@ def _sweep_packed(
     return out & col_mask[None, :]
 
 
+def _with_sink(pol_ns: torch.Tensor) -> torch.Tensor:
+    """``pol_ns`` with one extra entry for the sink policy slot ``P`` of pad
+    grants: a namespace no pod has, so a sink grant peers nothing."""
+    return torch.cat([pol_ns, pol_ns.new_full((1,), -2)])
+
+
 def _policy_maps(
     pod_kv, pod_key, pod_ns, ns_kv, ns_key, pol_sel, pol_ns, aff_ing, aff_eg,
     ingress: GrantBlock, egress: GrantBlock,
@@ -188,14 +194,14 @@ def _policy_maps(
         pod_kv, pod_key, pod_ns, pol_sel, pol_ns, aff_ing, aff_eg,
         direction_aware_isolation,
     )
-    # the sink slot P of pad grants gets a namespace no pod has
-    pol_ns_ext = torch.cat([pol_ns, pol_ns.new_full((1,), -2)])
+    pol_ns_ext = _with_sink(pol_ns)
 
     def peers_by_policy(block: GrantBlock) -> torch.Tensor:
         """int8 [P, N]: OR of each policy's grant peer rows (the sink row P
         trimmed)."""
         return _peers_by_slot(
-            block, P + 1, chunk, pod_kv, pod_key, ns_kv, ns_key, pod_ns, pol_ns_ext
+            block, block.pol, P + 1, chunk,
+            pod_kv, pod_key, ns_kv, ns_key, pod_ns, pol_ns_ext,
         )[:P]
 
     ing_by_pol = peers_by_policy(ingress)  # int8 [P, N] (src side)
@@ -245,32 +251,47 @@ def _tiled_step(
     return out, ing_iso, eg_iso, selected8 > 0
 
 
-def _device_args(enc: EncodedCluster, tile: int, chunk: int, dev) -> tuple:
-    """The padding contract, then one transfer: N padded to a tile multiple
-    (pad pods in namespace −1), the grant axis padded to a chunk multiple
-    with inert sink-policy rows, and the packed ``col_mask`` of the real dst
-    columns (the reference's uint32 words seen as int32)."""
+def _host_args(
+    enc: EncodedCluster, pad_to: int, chunk: int,
+    ingress: Optional[GrantBlock] = None, egress: Optional[GrantBlock] = None,
+) -> tuple:
+    """The padding contract, on the host: N padded to a ``pad_to`` multiple
+    (pad pods in namespace −1), the grant axis (``enc``'s blocks, or the
+    run-split ones the caller passes) padded to a chunk multiple with inert
+    sink-policy rows, and the packed ``col_mask`` of the real dst columns
+    (the reference's uint32 words seen as int32). numpy, in the order of
+    ``_device_args``."""
     n = enc.n_pods
-    n_pad = (tile - n % tile) % tile
-    pod_kv = np.pad(enc.pod_kv, ((0, n_pad), (0, 0)))
-    pod_key = np.pad(enc.pod_key, ((0, n_pad), (0, 0)))
-    pod_ns = np.pad(enc.pod_ns, (0, n_pad), constant_values=-1)
+    n_pad = (pad_to - n % pad_to) % pad_to
     P = enc.n_policies
-    ingress = pad_grants(enc.ingress, (chunk - enc.ingress.n % chunk) % chunk, P, n_pad)
-    egress = pad_grants(enc.egress, (chunk - enc.egress.n % chunk) % chunk, P, n_pad)
+    ingress = enc.ingress if ingress is None else ingress
+    egress = enc.egress if egress is None else egress
     col_valid = np.zeros(n + n_pad, dtype=bool)
     col_valid[:n] = True
-    col_mask = np.packbits(col_valid, bitorder="little").view("<i4").copy()
-
-    def put(x):
-        return torch.as_tensor(x, device=dev)
-
     return (
-        put(pod_kv), put(pod_key), put(pod_ns), put(enc.ns_kv), put(enc.ns_key),
-        as_tensors(enc.pol_sel, dev), put(enc.pol_ns),
-        put(enc.pol_affects_ingress), put(enc.pol_affects_egress),
-        as_tensors(ingress, dev), as_tensors(egress, dev), put(col_mask),
+        np.pad(enc.pod_kv, ((0, n_pad), (0, 0))),
+        np.pad(enc.pod_key, ((0, n_pad), (0, 0))),
+        np.pad(enc.pod_ns, (0, n_pad), constant_values=-1),
+        enc.ns_kv, enc.ns_key, enc.pol_sel, enc.pol_ns,
+        enc.pol_affects_ingress, enc.pol_affects_egress,
+        pad_grants(ingress, (chunk - ingress.n % chunk) % chunk, P, n_pad),
+        pad_grants(egress, (chunk - egress.n % chunk) % chunk, P, n_pad),
+        np.packbits(col_valid, bitorder="little").view("<i4").copy(),
     )
+
+
+def _put(host: tuple, dev) -> tuple:
+    """One transfer of ``_host_args``'s arrays (and dataclasses of arrays)
+    to ``dev``."""
+    return tuple(
+        as_tensors(x, dev) if dataclasses.is_dataclass(x) else torch.as_tensor(x, device=dev)
+        for x in host
+    )
+
+
+def _device_args(enc: EncodedCluster, tile: int, chunk: int, dev) -> tuple:
+    """``_host_args`` with N padded to a tile multiple, on ``dev``."""
+    return _put(_host_args(enc, tile, chunk), dev)
 
 
 def kernel_operands(
@@ -464,38 +485,53 @@ def tiled_k8s_reach(
     device=None,
     fetch: bool = True,
     use_kernel: Optional[bool] = None,
+    max_port_masks: int = _MAX_PORT_MASKS,
 ) -> PackedReach:
     """Host wrapper: pad N to a tile multiple, run the tiled step on
     ``device`` (default ``"cuda"``; raises without one), trim.
 
-    ``use_kernel=None`` auto-selects: the CUDA kernel ``packed_dir_allow``
-    on a CUDA device, the torch sweep otherwise. ``use_kernel=True`` on the
-    CPU runs the kernel's plain version through the same wrapper.
+    A multi-atom encoding (``encode_cluster(compute_ports=True)`` with at
+    least one rule naming ports) takes the port-bitmap path
+    (``ops/tiled_ports.py``); at most ``max_port_masks`` distinct ported
+    masks after run-splitting, else ``ConfigError``. Any other encoding
+    takes the any-port solve.
+
+    ``use_kernel=None`` auto-selects: the CUDA kernel (``packed_dir_allow``
+    any-port, ``fused_ports_reach`` port-bitmap) on a CUDA device, the torch
+    sweep otherwise. ``use_kernel=True`` on the CPU runs the kernel's plain
+    version through the same wrapper.
 
     ``fetch=False`` leaves the packed matrix on the device
     (``PackedReach.packed`` is an int32 tensor) and synchronises on the
     reachable-pair count instead (``timings["reachable_pairs"]``)."""
     dev = resolve_device(device)
-    if len(enc.atoms) > 1:
-        raise ConfigError(_PORTS_TODO)
     if use_kernel is None:
         use_kernel = dev.type == "cuda"
     n = enc.n_pods
-    tile = max(32, min(tile, 1 << 20))
-    if tile % 32:
-        raise ConfigError("tile must be a multiple of 32")
-    if use_kernel and tile % N_TILE:
-        raise ConfigError(f"use_kernel requires tile % {N_TILE} == 0 (kernel tile)")
-    t0 = time.perf_counter()
-    packed, ing_iso, eg_iso, selected = _tiled_step(
-        *_device_args(enc, tile, chunk, dev),
-        tile=tile,
-        chunk=chunk,
+    flags = dict(
         self_traffic=self_traffic,
         default_allow_unselected=default_allow_unselected,
         direction_aware_isolation=direction_aware_isolation,
-        use_kernel=use_kernel,
     )
+    t0 = time.perf_counter()
+    if len(enc.atoms) > 1:
+        from .tiled_ports import ports_step
+
+        packed, ing_iso, eg_iso, selected, kernel = ports_step(
+            enc, tile=tile, chunk=chunk, dev=dev, use_kernel=use_kernel,
+            max_port_masks=max_port_masks, **flags,
+        )
+    else:
+        tile = max(32, min(tile, 1 << 20))
+        if tile % 32:
+            raise ConfigError("tile must be a multiple of 32")
+        if use_kernel and tile % N_TILE:
+            raise ConfigError(f"use_kernel requires tile % {N_TILE} == 0 (kernel tile)")
+        packed, ing_iso, eg_iso, selected = _tiled_step(
+            *_device_args(enc, tile, chunk, dev),
+            tile=tile, chunk=chunk, use_kernel=use_kernel, **flags,
+        )
+        kernel = "packed_dir_allow" if use_kernel else "torch-sweep"
     if fetch:
         packed_out = to_host_words(packed[:n])
         label = "solve+fetch"
@@ -512,7 +548,7 @@ def tiled_k8s_reach(
         egress_isolated=eg_iso[:n].cpu().numpy(),
         selected=None,
         timings={label: t1 - t0},
-        meta={"kernel": "packed_dir_allow" if use_kernel else "torch-sweep"},
+        meta={"kernel": kernel},
     )
     if not fetch:
         out.timings["reachable_pairs"] = total

@@ -1,5 +1,5 @@
-"""The port on an NVIDIA GPU: the hand-written CUDA kernel against its plain
-PyTorch version, and the solves on the card against the same solves on the
+"""The port on an NVIDIA GPU: the hand-written CUDA kernels against their
+plain PyTorch versions, and the solves on the card against the same solves on the
 CPU (exact: every output is boolean or integer words).
 
 Every test here is marked ``cuda`` and skips without a GPU. The file
@@ -14,6 +14,9 @@ import torch
 
 import kubernetes_verification_tpu_torch as kvt
 from kubernetes_verification_tpu_torch.ops.kernels import (
+    K_STEP,
+    fused_ports_reach,
+    fused_ports_reach_reference,
     packed_dir_allow,
     packed_dir_allow_reference,
 )
@@ -82,3 +85,68 @@ def test_verify_on_card_matches_cpu(cuda_device, compute_ports):
         assert (g is None) == (w is None), name
         if g is not None:
             np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def _fused_case(rng, n, r, lengths):
+    """Random K-contiguous operands over egress planes 0..r (the last one
+    the full block) then ingress segments, each padded to ``K_STEP``; each
+    segment's density keeps its ``count > 0`` near 3 % of the elements."""
+    segs = [(0, m) for m in range(r)] + [(1, r)]
+    segs += [(2, m) for m in range(r)] + [(3, r)]
+    kp = sum(l + (-l) % K_STEP for l in lengths[: len(segs)])
+    at = np.zeros((n, kp), np.int8)
+    bt = np.zeros((n, kp), np.int8)
+    plan, off = [], 0
+    for (kind, slab), l in zip(segs, lengths):
+        p = np.sqrt(0.03 / l)
+        at[:, off : off + l] = rng.random((n, l)) < p
+        bt[:, off : off + l] = rng.random((n, l)) < p
+        off += l + (-l) % K_STEP
+        plan.append((off // K_STEP, kind, slab))
+    masks = rng.random((r, 6)) < 0.3
+    ov = [int(sum(1 << int(j) for j in np.nonzero((masks[m] & masks).any(1))[0]) | (1 << r))
+          for m in range(r)]
+    niso = [(rng.random(n) < 0.5).astype(np.int32) for _ in range(2)]
+    return at, bt, np.asarray(plan, np.int32), np.asarray(ov, np.int64), *niso
+
+
+@pytest.mark.parametrize("n,r", [(256, 0), (384, 1), (256, 19), (128, 36)])
+def test_fused_kernel_matches_plain_version(cuda_device, n, r):
+    rng = np.random.default_rng(n + r)
+    lengths = rng.integers(1, 150, size=2 * r + 2)
+    ops = _fused_case(rng, n, r, lengths)
+    dev_ops = [torch.as_tensor(x, device=cuda_device) for x in ops]
+    for da in (True, False):
+        before = fused_ports_reach.launches
+        got = fused_ports_reach(*dev_ops, default_allow=da)
+        torch.cuda.synchronize()
+        assert fused_ports_reach.launches == before + 1
+        want = fused_ports_reach_reference(*dev_ops, default_allow=da)
+        assert torch.equal(got, want), da
+        cpu = fused_ports_reach(*(torch.as_tensor(x) for x in ops), default_allow=da)
+        assert torch.equal(want.cpu(), cpu), da
+
+
+def test_tiled_ports_kernel_path_matches_sweep_and_cpu(cuda_device):
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=700, n_policies=60, n_namespaces=4, p_ports=0.8, p_named_port=0.3,
+        p_container_ports=0.5, seed=3,
+    ))
+    enc = kvt.encode_cluster(cluster, compute_ports=True)
+    assert len(enc.atoms) > 1
+    before = (fused_ports_reach.launches, packed_dir_allow.launches)
+    got = kvt.tiled_k8s_reach(enc, chunk=64, fetch=False)
+    assert (fused_ports_reach.launches, packed_dir_allow.launches) == (
+        before[0] + 1, before[1]
+    )
+    assert got.meta == {"kernel": "fused_ports_reach"}
+    w = -(-700 // 32)
+    sweep = kvt.tiled_k8s_reach(enc, chunk=64, fetch=False, use_kernel=False)
+    assert torch.equal(got.packed[:, :w], sweep.packed[:, :w])
+    assert not got.packed[:, w:].any()
+    cpu = kvt.tiled_k8s_reach(enc, chunk=64, device="cpu")
+    np.testing.assert_array_equal(got.packed.cpu().numpy().view("<u4")[:, :w], cpu.packed[:, :w])
+    assert got.timings["reachable_pairs"] == sweep.timings["reachable_pairs"]
+    assert got.timings["reachable_pairs"] == int(cpu.out_degree().sum())
+    dense = kvt.verify(cluster, kvt.VerifyConfig(compute_ports=True))
+    np.testing.assert_array_equal(cpu.to_bool(), dense.reach)

@@ -95,10 +95,15 @@ def test_packed_queries_match_jax_host_and_device():
 
 
 def test_multi_atom_encoding_is_refused():
+    """A multi-atom encoding takes the port-bitmap path; what is refused now
+    is one whose distinct ported masks exceed ``max_port_masks``, on both
+    routes (``tests/test_torch_ports.py`` holds the path against JAX)."""
     _, penc = carried(**_gen(40, 3), p_ports=0.9, compute_ports=True)
     assert len(penc.atoms) > 1
-    with pytest.raises(ConfigError, match="port-bitmap"):
-        tiled_k8s_reach(penc, device="cpu")
+    for use_kernel in (False, True):
+        with pytest.raises(ConfigError, match="max_port_masks=1"):
+            tiled_k8s_reach(penc, device="cpu", use_kernel=use_kernel, max_port_masks=1)
+    assert tiled_k8s_reach(penc, device="cpu").meta == {"kernel": "torch-ports-sweep"}
 
 
 def test_kernel_operands_are_what_the_solve_contracts():

@@ -27,7 +27,12 @@ def carried(**gen):
     holds ``GeneratorConfig`` fields plus ``compute_ports``."""
     compute_ports = gen.pop("compute_ports", False)
     cluster = jax_random_cluster(JaxGeneratorConfig(**gen))
-    jenc = jax_encode(cluster, compute_ports=compute_ports)
+    return carry(jax_encode(cluster, compute_ports=compute_ports))
+
+
+def carry(jenc):
+    """``(jenc, port_encoding)``: the JAX package's encoding and the same
+    arrays as the port's ``EncodedCluster``."""
     penc = encoding_from_arrays(
         encoding_to_arrays(jenc),
         n_pods=jenc.n_pods,
