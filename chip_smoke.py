@@ -211,6 +211,19 @@ def fused_small(dev) -> int:
                 fail(f"fused_ports_reach differs from its plain version ({name}, "
                      f"default_allow={da})")
             worst = max(worst, err)
+    # a plan the kernel cannot walk (here: one that ends short of K') is
+    # refused on the card before any launch
+    from kubernetes_verification_tpu_torch.resilience.errors import ConfigError
+
+    at, bt, plan, *rest = fused_operands(rng, 256, 2, {(1, 2): 70, (3, 2): 90}, dev)
+    before = fused_ports_reach.launches
+    try:
+        fused_ports_reach(at, bt, plan[:1].contiguous(), *rest, default_allow=True)
+        fail("fused_ports_reach launched on a plan that ends short of K'")
+    except ConfigError as e:
+        log(f"fused_ports_reach refuses a short plan on the card: {e}")
+    if fused_ports_reach.launches != before:
+        fail("fused_ports_reach counted a launch for a refused plan")
     return worst
 
 
@@ -407,9 +420,9 @@ def fused_full(enc, dev, smi: str) -> dict:
     from kubernetes_verification_tpu_torch.ops.tiled_ports import port_kernel_operands
 
     ops = port_kernel_operands(enc, device=dev)
-    at, bt, plan, ov, niso_i, niso_e = ops[:6]
+    at, bt, plan, ov, niso_i, niso_e = ops.args
     N, kp = at.shape
-    K = ops.stats["K"]
+    K = ops.stats["K"]  # the real VP rows: the segments' sink pad rows are zero
 
     def kernel():
         return fused_ports_reach(at, bt, plan, ov, niso_i, niso_e, default_allow=True)
@@ -445,7 +458,8 @@ def fused_full(enc, dev, smi: str) -> dict:
         library_ms = cuda_ms(lambda: torch._int_mm(at, bt.t()))
     else:
         log(f"fused_ports_reach: library yardstick skipped, {free / 2**30:.1f} GiB free")
-    log(f"kernel fused_ports_reach N={N} K={K} K'={kp} R={ov.shape[0]} "
+    log(f"kernel fused_ports_reach N={N} K={K} (with the sink pad rows "
+        f"{ops.stats['K_layout']}) K'={kp} R={ov.shape[0]} "
         f"segments={plan.shape[0]}: {ms:.2f} ms, plain {plain_ms:.1f} ms, bound "
         f"{bound_ms:.2f} ms ({bound_by}), torch._int_mm (GEMM only) "
         f"{library_ms if library_ms is None else f'{library_ms:.2f} ms'}, "

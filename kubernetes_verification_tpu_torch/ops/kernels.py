@@ -236,7 +236,11 @@ def check_mask_count(r: int) -> None:
         )
 
 
-def _check_fused(at, bt, plan, ov, niso_i, niso_e):
+def _check_fused(at, bt, plan, ov, niso_i, niso_e) -> list:
+    """``ConfigError`` unless both routes of ``fused_ports_reach`` take these
+    operands; the plan's segments (``_plan_segments``). The kernel flushes
+    only where a K step ends a plan row, so a plan it cannot walk is refused
+    here, on the card as on the CPU."""
     if at.dtype != torch.int8 or bt.dtype != torch.int8:
         raise ConfigError(f"fused_ports_reach takes int8 operands, got {at.dtype}/{bt.dtype}")
     if at.dim() != 2 or at.shape != bt.shape:
@@ -261,6 +265,7 @@ def _check_fused(at, bt, plan, ov, niso_i, niso_e):
         raise ConfigError("fused_ports_reach's operands must be on one device")
     if not all(t.is_contiguous() for t in (at, bt, plan, ov, niso_i, niso_e)):
         raise ConfigError("fused_ports_reach takes contiguous tensors")
+    return _plan_segments(plan, kp, ov.shape[0])
 
 
 def _plan_segments(plan: torch.Tensor, kp: int, r: int) -> list:
@@ -295,10 +300,9 @@ def fused_ports_reach_reference(
     (counts ≤ K' < 2²⁴, TF32 off), ``> 0``, and the same flush as the
     kernel into int64 per-element state (egress planes as bits 0..R); then
     the default-allow expansion and the pack. Any device."""
-    _check_fused(at, bt, plan, ov, niso_i, niso_e)
-    n, kp = at.shape
+    segs = _check_fused(at, bt, plan, ov, niso_i, niso_e)
+    n = at.shape[0]
     r = ov.shape[0]
-    segs = _plan_segments(plan, kp, r)
     masks = ov.tolist() + [(1 << (r + 1)) - 1]  # kind 3 overlaps every plane
     a_segs = [at[:, k0:k1].to(torch.float32).contiguous() for k0, k1, _, _ in segs]
     di_all = niso_i > 0
@@ -349,7 +353,8 @@ def fused_ports_reach(
     set: the full egress block overlaps every mask.
 
     CPU tensors take the plain version; a CUDA tensor launches the kernel,
-    counted in ``fused_ports_reach.launches``. R above ``FUSED_MAX_MASKS``
+    counted in ``fused_ports_reach.launches``. R above ``FUSED_MAX_MASKS``,
+    or a plan that does not tile ``[0, K')`` in whole non-empty K steps,
     raises ``ConfigError`` on either."""
     _check_fused(at, bt, plan, ov, niso_i, niso_e)
     if at.device.type == "cpu":

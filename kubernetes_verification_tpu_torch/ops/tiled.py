@@ -24,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Union
+from typing import Any, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -56,9 +56,25 @@ __all__ = [
 _I8 = torch.int8
 _I32 = torch.int32
 
-#: cap on R, the distinct ported masks after run-splitting (the JAX
-#: package's ``ops/tiled.py::_MAX_PORT_MASKS``)
-_MAX_PORT_MASKS = 128
+
+class HostArgs(NamedTuple):
+    """The padded operands of one solve (``_host_args``): numpy arrays, or
+    tensors on a device after ``_put``. The grant blocks are ``GrantBlock``s
+    of arrays; ``col_mask`` is the packed int32 mask of the real dst
+    columns."""
+
+    pod_kv: Any
+    pod_key: Any
+    pod_ns: Any
+    ns_kv: Any
+    ns_key: Any
+    pol_sel: Any
+    pol_ns: Any
+    aff_ing: Any
+    aff_eg: Any
+    ingress: GrantBlock
+    egress: GrantBlock
+    col_mask: Any
 
 
 def _grant_peers_full(
@@ -82,19 +98,16 @@ def _grant_peers_full(
     return ok | block.match_all[:, None]
 
 
-def _select_maps(
-    pod_kv, pod_key, pod_ns, pol_sel, pol_ns, aff_ing, aff_eg,
-    direction_aware_isolation: bool,
-):
+def _select_maps(a: HostArgs, direction_aware_isolation: bool):
     """``selected_by_pol`` as int8 [P, N], its per-direction variants, and
     the isolation vectors."""
     selected8 = (
-        match_selectors(pol_sel, pod_kv, pod_key)
-        & (pol_ns[:, None] == pod_ns[None, :])
+        match_selectors(a.pol_sel, a.pod_kv, a.pod_key)
+        & (a.pol_ns[:, None] == a.pod_ns[None, :])
     ).to(_I8)
     if direction_aware_isolation:
-        sel_ing8 = selected8 * aff_ing.to(_I8)[:, None]
-        sel_eg8 = selected8 * aff_eg.to(_I8)[:, None]
+        sel_ing8 = selected8 * a.aff_ing.to(_I8)[:, None]
+        sel_eg8 = selected8 * a.aff_eg.to(_I8)[:, None]
     else:
         sel_ing8 = selected8
         sel_eg8 = selected8
@@ -179,33 +192,26 @@ def _with_sink(pol_ns: torch.Tensor) -> torch.Tensor:
     return torch.cat([pol_ns, pol_ns.new_full((1,), -2)])
 
 
-def _policy_maps(
-    pod_kv, pod_key, pod_ns, ns_kv, ns_key, pol_sel, pol_ns, aff_ing, aff_eg,
-    ingress: GrantBlock, egress: GrantBlock,
-    *,
-    chunk: int,
-    direction_aware_isolation: bool,
-):
+def _policy_maps(a: HostArgs, *, chunk: int, direction_aware_isolation: bool):
     """The per-policy int8 [P, N] maps both solves contract, and the
     isolation vectors: ``(selected8, sel_ing8, sel_eg8, ing_iso, eg_iso,
     ing_by_pol, eg_by_pol)``."""
-    P = pol_ns.shape[0]
+    P = a.pol_ns.shape[0]
     selected8, sel_ing8, sel_eg8, ing_iso, eg_iso = _select_maps(
-        pod_kv, pod_key, pod_ns, pol_sel, pol_ns, aff_ing, aff_eg,
-        direction_aware_isolation,
+        a, direction_aware_isolation
     )
-    pol_ns_ext = _with_sink(pol_ns)
+    pol_ns_ext = _with_sink(a.pol_ns)
 
     def peers_by_policy(block: GrantBlock) -> torch.Tensor:
         """int8 [P, N]: OR of each policy's grant peer rows (the sink row P
         trimmed)."""
         return _peers_by_slot(
             block, block.pol, P + 1, chunk,
-            pod_kv, pod_key, ns_kv, ns_key, pod_ns, pol_ns_ext,
+            a.pod_kv, a.pod_key, a.ns_kv, a.ns_key, a.pod_ns, pol_ns_ext,
         )[:P]
 
-    ing_by_pol = peers_by_policy(ingress)  # int8 [P, N] (src side)
-    eg_by_pol = peers_by_policy(egress)  # int8 [P, N] (dst side)
+    ing_by_pol = peers_by_policy(a.ingress)  # int8 [P, N] (src side)
+    eg_by_pol = peers_by_policy(a.egress)  # int8 [P, N] (dst side)
     return selected8, sel_ing8, sel_eg8, ing_iso, eg_iso, ing_by_pol, eg_by_pol
 
 
@@ -216,7 +222,8 @@ def _not_iso(iso: torch.Tensor) -> torch.Tensor:
 
 
 def _tiled_step(
-    *args,
+    a: HostArgs,
+    *,
     tile: int,
     chunk: int,
     self_traffic: bool,
@@ -224,12 +231,11 @@ def _tiled_step(
     direction_aware_isolation: bool,
     use_kernel: bool,
 ):
-    """``args``: the device operands of ``_device_args`` (col_mask last)."""
-    *inputs, col_mask = args
+    """The any-port solve over the device operands ``a`` (``_device_args``)."""
+    col_mask = a.col_mask
     selected8, sel_ing8, sel_eg8, ing_iso, eg_iso, ing_by_pol, eg_by_pol = (
         _policy_maps(
-            *inputs, chunk=chunk,
-            direction_aware_isolation=direction_aware_isolation,
+            a, chunk=chunk, direction_aware_isolation=direction_aware_isolation
         )
     )
     if use_kernel:
@@ -254,13 +260,12 @@ def _tiled_step(
 def _host_args(
     enc: EncodedCluster, pad_to: int, chunk: int,
     ingress: Optional[GrantBlock] = None, egress: Optional[GrantBlock] = None,
-) -> tuple:
+) -> HostArgs:
     """The padding contract, on the host: N padded to a ``pad_to`` multiple
     (pad pods in namespace −1), the grant axis (``enc``'s blocks, or the
     run-split ones the caller passes) padded to a chunk multiple with inert
     sink-policy rows, and the packed ``col_mask`` of the real dst columns
-    (the reference's uint32 words seen as int32). numpy, in the order of
-    ``_device_args``."""
+    (the reference's uint32 words seen as int32). numpy."""
     n = enc.n_pods
     n_pad = (pad_to - n % pad_to) % pad_to
     P = enc.n_policies
@@ -268,28 +273,29 @@ def _host_args(
     egress = enc.egress if egress is None else egress
     col_valid = np.zeros(n + n_pad, dtype=bool)
     col_valid[:n] = True
-    return (
-        np.pad(enc.pod_kv, ((0, n_pad), (0, 0))),
-        np.pad(enc.pod_key, ((0, n_pad), (0, 0))),
-        np.pad(enc.pod_ns, (0, n_pad), constant_values=-1),
-        enc.ns_kv, enc.ns_key, enc.pol_sel, enc.pol_ns,
-        enc.pol_affects_ingress, enc.pol_affects_egress,
-        pad_grants(ingress, (chunk - ingress.n % chunk) % chunk, P, n_pad),
-        pad_grants(egress, (chunk - egress.n % chunk) % chunk, P, n_pad),
-        np.packbits(col_valid, bitorder="little").view("<i4").copy(),
+    return HostArgs(
+        pod_kv=np.pad(enc.pod_kv, ((0, n_pad), (0, 0))),
+        pod_key=np.pad(enc.pod_key, ((0, n_pad), (0, 0))),
+        pod_ns=np.pad(enc.pod_ns, (0, n_pad), constant_values=-1),
+        ns_kv=enc.ns_kv, ns_key=enc.ns_key, pol_sel=enc.pol_sel, pol_ns=enc.pol_ns,
+        aff_ing=enc.pol_affects_ingress, aff_eg=enc.pol_affects_egress,
+        ingress=pad_grants(ingress, (chunk - ingress.n % chunk) % chunk, P, n_pad),
+        egress=pad_grants(egress, (chunk - egress.n % chunk) % chunk, P, n_pad),
+        col_mask=np.packbits(col_valid, bitorder="little").view("<i4").copy(),
     )
 
 
-def _put(host: tuple, dev) -> tuple:
-    """One transfer of ``_host_args``'s arrays (and dataclasses of arrays)
-    to ``dev``."""
-    return tuple(
+def _put(host, dev):
+    """One transfer to ``dev`` of every field of a NamedTuple of arrays
+    (``HostArgs``, ``tiled_ports.VPArrays``), dataclasses of arrays
+    included; the same NamedTuple of tensors."""
+    return type(host)(*(
         as_tensors(x, dev) if dataclasses.is_dataclass(x) else torch.as_tensor(x, device=dev)
         for x in host
-    )
+    ))
 
 
-def _device_args(enc: EncodedCluster, tile: int, chunk: int, dev) -> tuple:
+def _device_args(enc: EncodedCluster, tile: int, chunk: int, dev) -> HostArgs:
     """``_host_args`` with N padded to a tile multiple, on ``dev``."""
     return _put(_host_args(enc, tile, chunk), dev)
 
@@ -308,13 +314,13 @@ def kernel_operands(
     solve ANDs after it; for measuring the kernel at the main path's
     shapes."""
     dev = resolve_device(device)
-    *inputs, col_mask = _device_args(enc, tile, chunk, dev)
+    a = _device_args(enc, tile, chunk, dev)
     _, sel_ing8, sel_eg8, ing_iso, eg_iso, ing_by_pol, eg_by_pol = _policy_maps(
-        *inputs, chunk=chunk, direction_aware_isolation=direction_aware_isolation
+        a, chunk=chunk, direction_aware_isolation=direction_aware_isolation
     )
     return (
         ing_by_pol, sel_ing8, sel_eg8, eg_by_pol,
-        _not_iso(ing_iso), _not_iso(eg_iso), col_mask,
+        _not_iso(ing_iso), _not_iso(eg_iso), a.col_mask,
     )
 
 
@@ -485,16 +491,15 @@ def tiled_k8s_reach(
     device=None,
     fetch: bool = True,
     use_kernel: Optional[bool] = None,
-    max_port_masks: int = _MAX_PORT_MASKS,
 ) -> PackedReach:
     """Host wrapper: pad N to a tile multiple, run the tiled step on
     ``device`` (default ``"cuda"``; raises without one), trim.
 
     A multi-atom encoding (``encode_cluster(compute_ports=True)`` with at
     least one rule naming ports) takes the port-bitmap path
-    (``ops/tiled_ports.py``); at most ``max_port_masks`` distinct ported
-    masks after run-splitting, else ``ConfigError``. Any other encoding
-    takes the any-port solve.
+    (``ops/tiled_ports.py``); at most 128 distinct ported masks after
+    run-splitting (61 on the kernel route), else ``ConfigError``. Any other
+    encoding takes the any-port solve.
 
     ``use_kernel=None`` auto-selects: the CUDA kernel (``packed_dir_allow``
     any-port, ``fused_ports_reach`` port-bitmap) on a CUDA device, the torch
@@ -518,8 +523,7 @@ def tiled_k8s_reach(
         from .tiled_ports import ports_step
 
         packed, ing_iso, eg_iso, selected, kernel = ports_step(
-            enc, tile=tile, chunk=chunk, dev=dev, use_kernel=use_kernel,
-            max_port_masks=max_port_masks, **flags,
+            enc, tile=tile, chunk=chunk, dev=dev, use_kernel=use_kernel, **flags
         )
     else:
         tile = max(32, min(tile, 1 << 20))
@@ -528,7 +532,7 @@ def tiled_k8s_reach(
         if use_kernel and tile % N_TILE:
             raise ConfigError(f"use_kernel requires tile % {N_TILE} == 0 (kernel tile)")
         packed, ing_iso, eg_iso, selected = _tiled_step(
-            *_device_args(enc, tile, chunk, dev),
+            _device_args(enc, tile, chunk, dev),
             tile=tile, chunk=chunk, use_kernel=use_kernel, **flags,
         )
         kernel = "packed_dir_allow" if use_kernel else "torch-sweep"

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,18 +43,13 @@ from ..resilience.errors import ConfigError
 from .bits import or_diagonal, pack_bool_cols
 from .kernels import K_STEP, N_TILE, check_mask_count, fused_ports_reach
 from .match import exact_fp32
-from .tiled import (
-    _MAX_PORT_MASKS,
-    _host_args,
-    _peers_by_slot,
-    _put,
-    _select_maps,
-    _with_sink,
-)
+from .tiled import HostArgs, _host_args, _peers_by_slot, _put, _select_maps, _with_sink
 
 __all__ = [
+    "FusedArgs",
     "PortLayout",
     "PortOperands",
+    "VPArrays",
     "ports_step",
     "port_kernel_operands",
     "port_layout_stats",
@@ -63,6 +58,11 @@ __all__ = [
 _I8 = torch.int8
 _I32 = torch.int32
 _F32 = torch.float32
+
+#: cap on R, the distinct ported masks after run-splitting, on either route
+#: (the JAX package's ``_MAX_PORT_MASKS``); the kernel route's own limit,
+#: ``kernels.FUSED_MAX_MASKS``, is lower
+_MAX_PORT_MASKS = 128
 
 #: byte budget for the sweep's per-tile mask planes (R bool [N, tile]); bounds
 #: the dst tile via R·N·tile ≤ budget (the JAX package's ``_PORT_SLAB_BUDGET``)
@@ -138,11 +138,10 @@ def _split_and_check_port_masks(
     R = max(1, len(all_masks))
     if R > limit:
         raise ConfigError(
-            f"{R} distinct ported atom masks after run-splitting exceeds "
-            f"max_port_masks={limit}: the mask-group solve does R segment "
+            f"{R} distinct ported atom masks after run-splitting exceeds the "
+            f"port path's cap of {limit}: the mask-group solve does R segment "
             "products + O(R²) combines per tile. Coarsen the cluster's port "
-            "specs, verify with compute_ports=False, or raise max_port_masks "
-            "explicitly."
+            "specs, or verify with compute_ports=False."
         )
     return ing_block, eg_block, R
 
@@ -164,6 +163,22 @@ class PortLayout(NamedTuple):
     @property
     def n_masks(self) -> int:
         return len(self.ov_rows)
+
+
+class VPArrays(NamedTuple):
+    """The per-direction virtual-policy arrays of ``_build_port_layout``
+    (``pol_*``: each VP row's policy, ``res_*``: its restriction-bank row,
+    ``slot_*``: each grant's VP row) and ``bank8``, the int8 [B, N]
+    restriction bank (row 0: no restriction). numpy, or tensors after
+    ``_put``."""
+
+    pol_i: Any
+    res_i: Any
+    slot_i: Any
+    pol_e: Any
+    res_e: Any
+    slot_e: Any
+    bank8: Any
 
 
 def _build_port_layout(
@@ -300,32 +315,26 @@ def _segments(layout: PortLayout) -> list:
 
 
 def _vp_maps(
-    pod_kv, pod_key, pod_ns, ns_kv, ns_key, pol_sel, pol_ns, aff_ing, aff_eg,
-    ingress: GrantBlock, egress: GrantBlock,
-    vp_slot_i, total_i: int, vp_slot_e, total_e: int,
-    *,
-    chunk: int,
-    direction_aware_isolation: bool,
+    a: HostArgs, vp: VPArrays, *, chunk: int, direction_aware_isolation: bool
 ):
     """The selections with the sink policy's zero row appended, the
     isolation vectors, and the per-VP peer maps: ``(selected8, sel_ing_ext,
     sel_eg_ext, ing_iso, eg_iso, vp_peers_i, vp_peers_e)``."""
     selected8, sel_ing8, sel_eg8, ing_iso, eg_iso = _select_maps(
-        pod_kv, pod_key, pod_ns, pol_sel, pol_ns, aff_ing, aff_eg,
-        direction_aware_isolation,
+        a, direction_aware_isolation
     )
     zrow = sel_ing8.new_zeros((1, sel_ing8.shape[1]))  # the sink policy row P
     sel_ing_ext = torch.cat([sel_ing8, zrow])
     sel_eg_ext = torch.cat([sel_eg8, zrow])
     del sel_ing8, sel_eg8
-    pol_ns_ext = _with_sink(pol_ns)
+    pol_ns_ext = _with_sink(a.pol_ns)
     vp_peers_i = _peers_by_slot(
-        ingress, vp_slot_i, total_i, chunk,
-        pod_kv, pod_key, ns_kv, ns_key, pod_ns, pol_ns_ext,
+        a.ingress, vp.slot_i, vp.pol_i.shape[0], chunk,
+        a.pod_kv, a.pod_key, a.ns_kv, a.ns_key, a.pod_ns, pol_ns_ext,
     )
     vp_peers_e = _peers_by_slot(
-        egress, vp_slot_e, total_e, chunk,
-        pod_kv, pod_key, ns_kv, ns_key, pod_ns, pol_ns_ext,
+        a.egress, vp.slot_e, vp.pol_e.shape[0], chunk,
+        a.pod_kv, a.pod_key, a.ns_kv, a.ns_key, a.pod_ns, pol_ns_ext,
     )
     return selected8, sel_ing_ext, sel_eg_ext, ing_iso, eg_iso, vp_peers_i, vp_peers_e
 
@@ -360,7 +369,9 @@ def _mask_group_conj(layout: PortLayout, ing_dot, eg_dot, false_t):
 
 
 def _tiled_ports_step(
-    *args,
+    a: HostArgs,
+    vp: VPArrays,
+    *,
     layout: PortLayout,
     tile: int,
     chunk: int,
@@ -368,24 +379,20 @@ def _tiled_ports_step(
     default_allow_unselected: bool,
     direction_aware_isolation: bool,
 ):
-    """The torch mask-group sweep (JAX ``_tiled_ports_step``). ``args``: the
-    eleven device operands of ``_device_args`` before ``col_mask``, then
-    ``vp_pol_i, vp_res_i, vp_slot_i, vp_pol_e, vp_res_e, vp_slot_e, bank8,
-    col_mask``.
+    """The torch mask-group sweep (JAX ``_tiled_ports_step``) over the device
+    operands ``a`` and ``vp``.
 
     ``reach = (DI∧DE) ∨ (DI∧GE_any) ∨ (DE∧GI_any) ∨ (∃q: GI_q∧GE_q)``; the
     segment counts are exact float32 products (≤ K < 2²⁴, TF32 off), the src
     operands converted once."""
-    *inputs, vp_pol_i, vp_res_i, vp_slot_i, vp_pol_e, vp_res_e, vp_slot_e, bank8, col_mask = args
     selected8, sel_ing_ext, sel_eg_ext, ing_iso, eg_iso, vp_peers_i, vp_peers_e = _vp_maps(
-        *inputs, vp_slot_i, vp_pol_i.shape[0], vp_slot_e, vp_pol_e.shape[0],
-        chunk=chunk, direction_aware_isolation=direction_aware_isolation,
+        a, vp, chunk=chunk, direction_aware_isolation=direction_aware_isolation
     )
-    vp_pol_i, vp_res_i = vp_pol_i.long(), vp_res_i.long()
+    vp_pol_i, vp_res_i, bank8 = vp.pol_i.long(), vp.res_i.long(), vp.bank8
     # named ports, egress: the dst operand is the peer map, gated per VP row
-    vp_peers_e = vp_peers_e * bank8[vp_res_e.long()]
+    vp_peers_e = vp_peers_e * bank8[vp.res_e.long()]
     src_i = vp_peers_i.to(_F32)  # [total_i, N]
-    src_e = sel_eg_ext[vp_pol_e.long()].to(_F32)  # [total_e, N]
+    src_e = sel_eg_ext[vp.pol_e.long()].to(_F32)  # [total_e, N]
     del vp_peers_i
     N = src_i.shape[1]
     out = torch.empty((N, N // 32), dtype=_I32, device=src_i.device)
@@ -417,7 +424,7 @@ def _tiled_ports_step(
         out[:, d0 // 32 : d1 // 32] = pack_bool_cols(r)
     if self_traffic:
         or_diagonal(out)
-    out &= col_mask[None, :]
+    out &= a.col_mask[None, :]
     return out, ing_iso, eg_iso, selected8 > 0
 
 
@@ -437,7 +444,7 @@ def _overlap_table(layout: PortLayout, dev) -> torch.Tensor:
 
 def _fused_operands(
     layout: PortLayout, sel_ing_ext, sel_eg_ext, vp_peers_i, vp_peers_e,
-    vp_pol_i, vp_res_i, vp_pol_e, vp_res_e, bank8,
+    vp: VPArrays,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused kernel's K-contiguous operands and its plan: ``(at, bt,
     plan)``. Each segment's src rows (egress: ``sel_eg_ext[vp_pol_e]``;
@@ -457,11 +464,11 @@ def _fused_operands(
     for dirn, s, l, kind, slab in segs:
         sl = slice(s, s + l)
         if dirn == "e":
-            a = sel_eg_ext[vp_pol_e[sl].long()]
-            b = vp_peers_e[sl] * bank8[vp_res_e[sl].long()]
+            a = sel_eg_ext[vp.pol_e[sl].long()]
+            b = vp_peers_e[sl] * vp.bank8[vp.res_e[sl].long()]
         else:
             a = vp_peers_i[sl]
-            b = sel_ing_ext[vp_pol_i[sl].long()] * bank8[vp_res_i[sl].long()]
+            b = sel_ing_ext[vp.pol_i[sl].long()] * vp.bank8[vp.res_i[sl].long()]
         at[:, off : off + l] = a.T
         bt[:, off : off + l] = b.T
         del a, b
@@ -472,29 +479,39 @@ def _fused_operands(
     return at, bt, torch.tensor(plan, dtype=_I32, device=dev)
 
 
+class FusedArgs(NamedTuple):
+    """The operands of one ``fused_ports_reach`` call, in its order."""
+
+    at: torch.Tensor
+    bt: torch.Tensor
+    plan: torch.Tensor
+    ov: torch.Tensor
+    niso_i: torch.Tensor
+    niso_e: torch.Tensor
+
+
 def _fused_inputs(
-    *args, layout: PortLayout, chunk: int, direction_aware_isolation: bool
+    a: HostArgs, vp: VPArrays, *, layout: PortLayout, chunk: int,
+    direction_aware_isolation: bool,
 ):
     """From the device operands (as for ``_tiled_ports_step``) to the fused
-    kernel's: ``(at, bt, plan, ov, niso_i, niso_e, col_mask, ing_iso,
-    eg_iso, selected8)``."""
-    *inputs, vp_pol_i, vp_res_i, vp_slot_i, vp_pol_e, vp_res_e, vp_slot_e, bank8, col_mask = args
-    ov = _overlap_table(layout, bank8.device)
+    kernel's: ``(FusedArgs, ing_iso, eg_iso, selected8)``."""
+    ov = _overlap_table(layout, vp.bank8.device)
     selected8, sel_ing_ext, sel_eg_ext, ing_iso, eg_iso, vp_peers_i, vp_peers_e = _vp_maps(
-        *inputs, vp_slot_i, vp_pol_i.shape[0], vp_slot_e, vp_pol_e.shape[0],
-        chunk=chunk, direction_aware_isolation=direction_aware_isolation,
+        a, vp, chunk=chunk, direction_aware_isolation=direction_aware_isolation
     )
     at, bt, plan = _fused_operands(
-        layout, sel_ing_ext, sel_eg_ext, vp_peers_i, vp_peers_e,
-        vp_pol_i, vp_res_i, vp_pol_e, vp_res_e, bank8,
+        layout, sel_ing_ext, sel_eg_ext, vp_peers_i, vp_peers_e, vp
     )
     niso_i = (~ing_iso).to(_I32)
     niso_e = (~eg_iso).to(_I32)
-    return at, bt, plan, ov, niso_i, niso_e, col_mask, ing_iso, eg_iso, selected8
+    return FusedArgs(at, bt, plan, ov, niso_i, niso_e), ing_iso, eg_iso, selected8
 
 
 def _tiled_ports_fused_step(
-    *args,
+    a: HostArgs,
+    vp: VPArrays,
+    *,
     layout: PortLayout,
     chunk: int,
     self_traffic: bool,
@@ -504,19 +521,15 @@ def _tiled_ports_fused_step(
     """The fused route (JAX ``_tiled_ports_fused_step``): one
     ``fused_ports_reach`` over all N, then the diagonal and ``col_mask`` on
     the words."""
-    at, bt, plan, ov, niso_i, niso_e, col_mask, ing_iso, eg_iso, selected8 = (
-        _fused_inputs(
-            *args, layout=layout, chunk=chunk,
-            direction_aware_isolation=direction_aware_isolation,
-        )
+    args, ing_iso, eg_iso, selected8 = _fused_inputs(
+        a, vp, layout=layout, chunk=chunk,
+        direction_aware_isolation=direction_aware_isolation,
     )
-    out = fused_ports_reach(
-        at, bt, plan, ov, niso_i, niso_e, default_allow=default_allow_unselected
-    )
-    del at, bt
+    out = fused_ports_reach(*args, default_allow=default_allow_unselected)
+    del args  # the two [N, K'] operands
     if self_traffic:
         or_diagonal(out)
-    out &= col_mask[None, :]
+    out &= a.col_mask[None, :]
     return out, ing_iso, eg_iso, selected8 > 0
 
 
@@ -544,15 +557,23 @@ def _resident_bytes(total_i: int, total_e: int, n: int, use_kernel: bool) -> int
     return per_pod * n
 
 
-def _prologue(enc: EncodedCluster, *, tile: int, chunk: int, use_kernel: bool,
-              max_port_masks: int):
-    """Run-split and cap R, pick the dst tile and N's padding, pad, build the
-    VP layout and ``bank8``: ``(layout, host_args, tile, split)``, where
-    ``host_args`` are ``_host_args``'s arrays followed, before ``col_mask``,
-    by the six VP arrays and ``bank8``, and ``split`` the grant counts per
+class _Prologue(NamedTuple):
+    """What the host prologue hands the device: the VP layout, the padded
+    operands, the VP arrays, the dst tile, and the grant counts per
     direction after run-splitting."""
+
+    layout: PortLayout
+    host: HostArgs
+    vp: VPArrays
+    tile: int
+    split: Tuple[int, int]
+
+
+def _prologue(enc: EncodedCluster, *, tile: int, chunk: int, use_kernel: bool) -> _Prologue:
+    """Run-split and cap R, pick the dst tile and N's padding, pad, build the
+    VP layout and ``bank8``."""
     ing_block, eg_block, R = _split_and_check_port_masks(
-        enc.ingress, enc.egress, max_port_masks
+        enc.ingress, enc.egress, _MAX_PORT_MASKS
     )
     n = enc.n_pods
     if not use_kernel:
@@ -564,32 +585,30 @@ def _prologue(enc: EncodedCluster, *, tile: int, chunk: int, use_kernel: bool,
         raise ConfigError("tile must be a multiple of 32")
     pad_to = math.lcm(tile, N_TILE) if use_kernel else tile
     host = _host_args(enc, pad_to, chunk, ing_block, eg_block)
-    ingress, egress, col_mask = host[9], host[10], host[11]
-    P = enc.n_policies
-    layout, vp_pol_i, vp_res_i, vp_slot_i, vp_pol_e, vp_res_e, vp_slot_e, _ = (
-        _build_port_layout(
-            ingress.ports, egress.ports, ingress.pol, egress.pol, sink_pol=P,
-            ing_restrict=ingress.dst_restrict, eg_restrict=egress.dst_restrict,
-        )
+    ingress, egress = host.ingress, host.egress
+    layout, pol_i, res_i, slot_i, pol_e, res_e, slot_e, _ = _build_port_layout(
+        ingress.ports, egress.ports, ingress.pol, egress.pol,
+        sink_pol=enc.n_policies,
+        ing_restrict=ingress.dst_restrict, eg_restrict=egress.dst_restrict,
     )
-    n_p = host[0].shape[0]
+    n_p = host.pod_kv.shape[0]
     bank8 = np.ones((1, n_p), dtype=np.int8)
     if enc.restrict_bank is not None:
         bank8 = np.zeros((enc.restrict_bank.shape[0], n_p), dtype=np.int8)
         bank8[:, :n] = enc.restrict_bank
-    vp = (vp_pol_i, vp_res_i, vp_slot_i, vp_pol_e, vp_res_e, vp_slot_e, bank8)
-    return layout, (*host[:11], *vp, col_mask), tile, (ing_block.n, eg_block.n)
+    vp = VPArrays(pol_i, res_i, slot_i, pol_e, res_e, slot_e, bank8)
+    return _Prologue(layout, host, vp, tile, (ing_block.n, eg_block.n))
 
 
-def _check_resident(layout_args: tuple, dev, use_kernel: bool) -> None:
-    vp_pol_i, vp_pol_e = layout_args[11], layout_args[14]
-    n_p = layout_args[0].shape[0]
-    need = _resident_bytes(len(vp_pol_i), len(vp_pol_e), n_p, use_kernel)
+def _check_resident(pro: _Prologue, dev, use_kernel: bool) -> None:
+    rows_i, rows_e = len(pro.vp.pol_i), len(pro.vp.pol_e)
+    n_p = pro.host.pod_kv.shape[0]
+    need = _resident_bytes(rows_i, rows_e, n_p, use_kernel)
     free = _free_bytes(dev)
     if free is not None and need > free:
         raise ConfigError(
             f"the port path needs ~{need / 1e9:.1f} GB of [virtual-policies, "
-            f"N] operands ({len(vp_pol_i)}+{len(vp_pol_e)} VP rows × {n_p} "
+            f"N] operands ({rows_i}+{rows_e} VP rows × {n_p} "
             f"pods), over the {free / 1e9:.1f} GB free on {dev}. Reduce the "
             "distinct (policy, port-mask) combinations, or verify with "
             "compute_ports=False."
@@ -603,7 +622,6 @@ def ports_step(
     chunk: int,
     dev: torch.device,
     use_kernel: bool,
-    max_port_masks: int,
     self_traffic: bool,
     default_allow_unselected: bool,
     direction_aware_isolation: bool,
@@ -611,64 +629,58 @@ def ports_step(
     """The multi-atom branch of ``ops/tiled.py::tiled_k8s_reach`` (JAX
     ``tiled_k8s_reach`` with ports): ``(packed, ing_iso, eg_iso, selected,
     kernel_name)`` on ``dev``, N padded."""
-    layout, host, tile, _ = _prologue(
-        enc, tile=tile, chunk=chunk, use_kernel=use_kernel,
-        max_port_masks=max_port_masks,
-    )
-    _check_resident(host, dev, use_kernel)
+    pro = _prologue(enc, tile=tile, chunk=chunk, use_kernel=use_kernel)
+    _check_resident(pro, dev, use_kernel)
     flags = dict(
+        layout=pro.layout,
         chunk=chunk,
         self_traffic=self_traffic,
         default_allow_unselected=default_allow_unselected,
         direction_aware_isolation=direction_aware_isolation,
     )
+    a, vp = _put(pro.host, dev), _put(pro.vp, dev)
     if use_kernel:
-        return (*_tiled_ports_fused_step(*_put(host, dev), layout=layout, **flags),
-                "fused_ports_reach")
-    return (*_tiled_ports_step(*_put(host, dev), layout=layout, tile=tile, **flags),
-            "torch-ports-sweep")
+        return (*_tiled_ports_fused_step(a, vp, **flags), "fused_ports_reach")
+    return (*_tiled_ports_step(a, vp, tile=pro.tile, **flags), "torch-ports-sweep")
 
 
 class PortOperands(NamedTuple):
-    """What the port path hands ``fused_ports_reach`` for one encoding, the
-    ``col_mask`` it ANDs after, and the layout's sizes (``stats``)."""
+    """What the port path hands ``fused_ports_reach`` for one encoding
+    (``args``), the ``col_mask`` it ANDs after, and the layout's sizes
+    (``stats``)."""
 
-    at: torch.Tensor
-    bt: torch.Tensor
-    plan: torch.Tensor
-    ov: torch.Tensor
-    niso_i: torch.Tensor
-    niso_e: torch.Tensor
+    args: FusedArgs
     col_mask: torch.Tensor
     stats: dict
 
 
-def _stats(enc: EncodedCluster, layout: PortLayout, host: tuple, split) -> dict:
-    segs = _segments(layout)
+def _stats(enc: EncodedCluster, pro: _Prologue) -> dict:
+    """The layout's sizes. ``K`` counts the real VP rows of the segments,
+    the rows the kernel's function needs; ``K_layout`` adds the sink rows
+    that pad each segment to a multiple of 8 (zero in both operands), and
+    ``K_padded`` (K') each segment's zero columns up to ``K_STEP``."""
+    segs = _segments(pro.layout)
+    sink = enc.n_policies
+    pol = {"i": pro.vp.pol_i, "e": pro.vp.pol_e}
     return dict(
         atoms=len(enc.atoms),
-        grants_split=split,
-        R=layout.n_masks,
-        vp_rows_i=len(host[11]),
-        vp_rows_e=len(host[14]),
-        K=sum(l for _, _, l, _, _ in segs),
+        grants_split=pro.split,
+        R=pro.layout.n_masks,
+        vp_rows_i=len(pro.vp.pol_i),
+        vp_rows_e=len(pro.vp.pol_e),
+        K=sum(int((pol[d][s : s + l] != sink).sum()) for d, s, l, _, _ in segs),
+        K_layout=sum(l for _, _, l, _, _ in segs),
         K_padded=_padded_k(segs),
-        N=host[0].shape[0],
+        N=pro.host.pod_kv.shape[0],
     )
 
 
-def port_layout_stats(
-    enc: EncodedCluster, *, tile: int = 4096, chunk: int = 2048,
-    max_port_masks: int = _MAX_PORT_MASKS,
-) -> dict:
-    """The kernel route's layout sizes for ``enc``, from the host prologue
-    alone: the port atoms, the grants per direction after run-splitting, R,
-    the VP rows per direction (sink row included), K (the rows the kernel
-    contracts), K' (each segment padded to ``K_STEP``) and N (padded)."""
-    layout, host, _, split = _prologue(
-        enc, tile=tile, chunk=chunk, use_kernel=True, max_port_masks=max_port_masks
-    )
-    return _stats(enc, layout, host, split)
+def port_layout_stats(enc: EncodedCluster, *, tile: int = 4096, chunk: int = 2048) -> dict:
+    """The kernel route's layout sizes for ``enc`` (``_stats``), from the
+    host prologue alone: the port atoms, the grants per direction after
+    run-splitting, R, the VP rows per direction (sink rows included), K, K'
+    and N (padded)."""
+    return _stats(enc, _prologue(enc, tile=tile, chunk=chunk, use_kernel=True))
 
 
 def port_kernel_operands(
@@ -678,7 +690,6 @@ def port_kernel_operands(
     chunk: int = 2048,
     direction_aware_isolation: bool = True,
     device=None,
-    max_port_masks: int = _MAX_PORT_MASKS,
 ) -> PortOperands:
     """The operands ``tiled_k8s_reach`` hands ``fused_ports_reach`` for
     ``enc`` on its kernel route, on ``device``, with ``port_layout_stats``;
@@ -686,14 +697,11 @@ def port_kernel_operands(
     from ..runtime import resolve_device
 
     dev = resolve_device(device)
-    layout, host, _, split = _prologue(
-        enc, tile=tile, chunk=chunk, use_kernel=True, max_port_masks=max_port_masks
-    )
-    _check_resident(host, dev, True)
-    at, bt, plan, ov, niso_i, niso_e, col_mask, *_ = _fused_inputs(
-        *_put(host, dev), layout=layout, chunk=chunk,
+    pro = _prologue(enc, tile=tile, chunk=chunk, use_kernel=True)
+    _check_resident(pro, dev, True)
+    a = _put(pro.host, dev)
+    args, *_ = _fused_inputs(
+        a, _put(pro.vp, dev), layout=pro.layout, chunk=chunk,
         direction_aware_isolation=direction_aware_isolation,
     )
-    return PortOperands(
-        at, bt, plan, ov, niso_i, niso_e, col_mask, _stats(enc, layout, host, split)
-    )
+    return PortOperands(args, a.col_mask, _stats(enc, pro))

@@ -101,31 +101,24 @@ def port_layers(enc, dev, stamp) -> list:
     from kubernetes_verification_tpu_torch.ops.kernels import fused_ports_reach
 
     t = time.perf_counter()
-    layout, host, _, _ = tiled_ports._prologue(
-        enc, tile=4096, chunk=2048, use_kernel=True, max_port_masks=128
-    )
+    pro = tiled_ports._prologue(enc, tile=4096, chunk=2048, use_kernel=True)
     d_host = stamp(t)
     t = time.perf_counter()
-    args = tiled._put(host, dev)
+    a, vp = tiled._put(pro.host, dev), tiled._put(pro.vp, dev)
     d_put = stamp(t)
-    *inputs, vp_pol_i, vp_res_i, vp_slot_i, vp_pol_e, vp_res_e, vp_slot_e, bank8, col_mask = args
     t = time.perf_counter()
-    tiled._select_maps(*inputs[:3], *inputs[5:9], True)
+    tiled._select_maps(a, True)
     d_select = stamp(t)
     t = time.perf_counter()
-    maps = tiled_ports._vp_maps(
-        *inputs, vp_slot_i, vp_pol_i.shape[0], vp_slot_e, vp_pol_e.shape[0],
-        chunk=2048, direction_aware_isolation=True,
-    )
+    maps = tiled_ports._vp_maps(a, vp, chunk=2048, direction_aware_isolation=True)
     d_maps = stamp(t) - d_select  # _vp_maps re-runs the selection
     _, sel_ing_ext, sel_eg_ext, ing_iso, eg_iso, vp_peers_i, vp_peers_e = maps
     del maps
     t = time.perf_counter()
     at, bt, plan = tiled_ports._fused_operands(
-        layout, sel_ing_ext, sel_eg_ext, vp_peers_i, vp_peers_e,
-        vp_pol_i, vp_res_i, vp_pol_e, vp_res_e, bank8,
+        pro.layout, sel_ing_ext, sel_eg_ext, vp_peers_i, vp_peers_e, vp
     )
-    ov = tiled_ports._overlap_table(layout, dev)
+    ov = tiled_ports._overlap_table(pro.layout, dev)
     niso_i, niso_e = (~ing_iso).to(torch.int32), (~eg_iso).to(torch.int32)
     d_operands = stamp(t)
     del sel_ing_ext, sel_eg_ext, vp_peers_i, vp_peers_e
@@ -134,7 +127,7 @@ def port_layers(enc, dev, stamp) -> list:
     d_kernel = stamp(t)
     t = time.perf_counter()
     or_diagonal(out)
-    out &= col_mask[None, :]
+    out &= a.col_mask[None, :]
     d_mask = stamp(t)
     t = time.perf_counter()
     total = packed_pair_total(out[: enc.n_pods])
@@ -157,14 +150,14 @@ def any_port_layers(enc, dev, stamp) -> list:
     from kubernetes_verification_tpu_torch.ops.kernels import packed_reach
 
     t = time.perf_counter()
-    *inputs, col_mask = tiled._device_args(enc, 4096, 2048, dev)
+    a = tiled._device_args(enc, 4096, 2048, dev)
     d_args = stamp(t)
     t = time.perf_counter()
-    maps = tiled._select_maps(*inputs[:3], *inputs[5:9], True)
+    maps = tiled._select_maps(a, True)
     d_select = stamp(t)
     t = time.perf_counter()
     _, sel_ing8, sel_eg8, ing_iso, eg_iso, ing_by_pol, eg_by_pol = tiled._policy_maps(
-        *inputs, chunk=2048, direction_aware_isolation=True
+        a, chunk=2048, direction_aware_isolation=True
     )
     d_maps = stamp(t) - d_select  # _policy_maps re-runs the selection
     del maps
@@ -173,7 +166,7 @@ def any_port_layers(enc, dev, stamp) -> list:
         ing_by_pol, sel_ing8, sel_eg8, eg_by_pol,
         tiled._not_iso(ing_iso), tiled._not_iso(eg_iso),
     )
-    out &= col_mask[None, :]
+    out &= a.col_mask[None, :]
     d_kernels = stamp(t)
     t = time.perf_counter()
     total = packed_pair_total(out[: enc.n_pods])

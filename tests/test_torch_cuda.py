@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import kubernetes_verification_tpu_torch as kvt
+from kubernetes_verification_tpu_torch.resilience.errors import ConfigError
 from kubernetes_verification_tpu_torch.ops.kernels import (
     K_STEP,
     fused_ports_reach,
@@ -125,6 +126,22 @@ def test_fused_kernel_matches_plain_version(cuda_device, n, r):
         assert torch.equal(got, want), da
         cpu = fused_ports_reach(*(torch.as_tensor(x) for x in ops), default_allow=da)
         assert torch.equal(want.cpu(), cpu), da
+
+
+def test_fused_kernel_refuses_a_plan_it_cannot_walk(cuda_device):
+    """The kernel flushes only where a K step ends a plan row: a plan that
+    ends short of K', or has an empty or backward row, is refused on the
+    card before any launch."""
+    rng = np.random.default_rng(5)
+    ops = _fused_case(rng, 128, 2, rng.integers(1, 150, size=6))
+    at, bt, plan, ov, ni, ne = (torch.as_tensor(x, device=cuda_device) for x in ops)
+    empty = plan.clone()
+    empty[1, 0] = empty[0, 0]
+    before = fused_ports_reach.launches
+    for bad in (plan[:-1].contiguous(), empty, plan.flip(0).contiguous()):
+        with pytest.raises(ConfigError, match="plan"):
+            fused_ports_reach(at, bt, bad, ov, ni, ne, default_allow=True)
+    assert fused_ports_reach.launches == before
 
 
 def test_tiled_ports_kernel_path_matches_sweep_and_cpu(cuda_device):

@@ -119,16 +119,18 @@ def test_split_and_layout_match_jax(seed, headroom):
         assert g.dtype == w.dtype
 
 
-def test_port_mask_cap_raises():
+def test_port_mask_cap_raises(monkeypatch):
     jenc, penc = _ported(90, 7)
     _, _, R = tiled_ports._split_and_check_port_masks(penc.ingress, penc.egress, 128)
     with pytest.raises(ValueError):
         jax_tiled_mod._split_and_check_port_masks(jenc.ingress, jenc.egress, R - 1)
-    with pytest.raises(ConfigError, match="max_port_masks"):
+    with pytest.raises(ConfigError, match=f"cap of {R - 1}"):
         tiled_ports._split_and_check_port_masks(penc.ingress, penc.egress, R - 1)
-    with pytest.raises(ConfigError, match="max_port_masks"):
-        tiled_k8s_reach(penc, device="cpu", max_port_masks=R - 1)
-    assert tiled_k8s_reach(penc, device="cpu", max_port_masks=R).n_pods == 90
+    monkeypatch.setattr(tiled_ports, "_MAX_PORT_MASKS", R - 1)
+    with pytest.raises(ConfigError, match=f"cap of {R - 1}"):
+        tiled_k8s_reach(penc, device="cpu")
+    monkeypatch.setattr(tiled_ports, "_MAX_PORT_MASKS", R)
+    assert tiled_k8s_reach(penc, device="cpu").n_pods == 90
 
 
 def test_peers_by_slot_matches_jax():
@@ -209,9 +211,15 @@ def test_port_kernel_operands_are_what_the_solve_contracts():
     ops = tiled_ports.port_kernel_operands(penc, tile=128, chunk=8, device="cpu")
     s = ops.stats
     assert s == tiled_ports.port_layout_stats(penc, tile=128, chunk=8)
-    assert s["N"] == 128 and s["K_padded"] % K_STEP == 0 and s["K"] <= s["K_padded"]
-    assert s["K"] < s["vp_rows_i"] + s["vp_rows_e"]  # the sink rows stay out
-    words_ = fused_ports_reach(*ops[:6], default_allow=True)
+    assert s["N"] == 128 and s["K_padded"] % K_STEP == 0
+    assert s["K"] <= s["K_layout"] <= s["K_padded"]
+    # K counts the real VP rows: every row but the sink-policy ones (the
+    # segments' pad rows and each direction's final sink row)
+    pro = tiled_ports._prologue(penc, tile=128, chunk=8, use_kernel=True)
+    P = penc.n_policies
+    assert s["K"] == int((pro.vp.pol_i != P).sum() + (pro.vp.pol_e != P).sum())
+    assert s["K_layout"] + 2 == s["vp_rows_i"] + s["vp_rows_e"]
+    words_ = fused_ports_reach(*ops.args, default_allow=True)
     from kubernetes_verification_tpu_torch.ops.bits import or_diagonal
 
     words_ = or_diagonal(words_) & ops.col_mask[None, :]

@@ -94,15 +94,19 @@ def test_packed_queries_match_jax_host_and_device():
         got.closure()
 
 
-def test_multi_atom_encoding_is_refused():
+def test_multi_atom_encoding_is_refused(monkeypatch):
     """A multi-atom encoding takes the port-bitmap path; what is refused now
-    is one whose distinct ported masks exceed ``max_port_masks``, on both
+    is one whose distinct ported masks exceed the port path's cap, on both
     routes (``tests/test_torch_ports.py`` holds the path against JAX)."""
+    from kubernetes_verification_tpu_torch.ops import tiled_ports
+
     _, penc = carried(**_gen(40, 3), p_ports=0.9, compute_ports=True)
     assert len(penc.atoms) > 1
-    for use_kernel in (False, True):
-        with pytest.raises(ConfigError, match="max_port_masks=1"):
-            tiled_k8s_reach(penc, device="cpu", use_kernel=use_kernel, max_port_masks=1)
+    with monkeypatch.context() as m:
+        m.setattr(tiled_ports, "_MAX_PORT_MASKS", 1)
+        for use_kernel in (False, True):
+            with pytest.raises(ConfigError, match="cap of 1"):
+                tiled_k8s_reach(penc, device="cpu", use_kernel=use_kernel)
     assert tiled_k8s_reach(penc, device="cpu").meta == {"kernel": "torch-ports-sweep"}
 
 
