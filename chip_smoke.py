@@ -10,12 +10,17 @@ Phases; any failure exits non-zero before a result line is printed:
    ``nvidia-smi`` reports them (no CUDA device: exit 2);
 2. build every kernel of ``kubernetes_verification_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, all at once) into the gitignored
-   ``_build/``;
+   ``_build/``, printing each instantiation's registers and spills as
+   ``ptxas`` reports them and each launch's dynamic shared memory;
 3. each kernel against its plain version on the card, bit for bit, at small
-   odd shapes: ``packed_dir_allow`` at all three ``default_allow_axis``;
-   ``fused_ports_reach`` at R = 0, 1, 19 and its limit, ``default_allow`` on
-   and off, a direction with no grants, none at all, and segment lengths
-   that are not multiples of the K step;
+   odd shapes and at the edges of the Hopper mainloop (one tile smaller than
+   a raster group, N not a multiple of the wide tile, more row tiles than a
+   group, K' = 64 and other K' ending half-way through a 128-byte stage):
+   ``packed_dir_allow`` at all three ``default_allow_axis``;
+   ``fused_ports_reach`` at R = 0, 1, 19, 29, 30 and its limit 61,
+   ``default_allow`` on and off, a direction with no grants, none at all,
+   segment lengths that are not multiples of the K step, and segments that
+   end half-way through a stage;
 4. the any-port main path at full width: ``random_cluster(100,000 pods,
    10,000 policies, 20 namespaces, seed 0)`` → ``encode_cluster(
    compute_ports=False)`` → ``tiled_k8s_reach(fetch=False)``. Both launch
@@ -108,16 +113,24 @@ def probe() -> tuple:
 
 
 def build() -> None:
-    from kubernetes_verification_tpu_torch.ops.cuda_build import build_all
+    """Build both kernels at once and print, per kernel instantiation, what
+    ``ptxas`` reports (registers, spills, static shared memory) and the
+    dynamic shared memory each launch asks for."""
+    from kubernetes_verification_tpu_torch.ops.cuda_build import build_all, load_library
 
     t0 = time.perf_counter()
     built = build_all(verbose=True)
     for name, (secs, out) in built.items():
         log(f"build {name}: {secs:.1f} s")
         for line in out.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(k in line for k in ("Compiling entry", "registers", "smem", "spill")):
                 log(f"  ptxas: {line.strip()}")
     log(f"build: {time.perf_counter() - t0:.1f} s ({len(built)} built)")
+    smem = load_library("packed_dir_allow").packed_dir_allow_smem_bytes()
+    log(f"  packed_dir_allow: {smem} bytes of dynamic shared memory per block")
+    for w in (1, 2):
+        smem = load_library("fused_ports_reach").fused_ports_reach_smem_bytes(w)
+        log(f"  fused_ports_reach W={w}: {smem} bytes of dynamic shared memory per block")
 
 
 def kernel_small(dev) -> int:
@@ -128,7 +141,13 @@ def kernel_small(dev) -> int:
 
     gen = torch.Generator(device="cpu").manual_seed(0)
     worst = 0
-    for p, n in ((77, 4096), (77, 8192), (1, 4096)):
+    # the redesign's edges: one tile smaller than a raster group (N = 128,
+    # K' = 64: half a 128-byte stage), N not a multiple of the 256-column
+    # tile (384), more row tiles than a group with a ragged last column tile
+    # (1,152), a K' ending half-way through a stage (77 -> 128 is whole;
+    # 200 -> 256 whole; 130 -> 192 half)
+    for p, n in ((77, 4096), (77, 8192), (1, 4096), (64, 128), (77, 384),
+                 (130, 1152), (200, 1152)):
         a = (torch.rand((p, n), generator=gen) < 0.05).to(torch.int8).to(dev)
         b = (torch.rand((p, n), generator=gen) < 0.05).to(torch.int8).to(dev)
         niso = (torch.rand(n, generator=gen) < 0.5).to(torch.int32)
@@ -193,6 +212,24 @@ def fused_small(dev) -> int:
         lengths.update({(2, m): int(rng.integers(1, 200)) for m in range(r)})
         lengths[(3, r)] = int(rng.integers(1, 200))
         cases.append((f"R={r}", n, r, lengths))
+    # the W switch (R = 29: one state word, R = 30: two), segments that
+    # all end on 64-column steps, so every other flush falls half-way
+    # through a 128-byte stage, more row tiles than a raster group, and a
+    # single segment inside half a stage (K' = 64)
+    for n, r in ((256, 29), (384, 30)):
+        lengths = {(0, m): int(rng.integers(1, 120)) for m in range(r)}
+        lengths[(1, r)] = int(rng.integers(1, 120))
+        lengths.update({(2, m): int(rng.integers(1, 120)) for m in range(r)})
+        lengths[(3, r)] = int(rng.integers(1, 120))
+        cases.append((f"R={r}", n, r, lengths))
+    short = {(0, m): int(rng.integers(1, 65)) for m in range(5)}
+    short[(1, 5)] = 64
+    short.update({(2, m): int(rng.integers(1, 65)) for m in range(5)})
+    short[(3, 5)] = 33
+    cases.append(("mid-stage flushes", 384, 5, short))
+    cases.append(("9 row tiles", 1152, 3,
+                  {(0, 0): 100, (0, 2): 64, (1, 3): 7, (2, 1): 65, (3, 3): 90}))
+    cases.append(("one segment, K'=64", 128, 2, {(3, 2): 40}))
     cases.append(("no egress grants", 256, 3,
                   {(2, 0): 70, (2, 2): 129, (3, 3): 5}))
     cases.append(("no ingress grants", 256, 2, {(0, 0): 64, (0, 1): 1, (1, 2): 300}))

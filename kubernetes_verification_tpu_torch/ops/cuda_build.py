@@ -1,18 +1,22 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``. The library lands in
-the package's ``_build/`` directory (listed in ``.gitignore``) under a name
-that carries a hash of the source and flags, so an edited source never loads
-a stale build. Building happens at first use; ``build_all`` starts one
-``nvcc`` per source at once, for a caller that wants every kernel ready up
-front.
+library with a plain C interface, loaded with ``ctypes``. Both sources
+include the shared Hopper mainloop ``csrc/hopper_int8.cuh`` (TMA, mbarriers,
+``wgmma``); ``cuTensorMapEncodeTiled`` is fetched through the runtime's
+driver entry point, so no link flag is needed. The library lands in the
+package's ``_build/`` directory (listed in ``.gitignore``) under a name that
+carries a hash of the source, every ``csrc`` header it includes and the
+flags, so an edited source or header never loads a stale build. Building
+happens at first use; ``build_all`` starts one ``nvcc`` per source at once,
+for a caller that wants every kernel ready up front.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -49,9 +53,31 @@ def _nvcc() -> str:
                        backend="torch")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: str) -> List[str]:
+    """``path`` and every ``csrc`` file it includes with ``#include "..."``,
+    transitively, in the order first reached."""
+    seen, todo = [], [path]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        with open(p, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                q = os.path.join(CSRC, inc.decode())
+                if os.path.exists(q):
+                    todo.append(q)
+    return seen
+
+
 def _target(name: str) -> str:
-    with open(SOURCES[name], "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in _sources(SOURCES[name]):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -9,8 +9,10 @@ one direction's grant contraction over the policy axis, the default-allow OR
 (along dst columns for ``default_allow_axis=1``, ingress; along src rows for
 ``0``, egress; none for ``-1``) and the 32-bit little-endian bit-pack, with
 the int32 counts never written to device memory. On a CUDA tensor it launches
-the hand-written kernel of ``csrc/packed_dir_allow.cu`` (int8 tensor cores
-on K-contiguous copies of the maps, ballot pack in the epilogue) or raises;
+the hand-written kernel of ``csrc/packed_dir_allow.cu`` (on the shared Hopper
+mainloop of ``csrc/hopper_int8.cuh``: TMA into an mbarrier ring, ``wgmma``
+int8 on K-contiguous copies of the maps, a grouped tile order, the pack done
+from the accumulator layout) or raises;
 only CPU tensors reach the plain version ``packed_dir_allow_reference``. ``packed_reach`` combines two
 directions with a word-wise AND and the packed self-traffic diagonal, in plain
 torch on the words, as the JAX package does in XLA outside its kernel.
@@ -20,7 +22,8 @@ torch on the words, as the JAX package does in XLA outside its kernel.
 the whole port-bitmap reach in one K walk over the virtual-policy segments of
 both directions, flushing each segment's ``counts > 0`` into per-element
 egress-plane / ``gi_any`` / ``conj`` state, then the default-allow expansion
-and the bit-pack (``csrc/fused_ports_reach.cu``; plain version
+and the bit-pack (``csrc/fused_ports_reach.cu``, on the same mainloop, whose
+hook flushes a segment at the 64-column step that ends it; plain version
 ``fused_ports_reach_reference``).
 
 The TPU kernels' pack matrices (``_pack_matrices``) have no counterpart: they
@@ -50,9 +53,11 @@ __all__ = [
     "FUSED_MAX_MASKS",
 ]
 
-#: the kernel's output tile (rows and columns): N must be a multiple
+#: the kernels' output row tile: N must be a multiple (a wider column tile
+#: masks its ragged last tile itself)
 N_TILE = 128
-#: the kernel's policy-axis step: P is padded to a multiple with zeros
+#: the kernels' K step: P is padded to a multiple with zeros, and a fused
+#: segment ends on one (half of the 128-byte stage of the Hopper mainloop)
 K_STEP = 64
 #: dst columns per step of the plain version's loop
 _REF_TILE = 4096

@@ -33,7 +33,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("p,n", [(77, 512), (1, 128), (300, 1024)])
+# (64, 128): one tile, smaller than a raster group, K' = 64 (half a stage);
+# (77, 384): N not a multiple of the 256-column tile; (130, 1152): more row
+# tiles than a group, a ragged last column tile, K' = 192 (1.5 stages)
+@pytest.mark.parametrize("p,n", [(77, 512), (1, 128), (300, 1024), (64, 128),
+                                 (77, 384), (130, 1152)])
 def test_kernel_matches_plain_version(cuda_device, p, n):
     rng = np.random.default_rng(p)
     a, b = ((rng.random((p, n)) < 0.05).astype(np.int8) for _ in range(2))
@@ -91,7 +95,8 @@ def test_verify_on_card_matches_cpu(cuda_device, compute_ports):
 def _fused_case(rng, n, r, lengths):
     """Random K-contiguous operands over egress planes 0..r (the last one
     the full block) then ingress segments, each padded to ``K_STEP``; each
-    segment's density keeps its ``count > 0`` near 3 % of the elements."""
+    segment's density keeps its ``count > 0`` near 3 % of the elements. A
+    segment of length 0 is left out of the plan."""
     segs = [(0, m) for m in range(r)] + [(1, r)]
     segs += [(2, m) for m in range(r)] + [(3, r)]
     kp = sum(l + (-l) % K_STEP for l in lengths[: len(segs)])
@@ -99,6 +104,8 @@ def _fused_case(rng, n, r, lengths):
     bt = np.zeros((n, kp), np.int8)
     plan, off = [], 0
     for (kind, slab), l in zip(segs, lengths):
+        if not l:
+            continue
         p = np.sqrt(0.03 / l)
         at[:, off : off + l] = rng.random((n, l)) < p
         bt[:, off : off + l] = rng.random((n, l)) < p
@@ -111,10 +118,18 @@ def _fused_case(rng, n, r, lengths):
     return at, bt, np.asarray(plan, np.int32), np.asarray(ov, np.int64), *niso
 
 
-@pytest.mark.parametrize("n,r", [(256, 0), (384, 1), (256, 19), (128, 36)])
-def test_fused_kernel_matches_plain_version(cuda_device, n, r):
+# beyond the first four: the W switch (R = 29 one state word, R = 30 two)
+# with every segment one 64-column step, so every other flush falls half-way
+# through a 128-byte stage; R = 61 over more row tiles than a raster group;
+# one segment inside half a stage (K' = 64)
+@pytest.mark.parametrize("n,r,lengths", [
+    (256, 0, 150), (384, 1, 150), (256, 19, 150), (128, 36, 150),
+    (128, 29, 65), (384, 30, 65), (1152, 61, 100), (128, 0, (0, 40)),
+])
+def test_fused_kernel_matches_plain_version(cuda_device, n, r, lengths):
     rng = np.random.default_rng(n + r)
-    lengths = rng.integers(1, 150, size=2 * r + 2)
+    if isinstance(lengths, int):  # the most columns a segment may have, + 1
+        lengths = rng.integers(1, lengths, size=2 * r + 2)
     ops = _fused_case(rng, n, r, lengths)
     dev_ops = [torch.as_tensor(x, device=cuda_device) for x in ops]
     for da in (True, False):
