@@ -41,9 +41,9 @@
 // at K ~ 20,100 real VP rows, N = 102,400: ~213 ms at 1,979 dense int8
 // TOP/s), against 2*K'*N + N^2/8 bytes (~5.7 GB, ~1.7 ms at 3.35 TB/s). The
 // state costs BN / 2 * W registers beside the BN / 2 accumulators, inside
-// the consumers' 232: so the widest tile that fits is 192 at W = 1 (the
-// mainloop runs ~2.5x slower at 128 than at 256; 192 is between) and 128
-// at W = 2.
+// the consumers' 232: so the widest tile that fits is 192 at W = 1 and 128
+// at W = 2 (the mainloop's rate rises with the tile width:
+// scripts/torch_mainloop_sweep.py).
 #include "hopper_int8.cuh"
 
 using namespace hopper_int8;
