@@ -45,7 +45,34 @@ Phases; any failure exits non-zero before a result line is printed:
    function);
 8. ``verify(backend="torch")`` on the card against the same call on the CPU
    (2,000 pods / 200 policies, ``compute_ports`` on and off), and both tiled
-   kernel paths against the dense solve on that cluster.
+   kernel paths against the dense solve on that cluster;
+9. flagship policy-pair masks: ``policy_pair_masks`` on phase 4's any-port
+   encoding (P = 10,000, N = 100,000), then its set build and its two int8
+   Grams timed apart beside their bound; 64 sampled policies' mask rows
+   recomputed on the host in float64 from the fetched sets;
+10. flagship packed closure: ``PackedReach.closure()`` of phase 4's words
+    (``fetch=False``), each pass's time (CUDA events), pairs and bound; the
+    closure contains the reach, one more squaring leaves it unchanged,
+    ``bounded_packed_closure`` (BFS, an independent algorithm) from 1,024
+    random seeds gives the same rows, and ``hops=2`` there and ``path_upto``
+    at 2 give the first pass's rows; the hop histogram of 64 seeds;
+11. ``packed_closure_delta`` at N = 8,192 (a cut for time) through its
+    suspect route (bits removed) and its additions-only route (bits added,
+    ``prev_base`` given): each equals ``packed_closure(new_base)``;
+12. kano mode at BASELINE config 3's scale: ``random_kano(10,000
+    containers, 1,000 policies, seed 0)`` through ``verify_kano(closure=
+    True)`` with the default and a prefix ``LabelRelation``; 256 sampled
+    reach rows recomputed on the host in float64, and the dense closure
+    against ``packed_closure`` of the packed reach;
+13. the card against the CPU at phase 8's size: ``verify(closure=True)``,
+    ``PackedReach.closure()`` of both tiled kernel paths against the dense
+    closure, ``policy_pair_masks`` against the dense queries, and
+    ``verify_kano`` (2,000 containers / 200 policies) on every field.
+
+Phases 9–13 launch neither hand-written kernel (their int8 products are
+``torch._int_mm`` calls, as the JAX package leaves them to XLA): the counts
+are set to 0 before each and must read 0 after. Each prints its seconds and
+its peak device memory.
 
 The second-to-last line is the kernel table as JSON; the last is
 ``{"ok": true, "device": {...}}``. Tolerance everywhere: exact (every output
@@ -69,6 +96,9 @@ H100_BYTES_PER_S = 3.35e12
 MAIN = dict(n_pods=100_000, n_policies=10_000, n_namespaces=20,
             p_ipblock_peer=0.0, min_selector_labels=1, seed=0)
 VERIFY = dict(n_pods=2_000, n_policies=200, n_namespaces=10, seed=1)
+#: BASELINE config 3's scale: 10k pods / 1k policies
+KANO = dict(n_containers=10_000, n_policies=1_000, seed=0)
+DELTA_N = 8_192
 
 
 def log(msg: str) -> None:
@@ -294,7 +324,7 @@ def encode_main(cluster, compute_ports: bool):
     return enc
 
 
-def main_path(enc, dev) -> int:
+def main_path(enc, dev) -> tuple:
     import kubernetes_verification_tpu_torch as kvt
 
     reset_counts()
@@ -330,7 +360,7 @@ def main_path(enc, dev) -> int:
     if not (res.ingress_isolated == sweep.ingress_isolated).all():
         fail("ingress isolation differs")
     log("main: kernel path == torch sweep, bit for bit")
-    return launches
+    return launches, res
 
 
 def kernel_full(enc, dev, smi: str) -> list:
@@ -545,6 +575,391 @@ def verify_phase(dev) -> None:
             f"{len(enc.atoms)} atoms) == dense solve on the card")
 
 
+class Phase:
+    """One of phases 9–13: both launch counts set to 0 on entry and required
+    to read 0 on exit (no hand-written kernel is on these paths), the peak
+    device memory reset on entry; seconds and peak printed on exit."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, kind, *_):
+        if kind is not None:
+            return False
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        log(f"{self.name}: {time.perf_counter() - self.t0:.2f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+            f"packed_dir_allow {launches[0]}, fused_ports_reach {launches[1]}")
+        if launches != (0, 0):
+            fail(f"{self.name} launched a hand-written kernel: {launches}")
+        return False
+
+
+def host_mask_rows(src8, dst8, rows):
+    """The ``rows`` of ``(shadow, conflict)`` from host int8 [P, N] sets, in
+    float64 (exact: every count is at most N < 2⁵³), a block of policies at
+    a time so no [P, N] float64 copy is ever whole."""
+    import numpy as np
+
+    P = src8.shape[0]
+    a_s = src8[rows].astype(np.float64)
+    a_d = dst8[rows].astype(np.float64)
+    share = np.zeros((len(rows), P))
+    dd = np.zeros((len(rows), P))
+    for p0 in range(0, P, 1024):
+        share[:, p0:p0 + 1024] = a_s @ src8[p0:p0 + 1024].astype(np.float64).T
+        dd[:, p0:p0 + 1024] = a_d @ dst8[p0:p0 + 1024].astype(np.float64).T
+    dsize = dst8.sum(axis=1, dtype=np.int64).astype(np.float64)
+    off = np.arange(P)[None, :] != np.asarray(rows)[:, None]
+    shadow = (share > 0) & (dd == dsize[None, :]) & off
+    conflict = ((share > 0) & (dd == 0) & (dsize[rows][:, None] > 0)
+                & (dsize[None, :] > 0) & off)
+    return shadow, conflict
+
+
+def pair_masks_phase(enc, dev, smi: str) -> None:
+    """Phase 9: the flagship policy-pair masks."""
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.ops.closure import bool_dot
+    from kubernetes_verification_tpu_torch.ops.tiled import (
+        _pair_mask_args,
+        _pair_masks_from_sets,
+        _policy_sets,
+        _put,
+    )
+
+    with Phase("pairs: policy_pair_masks"):
+        shadow, conflict = kvt.policy_pair_masks(enc, device=dev)
+    P, N = enc.n_policies, enc.n_pods
+    log(f"pairs: P={P} N={N}: {int(shadow.sum())} shadow pairs, "
+        f"{int(conflict.sum())} conflict pairs")
+    with Phase("pairs: breakdown"):
+        t0 = time.perf_counter()
+        args = _put(_pair_mask_args(enc, True, 2048, n_pad=0), dev)
+        torch.cuda.synchronize()
+        prologue_s = time.perf_counter() - t0
+        sets = []
+        set_ms = cuda_ms(lambda: sets.append(_policy_sets(args, chunk=2048)))
+        src8, dst8 = sets[0]
+        del args, sets
+        masks = []
+        mask_ms = cuda_ms(lambda: masks.append(_pair_masks_from_sets(src8, dst8)))
+        gram_ms = [cuda_ms(lambda x=x: bool_dot(x, x), reps=3) for x in (src8, dst8)]
+    ops = 2 * 2 * P * P * N
+    nbytes = 2 * P * N + 2 * P * P
+    t_ops, t_bytes = ops / H100_INT8_OPS, nbytes / H100_BYTES_PER_S
+    log(f"pairs: host prologue + transfer {prologue_s * 1e3:.1f} ms, set build "
+        f"{set_ms:.1f} ms, Grams + masks {mask_ms:.2f} ms (Gram src {gram_ms[0]:.2f} ms, "
+        f"Gram dst {gram_ms[1]:.2f} ms: {2 * P * P * N / gram_ms[0] / 1e9:.1f} TOP/s); "
+        f"bound of the two Grams {1e3 * max(t_ops, t_bytes):.2f} ms "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'}: {ops:.3g} ops); {smi}")
+    for got, want in zip(masks[0], (shadow, conflict)):
+        if not np.array_equal(got.cpu().numpy(), want):
+            fail("pairs: the breakdown's masks differ from policy_pair_masks'")
+    t1 = time.perf_counter()
+    rows = np.sort(np.random.default_rng(9).choice(P, 64, replace=False))
+    src_h, dst_h = src8.cpu().numpy(), dst8.cpu().numpy()
+    del src8, dst8, masks
+    want_s, want_c = host_mask_rows(src_h, dst_h, rows)
+    if not (np.array_equal(shadow[rows], want_s) and np.array_equal(conflict[rows], want_c)):
+        fail("pairs: sampled mask rows differ from the host's float64 recomputation")
+    log(f"pairs: 64 sampled policies' shadow and conflict rows == host float64 "
+        f"recomputation ({int(want_s.sum())} + {int(want_c.sum())} pairs in those "
+        f"rows; {time.perf_counter() - t1:.1f} s on the host)")
+
+
+def closure_phase(reach, smi: str) -> None:
+    """Phase 10: the flagship packed closure and the path queries."""
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.ops.closure import (
+        _fit_tile,
+        _packed_square_step,
+    )
+
+    n, W = reach.packed.shape
+    Np = W * 32
+    t, dt = _fit_tile(Np, 7168), _fit_tile(Np, 14336)
+    bound_s = 2 * n ** 3 / H100_INT8_OPS
+    log(f"closure: {n} rows x {W} words (Np = {Np}), row tile {t}, dst stripe {dt}, "
+        f"{(Np // t) * (Np // dt)} products per pass; pass bound 2*N^3/peak = "
+        f"{bound_s:.3f} s on the real N ({2 * Np ** 3 / H100_INT8_OPS:.3f} s on Np); "
+        f"reach {reach.timings['reachable_pairs']} pairs")
+    passes, keep = [], {}
+    start = torch.cuda.Event(enable_timing=True)
+
+    def on_pass(i, packed, pairs):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        passes.append((i, ev, pairs))
+        if i == 1:
+            keep["first"] = packed[:n].clone()  # R ∨ R², for the hop-2 checks
+
+    with Phase("closure: PackedReach.closure()"):
+        start.record()
+        closed = reach.closure(on_pass=on_pass)
+    prev = start
+    for i, ev, pairs in passes:
+        ms = prev.elapsed_time(ev)
+        log(f"closure: pass {i}: {ms:.1f} ms ({ms / 1e3 / bound_s:.2f}x the bound), "
+            f"{pairs} reachable pairs; {smi}")
+        prev = ev
+    with Phase("closure: checks"):
+        if bool((reach.packed & ~closed.packed).any()):
+            fail("closure: the closure does not contain the reach")
+        pad = torch.nn.functional.pad
+        square = pad(closed.packed, (0, 0, 0, Np - n))
+        again_ms = cuda_ms(lambda: keep.update(
+            again=_packed_square_step(square, row_tile=t, dst_tile=dt)))
+        if not torch.equal(keep.pop("again")[:n], closed.packed):
+            fail("closure: one more squaring changes the closure (no fixpoint)")
+        log(f"closure: contains the reach; one more squaring ({again_ms:.1f} ms) "
+            f"leaves it unchanged")
+        del square
+        words = pad(reach.packed, (0, 0, 0, Np - n))
+        seeds = np.sort(np.random.default_rng(10).choice(n, 1024, replace=False))
+        tb = time.perf_counter()
+        acc, _ = kvt.bounded_packed_closure(words, seeds, want_hops=False)
+        bfs_s = time.perf_counter() - tb
+        if not torch.equal(acc, closed.packed[torch.as_tensor(seeds, device=acc.device)]):
+            fail("closure: the bounded BFS rows differ from the closure's")
+        tb = time.perf_counter()
+        acc2, _ = kvt.bounded_packed_closure(words, seeds, hops=2, want_hops=False)
+        bfs2_s = time.perf_counter() - tb
+        first = keep.pop("first")
+        if not torch.equal(acc2, first[torch.as_tensor(seeds, device=acc2.device)]):
+            fail("closure: hops=2 rows differ from the first squaring pass's")
+        log(f"closure: bounded_packed_closure of 1,024 seeds == their closure rows "
+            f"({bfs_s:.2f} s); hops=2 == the first pass's rows ({bfs2_s:.2f} s)")
+        del acc, acc2
+        tb = time.perf_counter()
+        path2 = kvt.path_upto(words, 2)
+        path_s = time.perf_counter() - tb
+        if not torch.equal(path2[:n], first):
+            fail("closure: path_upto(hops=2) differs from the first squaring pass")
+        log(f"closure: path_upto(hops=2) over all {Np} rows == the first pass "
+            f"({path_s:.2f} s)")
+        del path2, first
+        tb = time.perf_counter()
+        _, hop = kvt.bounded_packed_closure(words, seeds[:64])
+        hist = np.bincount(hop[:, :n].ravel())
+        log(f"closure: hop histogram of 64 seeds over the {n} real columns "
+            f"(level: pairs, 0 = unreachable): "
+            + ", ".join(f"{lv}: {c}" for lv, c in enumerate(hist))
+            + f" ({time.perf_counter() - tb:.2f} s)")
+
+
+def _block_graph(n: int, block: int, degree: float, rng):
+    """bool [n, n] of disjoint ``block``-node random components."""
+    import numpy as np
+
+    g = np.zeros((n, n), dtype=bool)
+    for b0 in range(0, n, block):
+        g[b0:b0 + block, b0:b0 + block] = rng.random((block, block)) < degree / block
+    return g
+
+
+def delta_phase(dev) -> None:
+    """Phase 11: ``packed_closure_delta`` through both of its routes."""
+    from kubernetes_verification_tpu_torch.ops import closure
+
+    # count the calls of each route's step, to show which route ran
+    calls = {"_closure_rows_step": 0, "_add_edges_round": 0}
+    real = {name: getattr(closure, name) for name in calls}
+    for name in calls:
+
+        def counted(*a, _name=name, **k):
+            calls[_name] += 1
+            return real[_name](*a, **k)
+
+        setattr(closure, name, counted)
+    try:
+        _delta_routes(dev, calls)
+    finally:
+        for name, fn in real.items():
+            setattr(closure, name, fn)
+
+
+def _delta_routes(dev, calls: dict) -> None:
+    """The two routes from one base closure; ``calls`` counts their steps."""
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.ops.bits import pack_bool_cols
+    from kubernetes_verification_tpu_torch.ops.closure import packed_pair_total
+
+    def words(b):
+        return pack_bool_cols(torch.as_tensor(b, device=dev))
+
+    rng = np.random.default_rng(11)
+    n = DELTA_N
+    log(f"delta: N = {n} (cut from the flagship's 100,000 for time), 32 random "
+        f"components of 256 nodes, ~1.3 edges per row")
+    base = _block_graph(n, 256, 1.3, rng)
+    with Phase("delta: base closure"):
+        prev = kvt.packed_closure(words(base))
+    removed = base.copy()
+    rows, cols = np.nonzero(base[512:768, 512:768])
+    removed[rows[:5] + 512, cols[:5] + 512] = False
+    dirty = (removed != base).any(axis=0) | (removed != base).any(axis=1)
+    added = base.copy()
+    for s, d in rng.integers(0, n, (16, 2)):
+        added[s, d] = True
+    for name, new, kw, step in (
+        ("suspect route (5 bits removed)", removed, {}, "_closure_rows_step"),
+        ("additions-only route (16 bits added, prev_base)", added,
+         {"prev_base": words(base)}, "_add_edges_round"),
+    ):
+        before = calls[step]
+        with Phase(f"delta: {name}"):
+            t0 = time.perf_counter()
+            got = kvt.packed_closure_delta(words(new), prev, dirty, **kw)
+            torch.cuda.synchronize()
+            delta_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = kvt.packed_closure(words(new))
+            full_s = time.perf_counter() - t0
+        if calls[step] == before:
+            fail(f"delta: the {name} did not run {step}")
+        if not torch.equal(got, want):
+            fail(f"delta: the {name} differs from packed_closure(new_base)")
+        log(f"delta: {name}: {delta_s * 1e3:.1f} ms ({calls[step] - before} {step} "
+            f"calls) == packed_closure(new_base) ({full_s * 1e3:.1f} ms), "
+            f"{packed_pair_total(got)} pairs")
+
+
+class FirstLetterPrefix:
+    """A prefix label relation (the ``LabelRelation`` protocol): a rule
+    value accepts every label value that starts with the rule value's first
+    letter."""
+
+    def match(self, rule_value: str, label_value: str) -> bool:
+        return label_value.startswith(rule_value[:1])
+
+
+def kano_phase(dev, smi: str) -> None:
+    """Phase 12: kano mode at 10k containers / 1k policies."""
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.ops.bits import (
+        pack_bool_cols,
+        to_host_words,
+        unpack_cols,
+    )
+
+    t0 = time.perf_counter()
+    containers, policies = kvt.random_kano(**KANO)
+    log(f"kano: random_kano {KANO}: {time.perf_counter() - t0:.2f} s")
+    for label, rel in (("default", None), ("prefix relation", FirstLetterPrefix())):
+        with Phase(f"kano: verify_kano ({label})"):
+            res = kvt.verify_kano(containers, policies, kvt.VerifyConfig(
+                backend="torch", closure=True, label_relation=rel))
+        n = len(containers)
+        log(f"kano ({label}): encode {res.timings['encode']:.2f} s, solve + dense "
+            f"closure {res.timings['solve'] * 1e3:.1f} ms, {int(res.reach.sum())} "
+            f"reachable pairs, {int(res.closure.sum())} in the closure; {smi}")
+        rows = np.sort(np.random.default_rng(12).choice(n, 256, replace=False))
+        want = (res.src_sets[:, rows].T.astype(np.float64)
+                @ res.dst_sets.astype(np.float64)) > 0
+        if not np.array_equal(res.reach[rows], want):
+            fail(f"kano ({label}): sampled reach rows differ from the host's float64 "
+                 f"recomputation")
+        if [c.select_policies for c in containers[:50]] != [
+            np.nonzero(res.src_sets[:, i])[0].tolist() for i in range(50)
+        ]:
+            fail(f"kano ({label}): the Container policy lists were not refilled")
+        with Phase(f"kano: packed_closure of the packed reach ({label})"):
+            pad = (-n) % 32
+            r = torch.nn.functional.pad(torch.as_tensor(res.reach, device=dev),
+                                        (0, pad, 0, pad))
+            w = pack_bool_cols(r)
+            t0 = time.perf_counter()
+            closed = kvt.packed_closure(w)
+            packed_s = time.perf_counter() - t0
+        if not np.array_equal(unpack_cols(to_host_words(closed[:n]), n), res.closure):
+            fail(f"kano ({label}): the dense closure differs from packed_closure's")
+        log(f"kano ({label}): 256 sampled reach rows == host float64; dense closure "
+            f"== packed_closure of the packed reach ({packed_s * 1e3:.1f} ms)")
+
+
+def card_vs_cpu_phase(dev) -> None:
+    """Phase 13: the new entry points on the card against the CPU."""
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.ops.queries import _pairs
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(**VERIFY))
+    closures = {}
+    for compute_ports in (True, False):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            with Phase(f"card vs cpu: verify(closure=True, compute_ports="
+                       f"{compute_ports}) on {device}"):
+                runs[device] = kvt.verify(cluster, kvt.VerifyConfig(
+                    backend="torch", compute_ports=compute_ports, closure=True,
+                    backend_options=(("device", device),),
+                ))
+        for f in ("reach", "closure", "src_sets", "dst_sets"):
+            if not np.array_equal(getattr(runs["cuda"], f), getattr(runs["cpu"], f)):
+                fail(f"card vs cpu: verify(closure=True) {f} differs "
+                     f"(compute_ports={compute_ports})")
+        closures[compute_ports] = runs["cuda"].closure
+        log(f"card vs cpu: verify(closure=True, compute_ports={compute_ports}) "
+            f"cuda == cpu, {int(closures[compute_ports].sum())} pairs in the closure")
+    for compute_ports, launches in ((False, (2, 0)), (True, (0, 1))):
+        enc = kvt.encode_cluster(cluster, compute_ports=compute_ports)
+        reset_counts()
+        tiled = kvt.tiled_k8s_reach(enc, device=dev, fetch=False)
+        if launch_counts() != launches:
+            fail(f"card vs cpu: the tiled solve launched {launch_counts()}, not {launches}")
+        closed = tiled.closure()
+        if not np.array_equal(closed.to_bool(), closures[compute_ports]):
+            fail(f"card vs cpu: PackedReach.closure() of the {tiled.meta['kernel']} "
+                 f"path differs from the dense closure")
+        log(f"card vs cpu: PackedReach.closure() of the {tiled.meta['kernel']} path "
+            f"== the dense closure")
+    enc = kvt.encode_cluster(cluster, compute_ports=False)
+    with Phase("card vs cpu: policy_pair_masks"):
+        shadow, conflict = kvt.policy_pair_masks(enc, device=dev)
+    if _pairs(shadow) != runs["cpu"].policy_shadow() or (
+        _pairs(conflict) != runs["cpu"].policy_conflict()
+    ):
+        fail("card vs cpu: policy_pair_masks differ from the dense CPU queries")
+    log(f"card vs cpu: policy_pair_masks == the dense CPU policy_shadow / "
+        f"policy_conflict ({len(_pairs(shadow))} + {len(_pairs(conflict))} pairs)")
+    for rel in (None, FirstLetterPrefix()):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            containers, policies = kvt.random_kano(2_000, 200, seed=1)
+            with Phase(f"card vs cpu: verify_kano on {device}"):
+                res = kvt.verify_kano(containers, policies, kvt.VerifyConfig(
+                    backend="torch", closure=True, label_relation=rel,
+                    backend_options=(("device", device),)))
+            runs[device] = (res, [(c.select_policies, c.allow_policies)
+                                  for c in containers])
+        for f in ("reach", "src_sets", "dst_sets", "closure"):
+            if not np.array_equal(getattr(runs["cuda"][0], f), getattr(runs["cpu"][0], f)):
+                fail(f"card vs cpu: verify_kano {f} differs (relation {rel})")
+        if runs["cuda"][1] != runs["cpu"][1]:
+            fail("card vs cpu: verify_kano Container policy lists differ")
+        log(f"card vs cpu: verify_kano ({'prefix relation' if rel else 'default'}) "
+            f"cuda == cpu on every field and every Container's lists")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -563,11 +978,10 @@ def main() -> int:
     t1 = time.perf_counter()
     cluster = kvt.random_cluster(kvt.GeneratorConfig(**MAIN))
     log(f"main: generate {time.perf_counter() - t1:.2f} s")
-    enc = encode_main(cluster, compute_ports=False)
-    launches = main_path(enc, dev)
+    any_enc = encode_main(cluster, compute_ports=False)
+    launches, reach = main_path(any_enc, dev)
     torch.cuda.empty_cache()
-    rows = kernel_full(enc, dev, smi)
-    del enc
+    rows = kernel_full(any_enc, dev, smi)
     torch.cuda.empty_cache()
     enc = encode_main(cluster, compute_ports=True)
     del cluster
@@ -578,6 +992,13 @@ def main() -> int:
     del enc
     torch.cuda.empty_cache()
     verify_phase(dev)
+    pair_masks_phase(any_enc, dev, smi)
+    del any_enc
+    closure_phase(reach, smi)
+    del reach
+    delta_phase(dev)
+    kano_phase(dev, smi)
+    card_vs_cpu_phase(dev)
     worst = max([worst] + [r["err"] for r in rows])
     worst_fused = max(worst_fused, fused_row["err"])
 

@@ -14,7 +14,11 @@ Entry points run on ``cuda`` unless the caller passes a CPU device::
     cluster = kvt.random_cluster(n_pods=1000, n_policies=100, seed=0)
     enc = kvt.encode_cluster(cluster, compute_ports=False)
     reach = kvt.tiled_k8s_reach(enc)            # packed words, on the GPU
-    res = kvt.verify(cluster, kvt.VerifyConfig(backend="torch"))
+    closed = reach.closure()                    # packed transitive closure
+    shadow, conflict = kvt.policy_pair_masks(enc)
+    res = kvt.verify(cluster, kvt.VerifyConfig(backend="torch", closure=True))
+    containers, policies = kvt.random_kano(1000, 100, seed=0)
+    kano = kvt.verify_kano(containers, policies, kvt.VerifyConfig(backend="torch"))
 """
 from .backends.base import (
     PortAtom,
@@ -24,14 +28,19 @@ from .backends.base import (
     get_backend,
     register_backend,
     verify,
+    verify_kano,
 )
 from .encode.carry import encoding_from_arrays, encoding_to_arrays
 from .encode.encoder import EncodedCluster, encode_cluster
-from .harness.generate import GeneratorConfig, random_cluster
+from .harness.generate import GeneratorConfig, random_cluster, random_kano
 from .models.core import (
     Cluster,
+    Container,
+    DefaultEqualityLabelRelation,
     Expr,
     IpBlock,
+    KanoPolicy,
+    LabelRelation,
     Namespace,
     NetworkPolicy,
     Peer,
@@ -40,14 +49,26 @@ from .models.core import (
     Rule,
     Selector,
 )
-from .ops.tiled import PackedReach, tiled_k8s_reach
+from .ops.closure import (
+    bounded_closure_rows,
+    bounded_packed_closure,
+    packed_closure,
+    packed_closure_delta,
+    path_upto,
+    transitive_closure,
+)
+from .ops.tiled import PackedReach, policy_pair_masks, tiled_k8s_reach
 
 __all__ = [
     "Cluster",
+    "Container",
+    "DefaultEqualityLabelRelation",
     "EncodedCluster",
     "Expr",
     "GeneratorConfig",
     "IpBlock",
+    "KanoPolicy",
+    "LabelRelation",
     "Namespace",
     "NetworkPolicy",
     "PackedReach",
@@ -60,12 +81,21 @@ __all__ = [
     "VerifyConfig",
     "VerifyResult",
     "available_backends",
+    "bounded_closure_rows",
+    "bounded_packed_closure",
     "encode_cluster",
     "encoding_from_arrays",
     "encoding_to_arrays",
     "get_backend",
+    "packed_closure",
+    "packed_closure_delta",
+    "path_upto",
+    "policy_pair_masks",
     "random_cluster",
+    "random_kano",
     "register_backend",
     "tiled_k8s_reach",
+    "transitive_closure",
     "verify",
+    "verify_kano",
 ]

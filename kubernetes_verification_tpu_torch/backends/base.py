@@ -10,11 +10,11 @@ registers itself the first time a backend is looked up.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..models.core import Cluster
+from ..models.core import Cluster, Container, KanoPolicy
 from ..resilience.errors import ConfigError, UnknownBackendError
 
 __all__ = [
@@ -26,6 +26,7 @@ __all__ = [
     "get_backend",
     "available_backends",
     "verify",
+    "verify_kano",
 ]
 
 
@@ -48,8 +49,8 @@ class VerifyConfig:
 
     ``backend`` selects the execution engine (``torch``: the dense solve on a
     CUDA device, or on the CPU with the backend option ``("device", "cpu")``).
-    ``closure`` asks for the transitive closure, which the port does not
-    compute yet.
+    ``closure`` adds the transitive closure of ``reach`` (``closure`` field of
+    the result).
     """
 
     backend: str = "torch"
@@ -95,7 +96,7 @@ class VerifyResult:
     """
 
     n_pods: int
-    mode: str  # "k8s"
+    mode: str  # "k8s" | "kano"
     backend: str
     config: VerifyConfig
     reach: np.ndarray  # bool [N, N]
@@ -132,10 +133,10 @@ class VerifyResult:
 
         return all_isolated(self.reach)
 
-    def user_crosscheck(self, pods, label: str) -> List[int]:
+    def user_crosscheck(self, containers_or_pods, label: str) -> List[int]:
         from ..ops.queries import user_crosscheck
 
-        return user_crosscheck(self.reach, pods, label)
+        return user_crosscheck(self.reach, containers_or_pods, label)
 
     def system_isolation(self, idx: int) -> List[int]:
         from ..ops.queries import system_isolation
@@ -154,11 +155,23 @@ class VerifyResult:
 
 
 class VerifierBackend:
-    """Backend interface."""
+    """Backend interface. Implementations provide one or both modes."""
 
     name: str = "abstract"
+    #: whether verify_kano honors VerifyConfig.label_relation (the kano
+    #: matcher plugin); the dispatcher rejects a custom relation otherwise
+    #: rather than silently computing equality-only results
+    supports_label_relation: bool = False
 
     def verify(self, cluster: Cluster, config: VerifyConfig) -> VerifyResult:
+        raise NotImplementedError
+
+    def verify_kano(
+        self,
+        containers: Sequence[Container],
+        policies: Sequence[KanoPolicy],
+        config: VerifyConfig,
+    ) -> VerifyResult:
         raise NotImplementedError
 
 
@@ -192,6 +205,23 @@ def verify(cluster: Cluster, config: Optional[VerifyConfig] = None) -> VerifyRes
     if config.label_relation is not None:
         raise ConfigError(
             "label_relation is the kano-mode matcher plugin; k8s-mode "
-            "selectors follow the Kubernetes LabelSelector spec"
+            "selectors follow the Kubernetes LabelSelector spec (use "
+            "verify_kano)"
         )
     return get_backend(config.backend).verify(cluster, config)
+
+
+def verify_kano(
+    containers: Sequence[Container],
+    policies: Sequence[KanoPolicy],
+    config: Optional[VerifyConfig] = None,
+) -> VerifyResult:
+    """Verify a kano-level scenario with the configured backend."""
+    config = config or VerifyConfig()
+    backend = get_backend(config.backend)
+    if config.label_relation is not None and not backend.supports_label_relation:
+        raise ConfigError(
+            f"backend {config.backend!r} does not honor label_relation; "
+            "use the torch backend for a custom kano matcher"
+        )
+    return backend.verify_kano(containers, policies, config)

@@ -16,8 +16,8 @@ consumed by the tensor kernels in ``ops/``:
 
 Everything is NumPy here; the backend moves arrays to device once. This is
 the PyTorch port's own copy of ``kubernetes_verification_tpu.encode.encoder``
-(the k8s-level encoder; the kano encoders are not ported yet): the same
-cluster gives the same arrays in both packages.
+(the k8s-level encoder and the kano encoders): the same cluster or kano
+scenario gives the same arrays in both packages.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import numpy as np
 
 from ..backends.base import PortAtom
 from ..resilience.errors import EncodeError
-from ..models.core import Cluster, NetworkPolicy, Selector
+from ..models.core import Cluster, Container, KanoPolicy, NetworkPolicy, Selector
 from .ports import (
     ALL_ATOM,
     compute_port_atoms,
@@ -44,6 +44,10 @@ __all__ = [
     "EncodedCluster",
     "cluster_vocab",
     "encode_cluster",
+    "EncodedKano",
+    "EncodedKanoRelation",
+    "encode_kano",
+    "encode_kano_relation",
 ]
 
 
@@ -429,4 +433,139 @@ def encode_cluster(
         restrict_bank=bank.array() if bank is not None else None,
         resolution=resolution,
         restrict_bank_intern=bank,
+    )
+
+
+# ---------------------------------------------------------------------------
+# kano level
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class EncodedKano:
+    """kano-level encoding: per-policy src/dst requirement masks with the
+    reference's matcher quirk baked in (selector keys on no container are
+    dropped; known keys with unseen values poison the row —
+    ``kano_py/kano/model.py:142-154``)."""
+
+    n_pods: int
+    n_policies: int
+    vocab: Vocab
+    pod_kv: np.ndarray  # bool [N, V]
+    src_req: np.ndarray  # bool [P, V]
+    src_impossible: np.ndarray  # bool [P]
+    dst_req: np.ndarray  # bool [P, V]
+    dst_impossible: np.ndarray  # bool [P]
+
+
+@dataclass
+class EncodedKanoRelation:
+    """kano encoding under a custom :class:`~..models.core.LabelRelation`:
+    each rule label (k, v) becomes the mask of vocabulary pairs (k, v') the
+    relation accepts — an In-expression over the cluster's value set — so
+    the pluggable matcher (``kano_py/kano/model.py:59-68``) runs as the same
+    selector-match product as everything else. The reference quirks carry
+    over: keys unknown to the whole cluster are dropped; a known key whose
+    acceptable-value set is empty matches nothing."""
+
+    n_pods: int
+    n_policies: int
+    vocab: Vocab
+    pod_kv: np.ndarray  # bool [N, V]
+    pod_key: np.ndarray  # bool [N, K]
+    src_sel: SelectorEnc  # [P]
+    dst_sel: SelectorEnc  # [P]
+
+
+def encode_kano_relation(
+    containers: Sequence[Container],
+    policies: Sequence[KanoPolicy],
+    relation,
+) -> EncodedKanoRelation:
+    vocab = Vocab.build(c.labels for c in containers)
+    pod_kv, pod_key = vocab.encode_label_matrix(c.labels for c in containers)
+    P, V = len(policies), vocab.n_pairs
+    by_key: Dict[str, List[Tuple[str, int]]] = {}
+    for (k, v), pid in vocab.pair_ids.items():
+        by_key.setdefault(k, []).append((v, pid))
+    # acceptable-pair ids memoised per distinct (key, rule_value): the
+    # relation (possibly an expensive user plugin) runs once per pair, not
+    # once per policy occurrence
+    accept_memo: Dict[Tuple[str, str], List[int]] = {}
+
+    def accepted(k: str, v: str) -> List[int]:
+        key = (k, v)
+        if key not in accept_memo:
+            accept_memo[key] = [
+                pid for v2, pid in by_key.get(k, ()) if relation.match(v, v2)
+            ]
+        return accept_memo[key]
+
+    def stack(label_sets) -> SelectorEnc:
+        E = max((len(ls) for ls in label_sets), default=0)
+        enc = SelectorEnc(
+            req_eq=np.zeros((P, V), dtype=bool),
+            req_key=np.zeros((P, vocab.n_keys), dtype=bool),
+            forbid_eq=np.zeros((P, V), dtype=bool),
+            forbid_key=np.zeros((P, vocab.n_keys), dtype=bool),
+            in_mask=np.zeros((P, E, V), dtype=bool),
+            in_valid=np.zeros((P, E), dtype=bool),
+            impossible=np.zeros(P, dtype=bool),
+        )
+        for pi, labels in enumerate(label_sets):
+            e = 0
+            for k, v in labels.items():
+                if vocab.key(k) is None:
+                    continue  # key unknown to the cluster: ignored (quirk)
+                enc.in_valid[pi, e] = True
+                for pid in accepted(k, v):
+                    enc.in_mask[pi, e, pid] = True
+                # empty mask ⇒ matches nothing, like the reference's
+                # refinement loop failing on every container
+                e += 1
+        return enc
+
+    return EncodedKanoRelation(
+        n_pods=len(containers),
+        n_policies=P,
+        vocab=vocab,
+        pod_kv=pod_kv,
+        pod_key=pod_key,
+        src_sel=stack([p.src_labels for p in policies]),
+        dst_sel=stack([p.dst_labels for p in policies]),
+    )
+
+
+def encode_kano(
+    containers: Sequence[Container], policies: Sequence[KanoPolicy]
+) -> EncodedKano:
+    vocab = Vocab.build(c.labels for c in containers)
+    pod_kv, _ = vocab.encode_label_matrix(c.labels for c in containers)
+    P, V = len(policies), vocab.n_pairs
+    src_req = np.zeros((P, V), dtype=bool)
+    dst_req = np.zeros((P, V), dtype=bool)
+    src_imp = np.zeros(P, dtype=bool)
+    dst_imp = np.zeros(P, dtype=bool)
+    for pi, pol in enumerate(policies):
+        for req, imp, labels in (
+            (src_req, src_imp, pol.src_labels),
+            (dst_req, dst_imp, pol.dst_labels),
+        ):
+            for k, v in labels.items():
+                if vocab.key(k) is None:
+                    continue  # key unknown to the cluster: ignored (quirk)
+                pid = vocab.pair(k, v)
+                if pid is None:
+                    imp[pi] = True  # known key, unseen value: matches nothing
+                else:
+                    req[pi, pid] = True
+    return EncodedKano(
+        n_pods=len(containers),
+        n_policies=P,
+        vocab=vocab,
+        pod_kv=pod_kv,
+        src_req=src_req,
+        src_impossible=src_imp,
+        dst_req=dst_req,
+        dst_impossible=dst_imp,
     )

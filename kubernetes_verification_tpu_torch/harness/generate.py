@@ -11,9 +11,10 @@ policies, egress sections, explicit policyTypes, port specs with endPort
 ranges, and empty/absent rule edge cases — the full semantic surface.
 
 Deterministic per seed: the PyTorch port's copy of
-``kubernetes_verification_tpu.harness.generate`` (the k8s-level
-``random_cluster`` only), drawing the same ``random.Random`` sequence, so one
-seed gives the same cluster in both packages.
+``kubernetes_verification_tpu.harness.generate`` (``random_cluster`` and
+``random_kano``; not ``random_event_stream``), drawing the same
+``random.Random`` sequence, so one seed gives the same scenario in both
+packages.
 """
 from __future__ import annotations
 
@@ -23,8 +24,10 @@ from typing import List, Optional, Tuple
 
 from ..models.core import (
     Cluster,
+    Container,
     Expr,
     IpBlock,
+    KanoPolicy,
     Namespace,
     NetworkPolicy,
     Peer,
@@ -36,6 +39,7 @@ from ..models.core import (
 
 __all__ = [
     "GeneratorConfig",
+    "random_kano",
     "random_cluster",
 ]
 
@@ -87,6 +91,32 @@ def _rand_labels(rng: random.Random, max_labels: int) -> dict:
     n = rng.randint(1, max(1, max_labels))
     keys = rng.sample(_KEYS, min(n, len(_KEYS)))
     return {k: rng.choice(_VALUES) for k in keys}
+
+
+def random_kano(
+    n_containers: int = 100, n_policies: int = 50, seed: int = 0,
+    max_labels: int = 5,
+) -> Tuple[List[Container], List[KanoPolicy]]:
+    """Random kano-level scenario: select/allow label dicts copied from two
+    random containers' labels (subset), as the reference generator does."""
+    rng = random.Random(seed)
+    containers = [
+        Container(f"c{i}", _rand_labels(rng, max_labels))
+        for i in range(n_containers)
+    ]
+    policies = []
+    for i in range(n_policies):
+        sel_src = rng.choice(containers).labels
+        alw_src = rng.choice(containers).labels
+        select = dict(rng.sample(sorted(sel_src.items()),
+                                 rng.randint(1, len(sel_src))))
+        allow = dict(rng.sample(sorted(alw_src.items()),
+                                rng.randint(1, len(alw_src))))
+        policies.append(
+            KanoPolicy(f"p{i}", select=select, allow=allow,
+                       ingress=rng.random() < 0.7)
+        )
+    return containers, policies
 
 
 def _rand_selector(rng: random.Random, pool: List[dict], cfg: GeneratorConfig) -> Selector:

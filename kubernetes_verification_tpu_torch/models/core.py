@@ -11,8 +11,8 @@ The PyTorch port's own copy of the k8s-level model of
 by the kubernetes-client adapters in the reference
 (``kubesv/kubesv/model.py:27-554``) — but with no dependency on the
 ``kubernetes`` package and no kube-config requirement (cf. the reference's
-``kubesv/kubesv/parser.py:10`` which required one). The kano-level model is
-not part of the port yet.
+``kubesv/kubesv/parser.py:10`` which required one) — and of its kano-level
+model (`Container`/`KanoPolicy`/`LabelRelation`).
 
 Semantic subtleties encoded here (documented in the reference and in the
 Kubernetes API docs):
@@ -50,6 +50,10 @@ __all__ = [
     "Pod",
     "Namespace",
     "Cluster",
+    "Container",
+    "LabelRelation",
+    "DefaultEqualityLabelRelation",
+    "KanoPolicy",
     "INGRESS",
     "EGRESS",
     "PROTOCOLS",
@@ -350,3 +354,73 @@ class Cluster:
 
     def pod_index(self) -> Dict[Tuple[str, str], int]:
         return {(p.namespace, p.name): i for i, p in enumerate(self.pods)}
+
+
+# ---------------------------------------------------------------------------
+# kano level — the simplified flat-label model of the bit-vector verifier
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Container:
+    """kano-level pod: a name and a flat label dict
+    (``kano_py/kano/model.py:11-25``). ``select_policies``/``allow_policies``
+    accumulate the indices of policies whose (direction-swapped) select/allow
+    sets contain this container during matrix build
+    (``kano_py/kano/model.py:158-163``) — the hook incremental re-verify uses.
+    """
+
+    name: str
+    labels: Dict[str, str] = field(default_factory=dict)
+    select_policies: List[int] = field(default_factory=list)
+    allow_policies: List[int] = field(default_factory=list)
+
+    def get_value_or_default(self, key: str, default: str = "") -> str:
+        return self.labels.get(key, default)
+
+
+class LabelRelation:
+    """The kano matcher plugin — the reference's only extension point
+    (``kano_py/kano/model.py:59-68``). ``match(rule_value, label_value)``
+    decides whether a policy's rule value accepts an entity's label value;
+    the default is string equality. Supply a custom relation via
+    ``VerifyConfig.label_relation`` (kano mode): the tensor backend
+    re-encodes each rule label into its acceptable-value mask over the
+    cluster vocabulary."""
+
+    def match(self, rule_value: str, label_value: str) -> bool:
+        raise NotImplementedError
+
+
+class DefaultEqualityLabelRelation(LabelRelation):
+    """String equality — the reference's default
+    (``kano_py/kano/model.py:64-68``)."""
+
+    def match(self, rule_value: str, label_value: str) -> bool:
+        return rule_value == label_value
+
+
+@dataclass
+class KanoPolicy:
+    """kano-level policy: equality-only ``select``/``allow`` label dicts, a
+    direction, and a protocol list (``kano_py/kano/model.py:71-121``).
+
+    Direction swap: an ingress policy's *sources* are its ``allow`` set and its
+    *destinations* its ``select`` set; egress is the identity — so every policy
+    evaluates in egress (src→dst) orientation
+    (``kano_py/kano/model.py:82-93``).
+    """
+
+    name: str
+    select: Dict[str, str] = field(default_factory=dict)
+    allow: Dict[str, str] = field(default_factory=dict)
+    ingress: bool = True
+    protocols: Tuple[str, ...] = ()
+
+    @property
+    def src_labels(self) -> Dict[str, str]:
+        return self.allow if self.ingress else self.select
+
+    @property
+    def dst_labels(self) -> Dict[str, str]:
+        return self.select if self.ingress else self.allow

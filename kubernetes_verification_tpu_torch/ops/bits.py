@@ -16,6 +16,7 @@ import torch
 __all__ = [
     "pack_bool_cols",
     "unpack_words_i8",
+    "unpack_words_t_i8",
     "unpack_cols",
     "or_diagonal",
     "to_host_words",
@@ -38,12 +39,32 @@ def pack_bool_cols(tile: torch.Tensor) -> torch.Tensor:
     return (w * _bit_weights(tile.device)).sum(dim=-1, dtype=torch.int32)
 
 
+def _byte_shifts(device) -> torch.Tensor:
+    return torch.arange(8, dtype=torch.uint8, device=device)
+
+
 def unpack_words_i8(words: torch.Tensor, n_cols: int) -> torch.Tensor:
     """int32 [..., W] → int8 [..., n_cols] (n_cols == 32·W, little bit
-    order — the inverse of ``pack_bool_cols`` on the last axis)."""
-    bits = torch.arange(32, dtype=torch.int32, device=words.device)
-    out = (words[..., None] >> bits) & 1
-    return out.reshape(*words.shape[:-1], n_cols).to(torch.int8)
+    order — the inverse of ``pack_bool_cols`` on the last axis).
+
+    The words are read as their little-endian bytes: byte ``c`` of a row
+    holds columns ``8c .. 8c+7``, so one uint8 shift per output element
+    unpacks them, and the only transient is the output itself (an int32
+    shift would make one four times its size)."""
+    b = words.contiguous().view(torch.uint8)  # [..., 4W]
+    out = torch.bitwise_right_shift(b[..., None], _byte_shifts(words.device))
+    return out.bitwise_and_(1).reshape(*words.shape[:-1], n_cols).view(torch.int8)
+
+
+def unpack_words_t_i8(words: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """int32 [R, W] → int8 [n_cols, R], contiguous: the transpose of
+    ``unpack_words_i8(words, n_cols)``, made by transposing the bytes (an
+    eighth of the output) and unpacking each byte row into 8 output rows,
+    so the unpacked matrix is written once, already K-contiguous for a
+    product that contracts over R."""
+    bt = words.contiguous().view(torch.uint8).t().contiguous()  # [4W, R]
+    out = torch.bitwise_right_shift(bt[:, None, :], _byte_shifts(words.device)[:, None])
+    return out.bitwise_and_(1).reshape(n_cols, words.shape[0]).view(torch.int8)
 
 
 def unpack_cols(packed: np.ndarray, n_cols: int) -> np.ndarray:

@@ -1,8 +1,8 @@
 """Host-side padding of the encoded operands (numpy).
 
 The port's own copy of ``kubernetes_verification_tpu.parallel.mesh.pad_rows``
-and of ``parallel/sharded_ops.py``'s ``pad_selector_rows`` and
-``pad_grants``. Padding is inert by construction: pad pods are label-less and
+and of ``parallel/sharded_ops.py``'s ``pad_selector_rows``, ``pad_grants``
+and ``pad_pods``. Padding is inert by construction: pad pods are label-less and
 live in namespace −1 (never a policy's namespace, so never selected, never
 peered label-wise); pad grant rows carry impossible selectors and belong to
 the sink policy slot ``P``, which the solvers drop; whatever pad rows and
@@ -11,11 +11,13 @@ output.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 
 from ..encode.encoder import GrantBlock, SelectorEnc
 
-__all__ = ["pad_rows", "pad_selector_rows", "pad_grants"]
+__all__ = ["pad_rows", "pad_selector_rows", "pad_grants", "pad_pods"]
 
 
 def pad_rows(a: np.ndarray, pad: int, fill=0) -> np.ndarray:
@@ -74,4 +76,17 @@ def pad_grants(
             if block.peer_id is not None
             else None
         ),
+    )
+
+
+def pad_pods(
+    pod_kv: np.ndarray, pod_key: np.ndarray, pod_ns: np.ndarray, pad: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Label-less pods in namespace −1: selected by nothing, peer to nothing
+    label-based; whatever pad rows/cols do pick up (match-all rules,
+    default-allow) is masked out of the outputs."""
+    return (
+        pad_rows(pod_kv, pad),
+        pad_rows(pod_key, pad),
+        pad_rows(pod_ns, pad, fill=-1),
     )

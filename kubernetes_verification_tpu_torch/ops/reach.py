@@ -1,12 +1,13 @@
 """Dense k8s-mode reachability assembly in PyTorch.
 
-The port of ``kubernetes_verification_tpu.ops.reach.k8s_reach``: selector
-matching, the per-grant peer maps, and the grant contraction over a
-(pods × pods × port-atoms) tensor, each an exact float32 product (0/1
-operands, counts below 2²⁴, TF32 off). This is the solve behind
-``verify(cluster, VerifyConfig(backend="torch"))``; it materialises [N, N·Q]
-counts, so it is for clusters of a few thousand pods — ``ops/tiled.py`` is
-the 100k-pod path.
+The port of ``kubernetes_verification_tpu.ops.reach``: ``k8s_reach`` —
+selector matching, the per-grant peer maps, and the grant contraction over a
+(pods × pods × port-atoms) tensor — and the kano matrix build
+``kano_reach``, each an exact float32 product (0/1 operands, counts below
+2²⁴, TF32 off). These are the solves behind ``verify`` and ``verify_kano``
+with ``VerifyConfig(backend="torch")``; they materialise [N, N·Q] counts, so
+they are for clusters of a few thousand pods — ``ops/tiled.py`` is the
+100k-pod path.
 """
 from __future__ import annotations
 
@@ -15,11 +16,39 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..encode.encoder import GrantBlock, SelectorEnc
-from .match import exact_fp32, match_selectors
+from .match import exact_fp32, match_selectors, subset_match
 
-__all__ = ["k8s_reach", "K8sOut"]
+__all__ = ["kano_reach", "KanoOut", "k8s_reach", "K8sOut"]
 
 _F = torch.float32
+
+
+def _bool_or_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """OR-accumulated contraction: out[i, j] = ∨_g a[g, i] ∧ b[g, j]."""
+    with exact_fp32():
+        counts = a.to(_F).T @ b.to(_F)
+    return counts > 0
+
+
+class KanoOut(NamedTuple):
+    reach: torch.Tensor  # bool [N, N]
+    src_sets: torch.Tensor  # bool [P, N]
+    dst_sets: torch.Tensor  # bool [P, N]
+
+
+def kano_reach(
+    pod_kv: torch.Tensor,
+    src_req: torch.Tensor,
+    src_impossible: torch.Tensor,
+    dst_req: torch.Tensor,
+    dst_impossible: torch.Tensor,
+) -> KanoOut:
+    """The kano matrix build (``kano_py/kano/model.py:124-165``) as two
+    subset-match products and one OR-outer-product contraction."""
+    src_sets = subset_match(src_req, pod_kv) & ~src_impossible[:, None]
+    dst_sets = subset_match(dst_req, pod_kv) & ~dst_impossible[:, None]
+    reach = _bool_or_matmul(src_sets, dst_sets)
+    return KanoOut(reach=reach, src_sets=src_sets, dst_sets=dst_sets)
 
 
 class K8sOut(NamedTuple):

@@ -18,13 +18,18 @@ The port of the any-port path of ``kubernetes_verification_tpu.ops.tiled``:
 A multi-atom encoding (``encode_cluster(compute_ports=True)`` with port specs)
 takes the port-bitmap path of ``ops/tiled_ports.py``: the mask-group sweep,
 or on a CUDA device the fused kernel ``ops/kernels.py::fused_ports_reach``.
+
+``PackedReach.closure`` closes the packed matrix (``ops/closure.py``), and
+``policy_pair_masks`` answers the two pairwise policy queries at flagship
+scale from [P, N] per-policy edge sets and their int8 Gram products, without
+the dense [N, N] solve.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from dataclasses import dataclass
-from typing import Any, List, NamedTuple, Optional, Union
+from typing import Any, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,15 +44,22 @@ from .bits import (
     unpack_cols,
     unpack_words_i8,
 )
-from .closure import packed_pair_total, packed_row_counts
+from .closure import (
+    _words,
+    bool_dot,
+    packed_closure,
+    packed_pair_total,
+    packed_row_counts,
+)
 from .kernels import N_TILE, packed_reach
 from .match import as_tensors, exact_fp32, match_selectors
-from .padding import pad_grants
+from .padding import pad_grants, pad_pods
 
 __all__ = [
     "PackedReach",
     "tiled_k8s_reach",
     "kernel_operands",
+    "policy_pair_masks",
     "pack_bool_cols",
     "unpack_cols",
     "unpack_words_i8",
@@ -446,10 +458,24 @@ class PackedReach:
         (``kano/algorithm.py:45-55``); unpacks one row only."""
         return np.nonzero(~self.row(idx))[0].tolist()
 
-    def closure(self, *_, **__) -> "PackedReach":
-        raise ConfigError(
-            "the packed closure is not ported yet: ROADMAP.md, 'Modules to "
-            "port', the packed closure (ops/closure.py)"
+    def closure(
+        self, tile: int = 7168, max_iter: int = 32, *, device=None, on_pass=None
+    ) -> "PackedReach":
+        """Transitive closure in the packed domain (``ops/closure.py``'s
+        tiled squaring): the rows are padded with zero rows to ``W·32`` so
+        the matrix is square in bits, closed, and trimmed. Returns a new
+        ``PackedReach`` on the same side as this one: device words stay on
+        their device; host words are closed on ``device`` (default
+        ``"cuda"``) and come back as the reference's uint32. ``on_pass`` is
+        ``packed_closure``'s per-pass callback."""
+        words = _words(self.packed, device) if self._on_host else self.packed
+        rows = words.shape[0]
+        padded = torch.nn.functional.pad(words, (0, 0, 0, words.shape[1] * 32 - rows))
+        closed = packed_closure(
+            padded, tile=tile, max_iter=max_iter, on_pass=on_pass
+        )[:rows]
+        return dataclasses.replace(
+            self, packed=to_host_words(closed) if self._on_host else closed
         )
 
     def user_crosscheck(self, objs, label: str) -> List[int]:
@@ -559,3 +585,129 @@ def tiled_k8s_reach(
     else:
         out.selected = selected[:, :n].cpu().numpy()
     return out
+
+
+# ---------------------------------------------------------------------------
+# pairwise policy queries at flagship scale
+# ---------------------------------------------------------------------------
+
+
+class PairArgs(NamedTuple):
+    """The operands of the pair-mask step (``_pair_mask_args``): numpy
+    arrays, or tensors on a device after ``_put``."""
+
+    pod_kv: Any
+    pod_key: Any
+    pod_ns: Any
+    ns_kv: Any
+    ns_key: Any
+    pol_sel: Any
+    pol_ns: Any
+    gate_i: Any  # bool [P]: policy has ingress rules AND affects ingress
+    gate_e: Any  # bool [P]
+    ingress: GrantBlock
+    egress: GrantBlock
+    valid: Any  # int8 [N]: 1 = real pod, 0 = pod-axis padding
+
+
+def _policy_sets(a: PairArgs, *, chunk: int):
+    """The int8 [P, N] per-policy src/dst edge sets, following the CPU
+    oracle: an ingress-affecting policy with rules contributes its peer
+    union to src and its selection to dst; egress mirrors."""
+    P = a.pol_ns.shape[0]
+    selected8 = (
+        match_selectors(a.pol_sel, a.pod_kv, a.pod_key)
+        & (a.pol_ns[:, None] == a.pod_ns[None, :])
+    ).to(_I8)
+    pol_ns_ext = _with_sink(a.pol_ns)
+
+    def peers(block: GrantBlock) -> torch.Tensor:
+        return _peers_by_slot(
+            block, block.pol, P + 1, chunk,
+            a.pod_kv, a.pod_key, a.ns_kv, a.ns_key, a.pod_ns, pol_ns_ext,
+        )[:P]
+
+    ing_peers = peers(a.ingress)
+    eg_peers = peers(a.egress)
+    gi = a.gate_i.to(_I8)[:, None]
+    ge = a.gate_e.to(_I8)[:, None]
+    valid = a.valid[None, :]
+    src8 = torch.maximum(ing_peers * gi, selected8 * ge) * valid
+    dst8 = torch.maximum(selected8 * gi, eg_peers * ge) * valid
+    return src8, dst8
+
+
+def _pair_masks_from_sets(src8: torch.Tensor, dst8: torch.Tensor):
+    """``(shadow, conflict)`` bool [P, P] from the [P, N] sets: two int8
+    Grams (``share`` co-selection, ``dd`` dst overlap; both operands
+    K-contiguous) and the dst popcounts ``dsize``."""
+    P = src8.shape[0]
+    share = bool_dot(src8, src8)
+    dd = bool_dot(dst8, dst8)
+    dsize = dst8.sum(dim=1, dtype=_I32)
+    eye = torch.eye(P, dtype=torch.bool, device=src8.device)
+    shadow = (share > 0) & (dd == dsize[None, :]) & ~eye
+    conflict = (
+        (share > 0)
+        & (dd == 0)
+        & (dsize[:, None] > 0)
+        & (dsize[None, :] > 0)
+        & ~eye
+    )
+    return shadow, conflict
+
+
+def _policy_sets_step(a: PairArgs, *, chunk: int):
+    """Per-policy src/dst edge sets + their Gram masks, on ``a``'s device:
+    the [P, N] sets never leave it."""
+    return _pair_masks_from_sets(*_policy_sets(a, chunk=chunk))
+
+
+def _pair_mask_args(
+    enc: EncodedCluster, direction_aware_isolation: bool, chunk: int,
+    n_pad: int,
+) -> PairArgs:
+    """Host prologue: grant gates, chunk-aligned grant padding, optional
+    pod-axis padding (+ its validity vector)."""
+    P = enc.n_policies
+    has_ing = np.bincount(enc.ingress.pol, minlength=P + 1)[:P] > 0
+    has_eg = np.bincount(enc.egress.pol, minlength=P + 1)[:P] > 0
+    if direction_aware_isolation:
+        gate_i = has_ing & enc.pol_affects_ingress
+        gate_e = has_eg & enc.pol_affects_egress
+    else:
+        gate_i = has_ing
+        gate_e = has_eg
+    ingress = pad_grants(
+        enc.ingress, (chunk - enc.ingress.n % chunk) % chunk, P, n_pad
+    )
+    egress = pad_grants(
+        enc.egress, (chunk - enc.egress.n % chunk) % chunk, P, n_pad
+    )
+    pod_kv, pod_key, pod_ns = pad_pods(enc.pod_kv, enc.pod_key, enc.pod_ns, n_pad)
+    valid = np.zeros(enc.n_pods + n_pad, dtype=np.int8)
+    valid[: enc.n_pods] = 1
+    return PairArgs(
+        pod_kv, pod_key, pod_ns, enc.ns_kv, enc.ns_key, enc.pol_sel,
+        enc.pol_ns, gate_i, gate_e, ingress, egress, valid,
+    )
+
+
+def policy_pair_masks(
+    enc: EncodedCluster,
+    *,
+    direction_aware_isolation: bool = True,
+    chunk: int = 2048,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """``(shadow_mask, conflict_mask)`` bool [P, P] for the two pairwise
+    policy queries at flagship scale, on ``device`` (default ``"cuda"``;
+    raises without one). The [P, N] src/dst edge sets and their two
+    O(P²·N) int8 Grams stay on the device (at 10k policies × 100k pods each
+    Gram is 10¹³ multiply-adds); only the [P, P] masks come back. Harvest
+    pairs with ``np.argwhere``, or compare with
+    ``VerifyResult.policy_shadow()`` at small N."""
+    dev = resolve_device(device)
+    args = _put(_pair_mask_args(enc, direction_aware_isolation, chunk, n_pad=0), dev)
+    shadow, conflict = _policy_sets_step(args, chunk=chunk)
+    return shadow.cpu().numpy(), conflict.cpu().numpy()

@@ -182,3 +182,103 @@ def test_tiled_ports_kernel_path_matches_sweep_and_cpu(cuda_device):
     assert got.timings["reachable_pairs"] == int(cpu.out_degree().sum())
     dense = kvt.verify(cluster, kvt.VerifyConfig(compute_ports=True))
     np.testing.assert_array_equal(cpu.to_bool(), dense.reach)
+
+
+# ---------------------------------------------------------------------------
+# closures, path queries, pair masks and kano mode on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,d", [(1, 64, 40), (16, 33, 5), (17, 8, 8), (3, 1, 1),
+                                   (0, 0, 0), (300, 1024, 96)])
+def test_bool_dot_meets_the_int_mm_shape_rules_on_the_card(cuda_device, m, k, d):
+    """``torch._int_mm`` on CUDA takes M > 16 and K, D multiples of 8:
+    ``bool_dot`` pads every other shape and trims, with exact counts."""
+    from kubernetes_verification_tpu_torch.ops.closure import bool_dot
+
+    rng = np.random.default_rng(m * 7 + k + d)
+    a = (rng.random((m, k)) < 0.5).astype(np.int8)
+    bt = (rng.random((d, k)) < 0.5).astype(np.int8)
+    got = bool_dot(torch.as_tensor(a, device=cuda_device), torch.as_tensor(bt, device=cuda_device))
+    assert tuple(got.shape) == (m, d)
+    np.testing.assert_array_equal(got.cpu().numpy(), a.astype(np.int64) @ bt.T.astype(np.int64))
+
+
+def _words_on(dense, dev):
+    return torch.as_tensor(
+        np.packbits(dense, axis=1, bitorder="little").view("<i4").copy(), device=dev
+    )
+
+
+@pytest.mark.parametrize("n_seeds", [1, 16, 17, 256])
+def test_bounded_closure_on_card_matches_cpu(cuda_device, n_seeds):
+    """1 and 16 seeds are below ``_int_mm``'s 17 rows: padded on the card."""
+    rng = np.random.default_rng(n_seeds)
+    g = rng.random((256, 256)) < 1.5 / 256
+    seeds = rng.integers(0, 256, n_seeds)
+    for hops in (None, 2):
+        got = kvt.bounded_packed_closure(_words_on(g, cuda_device), seeds, hops=hops, tile=64)
+        want = kvt.bounded_packed_closure(_words_on(g, "cpu"), seeds, hops=hops, tile=64)
+        assert torch.equal(got[0].cpu(), want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_closures_on_card_match_cpu(cuda_device):
+    from kubernetes_verification_tpu_torch.ops.closure import _add_edges_round
+
+    rng = np.random.default_rng(5)
+    g = rng.random((512, 512)) < 1.3 / 512
+    w_dev, w_cpu = _words_on(g, cuda_device), _words_on(g, "cpu")
+    c_dev = kvt.packed_closure(w_dev, tile=128, dst_tile=256)
+    c_cpu = kvt.packed_closure(w_cpu, tile=128, dst_tile=256)
+    assert torch.equal(c_dev.cpu(), c_cpu)
+    for hops in (1, 2, 3):
+        assert torch.equal(kvt.path_upto(w_dev, hops).cpu(), kvt.path_upto(w_cpu, hops))
+    dense = kvt.transitive_closure(torch.as_tensor(g[:100, :100], device=cuda_device))
+    assert torch.equal(dense.cpu(), kvt.transitive_closure(torch.as_tensor(g[:100, :100])))
+    # an added-edge round over d = 5 < 17 rows: both products are padded
+    added = _words_on(rng.random((512, 512)) < 0.002, "cpu")
+    rows = torch.tensor([3, 9, 9, 200, 511])
+    want = _add_edges_round(c_cpu.clone(), added, rows, tile=128)
+    got = _add_edges_round(c_dev.clone(), added.to(cuda_device), rows.to(cuda_device), tile=128)
+    assert torch.equal(got.cpu(), want)
+    # both delta routes
+    new = g.copy()
+    new[np.nonzero(g)[0][:3], np.nonzero(g)[1][:3]] = False
+    dirty = (g != new).any(axis=0) | (g != new).any(axis=1)
+    for with_base in (False, True):  # removals: the suspect route either way
+        d_dev = kvt.packed_closure_delta(_words_on(new, cuda_device), c_dev, dirty,
+                                         prev_base=w_dev if with_base else None)
+        d_cpu = kvt.packed_closure_delta(_words_on(new, "cpu"), c_cpu, dirty,
+                                         prev_base=w_cpu if with_base else None)
+        assert torch.equal(d_dev.cpu(), d_cpu)
+        assert torch.equal(d_cpu, kvt.packed_closure(_words_on(new, "cpu")))
+    grown = g | (rng.random((512, 512)) < 0.001)
+    a_dev = kvt.packed_closure_delta(_words_on(grown, cuda_device), c_dev,
+                                     np.zeros(512, bool), prev_base=w_dev)
+    assert torch.equal(a_dev.cpu(), kvt.packed_closure(_words_on(grown, "cpu")))
+
+
+def test_pair_masks_closure_and_kano_on_card_match_cpu(cuda_device):
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(n_pods=300, n_policies=40, seed=6))
+    enc = kvt.encode_cluster(cluster, compute_ports=False)
+    for got, want in zip(kvt.policy_pair_masks(enc, chunk=64),
+                         kvt.policy_pair_masks(enc, chunk=64, device="cpu")):
+        np.testing.assert_array_equal(got, want)
+    reach = kvt.tiled_k8s_reach(enc, chunk=64, fetch=False)
+    closed = reach.closure()
+    assert closed.packed.device.type == "cuda"
+    host = kvt.tiled_k8s_reach(enc, chunk=64, device="cpu").closure(device="cpu")
+    np.testing.assert_array_equal(closed.to_bool(), host.to_bool())
+    dense = kvt.verify(cluster, kvt.VerifyConfig(compute_ports=False, closure=True))
+    np.testing.assert_array_equal(closed.to_bool(), dense.closure)
+    for relation in (None, kvt.DefaultEqualityLabelRelation()):
+        runs = []
+        for d in ("cuda", "cpu"):
+            cont, pols = kvt.random_kano(300, 30, seed=6)
+            res = kvt.verify_kano(cont, pols, kvt.VerifyConfig(
+                closure=True, label_relation=relation, backend_options=(("device", d),)))
+            runs.append((res, [(c.select_policies, c.allow_policies) for c in cont]))
+        for name in ("reach", "src_sets", "dst_sets", "closure"):
+            np.testing.assert_array_equal(getattr(runs[0][0], name), getattr(runs[1][0], name))
+        assert runs[0][1] == runs[1][1]

@@ -66,3 +66,35 @@ def test_entry_points_refuse_the_cpu_without_a_gpu(monkeypatch):
         kvt.verify(cluster, kvt.VerifyConfig(compute_ports=False))
     # the CPU runs only when asked for
     assert kvt.tiled_k8s_reach(enc, device="cpu").n_pods == 20
+
+
+def test_new_entry_points_refuse_the_cpu_without_a_gpu(monkeypatch):
+    """The closures, the pair masks and kano mode default to ``cuda`` too:
+    host inputs raise without a GPU, and run on the CPU when asked."""
+    import numpy as np
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(seed=3, n_pods=20, n_policies=4))
+    enc = kvt.encode_cluster(cluster, compute_ports=False)
+    words = np.zeros((32, 1), np.uint32)
+    containers, policies = kvt.random_kano(8, 3, seed=1)
+    host = kvt.tiled_k8s_reach(enc, device="cpu")
+    calls = [
+        lambda **d: kvt.packed_closure(words, **d),
+        lambda **d: kvt.bounded_packed_closure(words, [0], **d),
+        lambda **d: kvt.path_upto(words, 2, **d),
+        lambda **d: kvt.packed_closure_delta(words, words, np.zeros(32, bool), **d),
+        lambda **d: kvt.transitive_closure(np.zeros((3, 3), bool), **d),
+        lambda **d: kvt.policy_pair_masks(enc, **d),
+        lambda **d: host.closure(**d),
+    ]
+    for call in calls:
+        with pytest.raises(BackendError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    with pytest.raises(BackendError, match="no CUDA device"):
+        kvt.verify_kano(containers, policies)
+    with pytest.raises(BackendError, match="no CUDA device"):
+        kvt.verify(cluster, kvt.VerifyConfig(compute_ports=False, closure=True))
+    cpu = kvt.VerifyConfig(backend_options=(("device", "cpu"),), closure=True)
+    assert kvt.verify_kano(containers, policies, cpu).closure.shape == (8, 8)

@@ -90,8 +90,14 @@ def test_packed_queries_match_jax_host_and_device():
             )
             assert got.reachable(idx, 5) == want.reachable(idx, 5)
             np.testing.assert_array_equal(got.row(idx), want.row(idx))
-    with pytest.raises(ConfigError, match="ROADMAP"):
-        got.closure()
+        # the packed closure, on the same side as the words it closes
+        closed = got.closure(tile=32, device="cpu")
+        want_closed = want.closure(tile=32)
+        assert isinstance(closed.packed, np.ndarray) == fetch
+        assert closed.n_pods == got.n_pods and closed.meta == got.meta
+        np.testing.assert_array_equal(words(closed.packed), words(want_closed.packed))
+        assert closed.all_isolated() == want_closed.all_isolated()
+        np.testing.assert_array_equal(closed.out_degree(), want_closed.out_degree())
 
 
 def test_multi_atom_encoding_is_refused(monkeypatch):

@@ -74,12 +74,22 @@ def test_verify_flags_match_jax(flags):
 
 
 def test_unported_paths_name_the_roadmap():
+    """What raised "not ported" before now runs: ``closure=True`` and kano
+    mode (``tests/test_torch_kano.py`` holds both against JAX). An unknown
+    backend still raises."""
     cluster = kvt.random_cluster(kvt.GeneratorConfig(seed=1, n_pods=10, n_policies=3))
+    jcluster = jax_random_cluster(JaxGeneratorConfig(seed=1, n_pods=10, n_policies=3))
     cpu = (("device", "cpu"),)
-    with pytest.raises(ConfigError, match="ROADMAP"):
-        kvt.verify(cluster, kvt.VerifyConfig(closure=True, backend_options=cpu))
-    with pytest.raises(ConfigError, match="ROADMAP"):
-        kvt.get_backend("torch").verify_kano([], [], kvt.VerifyConfig())
+    got = kvt.verify(cluster, kvt.VerifyConfig(closure=True, backend_options=cpu))
+    want = jkv.verify(jcluster, jkv.VerifyConfig(backend="tpu", closure=True))
+    np.testing.assert_array_equal(got.closure, want.closure)
+    kano = kvt.get_backend("torch").verify_kano(
+        [], [], kvt.VerifyConfig(backend_options=cpu)
+    )
+    assert kano.mode == "kano" and kano.reach.shape == (0, 0)
+    with pytest.raises(ConfigError, match="label_relation"):
+        kvt.verify(cluster, kvt.VerifyConfig(
+            label_relation=kvt.DefaultEqualityLabelRelation(), backend_options=cpu))
     with pytest.raises(KeyError):
         kvt.verify(cluster, kvt.VerifyConfig(backend="tpu"))
     assert kvt.available_backends() == ["torch"]
