@@ -48,8 +48,10 @@ Phases; any failure exits non-zero before a result line is printed:
    kernel paths against the dense solve on that cluster;
 9. flagship policy-pair masks: ``policy_pair_masks`` on phase 4's any-port
    encoding (P = 10,000, N = 100,000), then its set build and its two int8
-   Grams timed apart beside their bound; 64 sampled policies' mask rows
-   recomputed on the host in float64 from the fetched sets;
+   Grams timed apart beside their bound; 64 sampled policies' src/dst set
+   rows recomputed on the host from the cluster's model objects (label
+   columns, not the port's encoder or matcher), and their mask rows in
+   float64 from the fetched sets;
 10. flagship packed closure: ``PackedReach.closure()`` of phase 4's words
     (``fetch=False``), each pass's time (CUDA events), pairs and bound; the
     closure contains the reach, one more squaring leaves it unchanged,
@@ -61,9 +63,13 @@ Phases; any failure exits non-zero before a result line is printed:
     ``prev_base`` given): each equals ``packed_closure(new_base)``;
 12. kano mode at BASELINE config 3's scale: ``random_kano(10,000
     containers, 1,000 policies, seed 0)`` through ``verify_kano(closure=
-    True)`` with the default and a prefix ``LabelRelation``; 256 sampled
-    reach rows recomputed on the host in float64, and the dense closure
-    against ``packed_closure`` of the packed reach;
+    True)`` with the default and a prefix ``LabelRelation``, and the same
+    10,000 containers under 20 policies (a closure that is not all pairs);
+    the src/dst sets and every ``Container``'s lists against the host's
+    evaluation of the model objects, 256 sampled (20 policies: all) reach
+    rows in float64 and closure rows through the host's policy-graph
+    closure, and the dense closure against ``packed_closure`` of the
+    packed reach;
 13. the card against the CPU at phase 8's size: ``verify(closure=True)``,
     ``PackedReach.closure()`` of both tiled kernel paths against the dense
     closure, ``policy_pair_masks`` against the dense queries, and
@@ -98,6 +104,9 @@ MAIN = dict(n_pods=100_000, n_policies=10_000, n_namespaces=20,
 VERIFY = dict(n_pods=2_000, n_policies=200, n_namespaces=10, seed=1)
 #: BASELINE config 3's scale: 10k pods / 1k policies
 KANO = dict(n_containers=10_000, n_policies=1_000, seed=0)
+#: the same containers' scale under 20 policies: a closure with structure
+#: (its pairs are not every row with an edge times every column with one)
+KANO_SPARSE = dict(n_containers=10_000, n_policies=20, seed=0)
 DELTA_N = 8_192
 
 
@@ -604,6 +613,158 @@ class Phase:
         return False
 
 
+class LabelColumns:
+    """The labels of many objects as numpy columns, to evaluate the model's
+    selectors on the host without the port's encoder, vocabulary or
+    matcher: for each key, whether each object carries it and its value
+    (``""`` where it does not)."""
+
+    def __init__(self, label_dicts):
+        import numpy as np
+
+        self.n = len(label_dicts)
+        keys = sorted({k for d in label_dicts for k in d})
+        self.has = {k: np.array([k in d for d in label_dicts], dtype=bool) for k in keys}
+        self.val = {k: np.array([d.get(k, "") for d in label_dicts]) for k in keys}
+
+    def column(self, key: str):
+        """``(has, val)`` of ``key``; a key no object carries is absent
+        everywhere."""
+        import numpy as np
+
+        if key not in self.has:
+            return np.zeros(self.n, dtype=bool), np.full(self.n, "")
+        return self.has[key], self.val[key]
+
+    def match(self, sel):
+        """bool [n]: which objects a ``Selector`` matches, as
+        ``Selector.matches`` defines it (an object without the key
+        satisfies ``NotIn`` and ``DoesNotExist``)."""
+        import numpy as np
+
+        ok = np.ones(self.n, dtype=bool)
+        for k, v in sel.match_labels.items():
+            has, val = self.column(k)
+            ok &= has & (val == v)
+        for e in sel.match_expressions:
+            has, val = self.column(e.key)
+            if e.op == "Exists":
+                ok &= has
+            elif e.op == "DoesNotExist":
+                ok &= ~has
+            elif e.op == "In":
+                ok &= has & np.isin(val, list(e.values))
+            else:  # NotIn
+                ok &= ~(has & np.isin(val, list(e.values)))
+        return ok
+
+
+def host_policy_sets(cluster, rows):
+    """The src/dst edge-set rows ``rows`` of ``policy_pair_masks``' sets
+    (direction-aware isolation), bool [len(rows), N], from the cluster's
+    model objects: the definition the CPU oracle of the JAX package uses
+    (a policy that affects ingress and has ingress rules adds its rules'
+    peers to src and its selected pods to dst; egress mirrors), evaluated
+    on label columns."""
+    import numpy as np
+
+    pods = LabelColumns([p.labels for p in cluster.pods])
+    ns_index = cluster.namespace_index()
+    nss = LabelColumns([ns.labels for ns in cluster.namespaces])
+    pod_ns_name = np.array([p.namespace for p in cluster.pods])
+    pod_ns = np.array([ns_index[p.namespace] for p in cluster.pods])
+    n = len(cluster.pods)
+
+    def peer_set(peer, pol):
+        if peer.ip_block is not None:
+            return np.array([peer.ip_block.matches_ip(p.ip) for p in cluster.pods])
+        if peer.namespace_selector is None:
+            ns_ok = pod_ns_name == pol.namespace
+        else:
+            ns_ok = nss.match(peer.namespace_selector)[pod_ns]
+        if peer.pod_selector is None:
+            return ns_ok
+        return ns_ok & pods.match(peer.pod_selector)
+
+    def rule_set(rule, pol):
+        if rule.matches_all_peers:
+            return np.ones(n, dtype=bool)
+        out = np.zeros(n, dtype=bool)
+        for peer in rule.peers:
+            out |= peer_set(peer, pol)
+        return out
+
+    src = np.zeros((len(rows), n), dtype=bool)
+    dst = np.zeros((len(rows), n), dtype=bool)
+    for r, pi in enumerate(rows):
+        pol = cluster.policies[pi]
+        selected = (pod_ns_name == pol.namespace) & pods.match(pol.pod_selector)
+        if pol.affects_ingress and pol.ingress:
+            for rule in pol.ingress:
+                src[r] |= rule_set(rule, pol)
+            dst[r] |= selected
+        if pol.affects_egress and pol.egress:
+            for rule in pol.egress:
+                dst[r] |= rule_set(rule, pol)
+            src[r] |= selected
+    return src, dst
+
+
+def host_kano_sets(containers, policies, relation=None):
+    """bool [P, n] src and dst sets of kano mode from the model objects, as
+    the JAX package's CPU oracle defines them: a rule key no container
+    carries is dropped; otherwise a container must carry the key with a
+    value the relation accepts (string equality by default)."""
+    import numpy as np
+
+    cols = LabelColumns([c.labels for c in containers])
+    accepted = {}
+
+    def match(rule):
+        ok = np.ones(cols.n, dtype=bool)
+        for k, v in rule.items():
+            if k not in cols.has:
+                continue
+            has, val = cols.column(k)
+            if relation is None:
+                ok &= has & (val == v)
+                continue
+            if (k, v) not in accepted:
+                seen = np.unique(val[has])
+                accepted[k, v] = [u for u in seen.tolist() if relation.match(v, u)]
+            ok &= has & np.isin(val, accepted[k, v])
+        return ok
+
+    src = np.stack([match(p.src_labels) for p in policies]) if policies else (
+        np.zeros((0, cols.n), dtype=bool))
+    dst = np.stack([match(p.dst_labels) for p in policies]) if policies else (
+        np.zeros((0, cols.n), dtype=bool))
+    return src, dst
+
+
+def host_kano_closure_rows(src, dst, rows):
+    """bool [len(rows), n]: rows of the transitive closure of the kano reach
+    ``∨_p src[p]ᵀ dst[p]``, through the policy graph instead of the n × n
+    matrix. A path ``i → … → j`` is a chain of policies ``p₁ … p_k`` with
+    ``i ∈ src(p₁)``, ``dst(p_t) ∩ src(p_{t+1}) ≠ ∅`` and ``j ∈ dst(p_k)``,
+    so with ``M`` the reflexive-transitive closure of that [P, P] graph,
+    ``closure[i] = ∨_{p ∋ i, M[p, q]} dst[q]``. float64 counts are exact
+    (each at most max(P, n) < 2⁵³)."""
+    import numpy as np
+
+    P = src.shape[0]
+    s, d = src.astype(np.float64), dst.astype(np.float64)
+    g = (d @ s.T) > 0  # [P, P]: dst(p) meets src(q)
+    m = g | np.eye(P, dtype=bool)
+    while True:
+        grown = m | ((m.astype(np.float64) @ m.astype(np.float64)) > 0)
+        if np.array_equal(grown, m):
+            break
+        m = grown
+    first = (s[:, rows].T @ m.astype(np.float64)) > 0  # [rows, P]
+    return (first.astype(np.float64) @ d) > 0
+
+
 def host_mask_rows(src8, dst8, rows):
     """The ``rows`` of ``(shadow, conflict)`` from host int8 [P, N] sets, in
     float64 (exact: every count is at most N < 2⁵³), a block of policies at
@@ -626,8 +787,10 @@ def host_mask_rows(src8, dst8, rows):
     return shadow, conflict
 
 
-def pair_masks_phase(enc, dev, smi: str) -> None:
-    """Phase 9: the flagship policy-pair masks."""
+def pair_masks_phase(cluster, enc, dev, smi: str) -> None:
+    """Phase 9: the flagship policy-pair masks. ``enc`` is ``cluster``'s
+    any-port encoding; the sampled set rows are recomputed from
+    ``cluster``'s model objects."""
     import numpy as np
 
     import kubernetes_verification_tpu_torch as kvt
@@ -671,6 +834,15 @@ def pair_masks_phase(enc, dev, smi: str) -> None:
     rows = np.sort(np.random.default_rng(9).choice(P, 64, replace=False))
     src_h, dst_h = src8.cpu().numpy(), dst8.cpu().numpy()
     del src8, dst8, masks
+    want_src, want_dst = host_policy_sets(cluster, rows)
+    if not (np.array_equal(src_h[rows] > 0, want_src)
+            and np.array_equal(dst_h[rows] > 0, want_dst)):
+        fail("pairs: sampled src/dst set rows differ from the host's evaluation of "
+             "the policies")
+    log(f"pairs: 64 sampled policies' src and dst set rows == the host's evaluation "
+        f"of their selectors, namespaces and peers ({int(want_src.sum())} + "
+        f"{int(want_dst.sum())} pods; {time.perf_counter() - t1:.1f} s on the host)")
+    t1 = time.perf_counter()
     want_s, want_c = host_mask_rows(src_h, dst_h, rows)
     if not (np.array_equal(shadow[rows], want_s) and np.array_equal(conflict[rows], want_c)):
         fail("pairs: sampled mask rows differ from the host's float64 recomputation")
@@ -850,7 +1022,8 @@ class FirstLetterPrefix:
 
 
 def kano_phase(dev, smi: str) -> None:
-    """Phase 12: kano mode at 10k containers / 1k policies."""
+    """Phase 12: kano mode at 10k containers / 1k policies, and the same
+    containers under 20 policies."""
     import numpy as np
 
     import kubernetes_verification_tpu_torch as kvt
@@ -860,28 +1033,55 @@ def kano_phase(dev, smi: str) -> None:
         unpack_cols,
     )
 
-    t0 = time.perf_counter()
-    containers, policies = kvt.random_kano(**KANO)
-    log(f"kano: random_kano {KANO}: {time.perf_counter() - t0:.2f} s")
-    for label, rel in (("default", None), ("prefix relation", FirstLetterPrefix())):
-        with Phase(f"kano: verify_kano ({label})"):
+    scenarios = (
+        (KANO, "default", None, 256),
+        (KANO, "prefix relation", FirstLetterPrefix(), 256),
+        # a sparse policy set: its closure is neither all pairs nor the
+        # product of its margins, so it is checked on every row
+        (KANO_SPARSE, "default", None, None),
+    )
+    drawn = {}
+    for cfg, label, rel, n_rows in scenarios:
+        key = tuple(sorted(cfg.items()))
+        if key not in drawn:
+            t0 = time.perf_counter()
+            drawn[key] = kvt.random_kano(**cfg)
+            log(f"kano: random_kano {cfg}: {time.perf_counter() - t0:.2f} s")
+        containers, policies = drawn[key]
+        name = f"{len(containers)} x {len(policies)}, {label}"
+        with Phase(f"kano: verify_kano ({name})"):
             res = kvt.verify_kano(containers, policies, kvt.VerifyConfig(
                 backend="torch", closure=True, label_relation=rel))
         n = len(containers)
-        log(f"kano ({label}): encode {res.timings['encode']:.2f} s, solve + dense "
-            f"closure {res.timings['solve'] * 1e3:.1f} ms, {int(res.reach.sum())} "
-            f"reachable pairs, {int(res.closure.sum())} in the closure; {smi}")
-        rows = np.sort(np.random.default_rng(12).choice(n, 256, replace=False))
-        want = (res.src_sets[:, rows].T.astype(np.float64)
-                @ res.dst_sets.astype(np.float64)) > 0
-        if not np.array_equal(res.reach[rows], want):
-            fail(f"kano ({label}): sampled reach rows differ from the host's float64 "
-                 f"recomputation")
-        if [c.select_policies for c in containers[:50]] != [
-            np.nonzero(res.src_sets[:, i])[0].tolist() for i in range(50)
+        t0 = time.perf_counter()
+        src, dst = host_kano_sets(containers, policies, rel)
+        if not (np.array_equal(res.src_sets, src) and np.array_equal(res.dst_sets, dst)):
+            fail(f"kano ({name}): src/dst sets differ from the host's evaluation of "
+                 f"the policies")
+        if [(c.select_policies, c.allow_policies) for c in containers] != [
+            (np.nonzero(src[:, i])[0].tolist(), np.nonzero(dst[:, i])[0].tolist())
+            for i in range(n)
         ]:
-            fail(f"kano ({label}): the Container policy lists were not refilled")
-        with Phase(f"kano: packed_closure of the packed reach ({label})"):
+            fail(f"kano ({name}): the Container policy lists were not refilled")
+        rows = (np.arange(n) if n_rows is None else
+                np.sort(np.random.default_rng(12).choice(n, n_rows, replace=False)))
+        want = (src[:, rows].T.astype(np.float64) @ dst.astype(np.float64)) > 0
+        if not np.array_equal(res.reach[rows], want):
+            fail(f"kano ({name}): reach rows differ from the host's float64 "
+                 f"recomputation")
+        if not np.array_equal(res.closure[rows], host_kano_closure_rows(src, dst, rows)):
+            fail(f"kano ({name}): closure rows differ from the host's policy-graph "
+                 f"closure")
+        host_s = time.perf_counter() - t0
+        margins = int(res.reach.any(axis=1).sum()) * int(res.reach.any(axis=0).sum())
+        log(f"kano ({name}): encode {res.timings['encode']:.2f} s, solve + dense "
+            f"closure {res.timings['solve'] * 1e3:.1f} ms, {int(res.reach.sum())} "
+            f"reachable pairs, {int(res.closure.sum())} in the closure of {n * n} "
+            f"(rows with an edge x columns with an edge: {margins}); {smi}")
+        log(f"kano ({name}): src/dst sets and the Container lists == the host's "
+            f"evaluation; {len(rows)} reach rows == host float64 and closure rows == "
+            f"the host's policy-graph closure ({host_s:.2f} s on the host)")
+        with Phase(f"kano: packed_closure of the packed reach ({name})"):
             pad = (-n) % 32
             r = torch.nn.functional.pad(torch.as_tensor(res.reach, device=dev),
                                         (0, pad, 0, pad))
@@ -890,9 +1090,9 @@ def kano_phase(dev, smi: str) -> None:
             closed = kvt.packed_closure(w)
             packed_s = time.perf_counter() - t0
         if not np.array_equal(unpack_cols(to_host_words(closed[:n]), n), res.closure):
-            fail(f"kano ({label}): the dense closure differs from packed_closure's")
-        log(f"kano ({label}): 256 sampled reach rows == host float64; dense closure "
-            f"== packed_closure of the packed reach ({packed_s * 1e3:.1f} ms)")
+            fail(f"kano ({name}): the dense closure differs from packed_closure's")
+        log(f"kano ({name}): dense closure == packed_closure of the packed reach "
+            f"({packed_s * 1e3:.1f} ms)")
 
 
 def card_vs_cpu_phase(dev) -> None:
@@ -984,7 +1184,6 @@ def main() -> int:
     rows = kernel_full(any_enc, dev, smi)
     torch.cuda.empty_cache()
     enc = encode_main(cluster, compute_ports=True)
-    del cluster
     torch.cuda.reset_peak_memory_stats()
     fused_launches = ports_path(enc, dev)
     torch.cuda.empty_cache()
@@ -992,8 +1191,8 @@ def main() -> int:
     del enc
     torch.cuda.empty_cache()
     verify_phase(dev)
-    pair_masks_phase(any_enc, dev, smi)
-    del any_enc
+    pair_masks_phase(cluster, any_enc, dev, smi)
+    del cluster, any_enc
     closure_phase(reach, smi)
     del reach
     delta_phase(dev)

@@ -519,44 +519,54 @@ def bounded_closure_rows(
     *,
     hops=None,
     chunk: int = 2048,
+    device=None,
 ):
     """Bounded multi-source closure over a ROW ORACLE — the matrix-free
-    form, on the host. ``row_fn(idx)`` must return the one-step reach rows
-    ``bool [len(idx), n]`` (numpy, or anything ``np.asarray`` takes) for the
-    given source indices. Only ``[K, n]`` state plus a ``[≤chunk, n]``
-    transient per oracle call is ever held — never N×N.
+    form. ``row_fn(idx)`` must return the one-step reach rows
+    ``bool [len(idx), n]`` (a tensor, or anything ``np.asarray`` takes) for
+    the given numpy source indices. The BFS runs on ``device`` (default
+    ``"cuda"``; raises without one): only ``[K, n]`` state plus a
+    ``[≤chunk, n]`` transient per oracle call is ever held — never N×N.
 
-    Returns ``(acc, hop)``: ``acc`` bool ``[K, n]`` (destinations reachable
-    from each seed within ``hops`` edges; ``hops=None`` = closure rows),
-    ``hop`` int32 ``[K, n]`` shortest hop counts (0 = unreachable)."""
+    Returns numpy ``(acc, hop)``: ``acc`` bool ``[K, n]`` (destinations
+    reachable from each seed within ``hops`` edges; ``hops=None`` = closure
+    rows), ``hop`` int32 ``[K, n]`` shortest hop counts (0 =
+    unreachable)."""
     seeds = np.asarray(seeds, dtype=np.int64).reshape(-1)
     K = len(seeds)
     if K and (seeds.min() < 0 or seeds.max() >= n):
         raise ConfigError(f"seeds outside [0, {n})")
+    dev = resolve_device(device)
     if K == 0 or n == 0:
         return np.zeros((K, n), bool), np.zeros((K, n), np.int32)
-    acc = np.asarray(row_fn(seeds), dtype=bool).reshape(K, n).copy()
-    hop = np.where(acc, np.int32(1), np.int32(0))
-    frontier = acc.copy()
+
+    def rows(idx: np.ndarray) -> torch.Tensor:
+        r = row_fn(idx)
+        r = r if isinstance(r, torch.Tensor) else torch.as_tensor(np.asarray(r))
+        return r.to(device=dev, dtype=torch.bool).reshape(len(idx), n)
+
+    acc = rows(seeds)
+    hop = acc.to(_I32)
+    frontier = acc
     level = 1
     limit = int(hops) if hops is not None else n
-    while frontier.any() and level < limit:
+    while level < limit and bool(frontier.any()):
         # nodes on any seed's frontier; their rows are fetched once and
-        # OR-combined per seed by a [K, c] × [c, n] uint8 dot, chunked so
+        # OR-combined per seed by a [K, c] × [c, n] int8 product, chunked so
         # the oracle transient stays bounded
-        U = np.nonzero(frontier.any(axis=0))[0]
-        nxt = np.zeros((K, n), bool)
+        U = np.nonzero(frontier.any(dim=0).cpu().numpy())[0]
+        nxt = torch.zeros((K, n), dtype=torch.bool, device=dev)
         for i in range(0, len(U), chunk):
             u = U[i : i + chunk]
-            R = np.asarray(row_fn(u), dtype=np.uint8).reshape(len(u), n)
-            memb = frontier[:, u].astype(np.uint8)
-            nxt |= (memb @ R) > 0
+            rt = rows(u).to(_I8).t().contiguous()  # [n, c]: K-contiguous
+            memb = frontier[:, torch.as_tensor(u, device=dev)].to(_I8)  # [K, c]
+            nxt |= bool_dot(memb, rt) > 0
         fresh = nxt & ~acc
-        acc |= fresh
+        acc = acc | fresh
         hop[fresh] = level + 1
         frontier = fresh
         level += 1
-    return acc, hop
+    return acc.cpu().numpy(), hop.cpu().numpy()
 
 
 def path_upto(reach, hops: int, *, device=None):

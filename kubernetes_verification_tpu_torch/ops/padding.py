@@ -84,7 +84,9 @@ def pad_pods(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Label-less pods in namespace −1: selected by nothing, peer to nothing
     label-based; whatever pad rows/cols do pick up (match-all rules,
-    default-allow) is masked out of the outputs."""
+    default-allow) is masked out of the outputs. Its consumer is the
+    sharded pair masks' pod-axis padding (ROADMAP §1 item 10); the
+    one-device ``policy_pair_masks`` pads nothing."""
     return (
         pad_rows(pod_kv, pad),
         pad_rows(pod_key, pad),

@@ -668,7 +668,10 @@ def _pair_mask_args(
     n_pad: int,
 ) -> PairArgs:
     """Host prologue: grant gates, chunk-aligned grant padding, optional
-    pod-axis padding (+ its validity vector)."""
+    pod-axis padding (+ its validity vector). The pod-axis padding
+    (``n_pad``, ``valid``, ``pad_pods``) is there for the sharded pair
+    masks, which pad N to the mesh (ROADMAP §1 item 10); until those are
+    ported every caller passes ``n_pad=0``."""
     P = enc.n_policies
     has_ing = np.bincount(enc.ingress.pol, minlength=P + 1)[:P] > 0
     has_eg = np.bincount(enc.egress.pol, minlength=P + 1)[:P] > 0

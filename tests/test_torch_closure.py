@@ -140,11 +140,23 @@ def test_bounded_closure_rows_matches_jax(hops, chunk):
     g = _graph(70, 1.4, 4)
     seeds = [0, 3, 69, 3]
     want = jc.bounded_closure_rows(lambda i: g[i], seeds, 70, hops=hops, chunk=chunk)
-    got = tc.bounded_closure_rows(lambda i: g[i], seeds, 70, hops=hops, chunk=chunk)
+    got = tc.bounded_closure_rows(
+        lambda i: g[i], seeds, 70, hops=hops, chunk=chunk, device="cpu"
+    )
     for a, b in zip(got, want):
+        assert isinstance(a, np.ndarray) and a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    # an oracle that answers with tensors gives the same rows
+    got_t = tc.bounded_closure_rows(
+        lambda i: torch.as_tensor(g[i]), seeds, 70, hops=hops, chunk=chunk,
+        device="cpu",
+    )
+    for a, b in zip(got_t, want):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ConfigError):
-        tc.bounded_closure_rows(lambda i: g[i], [70], 70)
+        tc.bounded_closure_rows(lambda i: g[i], [70], 70, device="cpu")
+    acc, hop = tc.bounded_closure_rows(lambda i: g[i], [], 70, device="cpu")
+    assert acc.shape == (0, 70) and hop.shape == (0, 70)
 
 
 @pytest.mark.parametrize("hops", [1, 2, 3])

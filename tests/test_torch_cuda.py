@@ -223,6 +223,22 @@ def test_bounded_closure_on_card_matches_cpu(cuda_device, n_seeds):
         np.testing.assert_array_equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("n_seeds,chunk", [(1, 5), (16, 2048), (40, 13)])
+def test_bounded_closure_rows_on_card_matches_cpu(cuda_device, n_seeds, chunk):
+    """The row-oracle BFS on the card: fewer than 17 seeds and chunks that
+    are not multiples of 8 are padded by ``bool_dot``."""
+    rng = np.random.default_rng(n_seeds + chunk)
+    g = rng.random((150, 150)) < 1.4 / 150
+    seeds = rng.integers(0, 150, n_seeds)
+    for hops in (None, 2):
+        got = kvt.bounded_closure_rows(lambda i: g[i], seeds, 150, hops=hops,
+                                       chunk=chunk)
+        want = kvt.bounded_closure_rows(lambda i: g[i], seeds, 150, hops=hops,
+                                        chunk=chunk, device="cpu")
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_closures_on_card_match_cpu(cuda_device):
     from kubernetes_verification_tpu_torch.ops.closure import _add_edges_round
 

@@ -83,6 +83,9 @@ def test_new_entry_points_refuse_the_cpu_without_a_gpu(monkeypatch):
         lambda **d: kvt.packed_closure(words, **d),
         lambda **d: kvt.bounded_packed_closure(words, [0], **d),
         lambda **d: kvt.path_upto(words, 2, **d),
+        lambda **d: kvt.bounded_closure_rows(
+            lambda i: np.zeros((len(i), 4), bool), [0], 4, **d
+        ),
         lambda **d: kvt.packed_closure_delta(words, words, np.zeros(32, bool), **d),
         lambda **d: kvt.transitive_closure(np.zeros((3, 3), bool), **d),
         lambda **d: kvt.policy_pair_masks(enc, **d),
