@@ -75,12 +75,32 @@ Phases; any failure exits non-zero before a result line is printed:
     closure, ``policy_pair_masks`` against the dense queries, and
     ``verify_kano`` (2,000 containers / 200 policies) on every field.
 
+14. the serving engine at full width: ``PackedIncrementalVerifier`` built
+    on phase 4's cluster (its build split printed; the counts set to 0 just
+    before it: ``packed_dir_allow`` exactly twice, ``fused_ports_reach``
+    never; its words equal phase 4's bit for bit), then a diff stream of
+    policy adds, updates and removes, pod relabels (in and out of the
+    vocabulary), pod removes and adds (tombstones reused), a new namespace
+    and its relabel, with per-kind latencies; the live rows × live columns
+    against a one-shot ``tiled_k8s_reach`` of ``as_cluster()``;
+    ``solve_rows``, ``solve_stripe`` and ``packed_any_port`` against the
+    words; ``state_dict`` → ``from_state`` round trips, and a matrix-free
+    resume whose ``sweep_dirty`` equals the kept engine after 8 more diffs;
+15. the engine on the card against the engine on the CPU at phase 8's
+    size: ``state_dict`` equal after the build and after every op of a
+    policy, pod, label and namespace stream that grows the pod axis;
+    ``closure_packed`` equal to ``packed_closure`` of the words.
+
 Phases 9–13 launch neither hand-written kernel (their int8 products are
 ``torch._int_mm`` calls, as the JAX package leaves them to XLA): the counts
-are set to 0 before each and must read 0 after. Each prints its seconds and
-its peak device memory.
+are set to 0 before each and must read 0 after; phases 14–15 launch
+``packed_dir_allow`` only in their engine builds (the diff steps' products
+are ``torch._int_mm`` calls, as the JAX engine's are XLA dots). Each phase
+prints its seconds and its peak device memory.
 
-The second-to-last line is the kernel table as JSON; the last is
+The second-to-last line is the kernel table as JSON (``packed_dir_allow``'s
+row carries phase 14's build launches as ``engine_build_launches``); the
+last is
 ``{"ok": true, "device": {...}}``. Tolerance everywhere: exact (every output
 is boolean or integer words).
 """
@@ -1160,6 +1180,307 @@ def card_vs_cpu_phase(dev) -> None:
             f"cuda == cpu on every field and every Container's lists")
 
 
+def _timed(lat: dict, kind: str, fn):
+    """Run one engine op, wait for the card, and file its host-clock
+    latency under ``kind``."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    lat.setdefault(kind, []).append(time.perf_counter() - t0)
+    return out
+
+
+def _engine_words_equal(eng, words, d0: int = 0) -> bool:
+    """``words`` (host uint32 [n, k]) == the engine's words over its slots,
+    word columns ``d0/32 .. d0/32 + k``."""
+    import numpy as np
+
+    from kubernetes_verification_tpu_torch.ops.bits import to_host_words
+
+    w0 = d0 // 32
+    want = to_host_words(eng._packed[: eng.n_pods, w0 : w0 + words.shape[1]])
+    return np.array_equal(words, want)
+
+
+def _diff_stream(eng, cluster, donor, rng, lat: dict) -> None:
+    """Phase 14's diff stream: 16 policy adds (from ``donor``), 16 updates,
+    16 removes, 32 pod relabels (half to label sets other pods carry, half
+    to pairs the frozen vocabulary never saw), 32 pod removes and adds
+    (tombstones reused first), a new namespace and one relabel of it."""
+    import dataclasses
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    pols = list(cluster.policies)
+    picks = rng.choice(len(pols), 32, replace=False)
+    for i, p in enumerate(donor.policies[:16]):
+        _timed(lat, "add_policy", lambda: eng.add_policy(
+            dataclasses.replace(p, name=f"smoke-add-{i}")))
+    for j in picks[:16]:
+        src = pols[(j + 1) % len(pols)]
+        _timed(lat, "update_policy", lambda: eng.update_policy(dataclasses.replace(
+            pols[j], ingress=src.ingress, egress=src.egress,
+            policy_types=src.policy_types)))
+    for j in picks[16:]:
+        _timed(lat, "remove_policy", lambda: eng.remove_policy(
+            pols[j].namespace, pols[j].name))
+    live = eng.active_indices()
+    for k, i in enumerate(rng.choice(live, 32, replace=False)):
+        labels = (dict(eng.pods[int(rng.choice(live))].labels) if k < 16
+                  else {"smoke": f"unseen-{k}", "app": "alpha"})
+        _timed(lat, "update_pod_labels", lambda: eng.update_pod_labels(int(i), labels))
+    ns_new = kvt.Namespace("smoke-ns", dict(cluster.namespaces[3].labels))
+    _timed(lat, "add_namespace", lambda: eng.add_namespace(ns_new))
+    victims = rng.choice(eng.active_indices(), 16, replace=False)
+    for i in victims[:8]:
+        p = eng.pods[int(i)]
+        _timed(lat, "remove_pod", lambda: eng.remove_pod(p.namespace, p.name))
+    for k in range(16):  # 8 reuse the tombstones, 8 take headroom slots
+        ns = "smoke-ns" if k % 2 else cluster.namespaces[k % 20].name
+        donor_pod = donor.pods[k]
+        _timed(lat, "add_pod", lambda: eng.add_pod(kvt.Pod(
+            f"smoke-pod-{k}", ns, dict(donor_pod.labels), ip=donor_pod.ip)))
+    for i in victims[8:]:
+        p = eng.pods[int(i)]
+        _timed(lat, "remove_pod", lambda: eng.remove_pod(p.namespace, p.name))
+    _timed(lat, "update_namespace_labels", lambda: eng.update_namespace_labels(
+        "smoke-ns", dict(cluster.namespaces[7].labels)))
+
+
+def engine_phase(cluster, main_words, dev, smi: str) -> int:
+    """Phase 14: the serving engine at full width on phase 4's cluster.
+    Returns the build's ``packed_dir_allow`` launches."""
+    import dataclasses
+
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.ops.batched import packed_any_port
+    from kubernetes_verification_tpu_torch.ops.bits import to_host_words, unpack_words_i8
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = kvt.PackedIncrementalVerifier(cluster, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = launch_counts()
+    n, Np = eng.n_pods, eng._n_padded
+    log(f"engine: build {build_s:.2f} s (" + ", ".join(
+        f"{k} {v:.2f} s" for k, v in eng.build_timings.items())
+        + f"), Np {Np}, capacity {eng._capacity}, packed_dir_allow launches "
+        f"{launches[0]}, fused_ports_reach launches {launches[1]}, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    if launches != (2, 0):
+        fail(f"the engine build launched {launches}, not (2, 0)")
+    w = -(-n // 32)
+    if not torch.equal(eng._packed[:n, :w], main_words[:, :w]):
+        fail("engine: the build's words differ from phase 4's tiled_k8s_reach words")
+    if eng._packed[:, w:].any() or eng._packed[n:].any():
+        fail("engine: a pad word or pad row of the build is not zero")
+    log(f"engine: build words [:{n}, :{w}] == phase 4's tiled_k8s_reach words, bit for bit")
+
+    # the diff stream; no hand-written kernel runs in it
+    rng = np.random.default_rng(14)
+    donor = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=2_000, n_policies=64, n_namespaces=20, p_ipblock_peer=0.0,
+        min_selector_labels=1, seed=1))
+    lat: dict = {}
+    _diff_stream(eng, cluster, donor, rng, lat)
+    if launch_counts() != launches:
+        fail(f"engine: the diff stream launched a hand-written kernel: {launch_counts()}")
+    for kind, ts in lat.items():
+        log(f"engine: {kind} x{len(ts)}: median {statistics.median(ts) * 1e3:.1f} ms, "
+            f"max {max(ts) * 1e3:.1f} ms (host clock after a device sync)")
+    log(f"engine: after the stream {eng.n_active} live pods in {eng.n_pods} slots, "
+        f"{len(eng.policies)} policies, capacity {eng._capacity}, "
+        f"{len(eng._vectorizer.dirty)} label-drifted pods")
+
+    # an independent one-shot solve of the mutated cluster
+    t0 = time.perf_counter()
+    live = eng.as_cluster()
+    enc = kvt.encode_cluster(live, compute_ports=False)
+    one = kvt.tiled_k8s_reach(enc, fetch=False, device=dev)
+    log(f"engine: one-shot re-solve of the mutated cluster ({enc.n_pods} pods, "
+        f"{enc.n_policies} policies) {time.perf_counter() - t0:.2f} s")
+    act = torch.as_tensor(eng.active_indices(), device=dev)
+    n_live = act.shape[0]
+    for r0 in range(0, n_live, 4096):
+        rows = act[r0 : r0 + 4096]
+        mine = unpack_words_i8(eng._packed[rows], Np)[:, act]
+        theirs = unpack_words_i8(one.packed[r0 : r0 + 4096], one.packed.shape[1] * 32)
+        if not (torch.equal(mine, theirs[:, :n_live]) and not theirs[:, n_live:].any()):
+            fail(f"engine: live rows {r0}.. differ from the one-shot solve of as_cluster()")
+    log(f"engine: live rows x live columns ({n_live} x {n_live}) == the one-shot "
+        f"solve of as_cluster(), bit for bit")
+    del one, enc
+    sample = np.sort(rng.choice(eng.active_indices(), 1024, replace=False))
+    t0 = time.perf_counter()
+    got = eng.solve_rows(sample)
+    rows_s = time.perf_counter() - t0
+    if not np.array_equal(got, to_host_words(eng._packed[torch.as_tensor(sample, device=dev)])):
+        fail("engine: solve_rows differs from the engine's words")
+    t0 = time.perf_counter()
+    stripe = eng.solve_stripe(0, 4096)
+    stripe_s = time.perf_counter() - t0
+    if not _engine_words_equal(eng, stripe):
+        fail("engine: solve_stripe(0, 4096) differs from the engine's words")
+    src = np.unique(rng.choice(eng.active_indices(), 512))
+    q_row = rng.integers(0, len(src), 4096)
+    q_dst = rng.choice(eng.active_indices(), 4096)
+    t0 = time.perf_counter()
+    rows_w, ans = packed_any_port(*eng._maps, eng._col_mask, eng._row_valid, src,
+                                  q_row, q_dst, self_traffic=True, default_allow=True)
+    probe_s = time.perf_counter() - t0
+    host = to_host_words(eng._packed[torch.as_tensor(src, device=dev)])
+    want = (host[q_row, q_dst // 32] >> (q_dst % 32).astype(np.uint32)) & 1
+    if not (np.array_equal(rows_w, host) and np.array_equal(ans, want > 0)):
+        fail("engine: packed_any_port differs from the engine's words")
+    log(f"engine: solve_rows(1,024 rows) {rows_s * 1e3:.1f} ms, solve_stripe(0, 4096) "
+        f"{stripe_s * 1e3:.1f} ms, packed_any_port(4,096 probes, {len(src)} sources) "
+        f"{probe_s * 1e3:.1f} ms: each == the engine's words")
+
+    # round trips; from here on no hand-written kernel runs
+    reset_counts()
+    t0 = time.perf_counter()
+    state = eng.state_dict()
+    save_s = time.perf_counter() - t0
+    manifest = eng.as_cluster(include_inactive=True)
+    t0 = time.perf_counter()
+    back = kvt.PackedIncrementalVerifier.from_state(manifest, state, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_split = back.build_timings
+    if not torch.equal(back._packed, eng._packed):
+        fail("engine: from_state(state_dict()) words differ")
+    again = back.state_dict()
+    for k, v in state.items():
+        if np.asarray(v).tobytes() != np.asarray(again[k]).tobytes():
+            fail(f"engine: from_state(state_dict()) changes {k}")
+    del back, again
+    torch.cuda.empty_cache()
+    log(f"engine: state_dict {save_s:.2f} s ({sum(np.asarray(v).nbytes for v in state.values()) / 2**30:.2f} "
+        f"GiB on the host), from_state {load_s:.2f} s (" + ", ".join(
+            f"{k} {v:.2f} s" for k, v in load_split.items())
+        + "); the resumed engine's words and state arrays == the saved ones")
+    mf = kvt.PackedIncrementalVerifier.from_state(manifest, state, device=dev,
+                                                  keep_matrix=False)
+    del state
+    # the same 8 diffs to both; the pod add reuses the slot the remove just
+    # freed, the last tombstone of both engines' free lists
+    held = list(eng.policies.values())
+    act = eng.active_indices()
+    gone = eng.pods[int(act[123])]
+    more = [
+        ("update_pod_labels", int(act[7]), {"mf": "one"}),
+        ("update_pod_labels", int(act[len(act) * 7 // 10]),
+         dict(eng.pods[int(act[3])].labels)),
+        ("remove_policy", held[11].namespace, held[11].name),
+        ("add_policy", dataclasses.replace(donor.policies[40], name="mf-add")),
+        ("remove_pod", gone.namespace, gone.name),
+        ("add_pod", kvt.Pod("mf-pod", "smoke-ns", {"app": "mf"})),
+        ("update_namespace_labels", "smoke-ns", dict(cluster.namespaces[2].labels)),
+        ("update_policy", dataclasses.replace(held[5], ingress=())),
+    ]
+    for op, *args in more:
+        for e in (eng, mf):
+            getattr(e, op)(*args)
+    # sweep_dirty's stripes must tile Np (as in the JAX engine, a stripe
+    # past it is refused): 4,352 divides the flagship's Np = 100,096
+    from kubernetes_verification_tpu_torch.ops.closure import _fit_tile
+
+    width = _fit_tile(mf._n_padded, 4352)
+    t0 = time.perf_counter()
+    swept = 0
+    for d0, words in mf.sweep_dirty(width):
+        if not _engine_words_equal(eng, words, d0):
+            fail(f"engine: matrix-free sweep_dirty stripe {d0} differs from the kept "
+                 f"engine's words")
+        swept += 1
+    sweep_s = time.perf_counter() - t0
+    if mf.dirty_rows.any() or mf.dirty_cols.any():
+        fail("engine: sweep_dirty left dirty marks")
+    torch.cuda.synchronize()
+    log(f"engine: matrix-free from_state + 8 diffs: sweep_dirty({width}) re-solved "
+        f"{swept} stripes in {sweep_s:.2f} s, each == the kept engine's words")
+    if launch_counts() != (0, 0):
+        fail(f"engine: the round trips or the matrix-free sweep launched a "
+             f"hand-written kernel: {launch_counts()}")
+    log(f"engine: {time.perf_counter() - t_phase:.2f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    return launches[0]
+
+
+def engine_card_vs_cpu_phase(dev) -> None:
+    """Phase 15: the engine on the card against the engine on the CPU, at
+    phase 8's size, state_dict after every op."""
+    import dataclasses
+
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(**VERIFY))
+    donor = kvt.random_cluster(kvt.GeneratorConfig(**{**VERIFY, "seed": 2}))
+    pols = list(cluster.policies)
+    rng = np.random.default_rng(15)
+    ops = [("add_policy", dataclasses.replace(p, name=f"cv-{i}"))
+           for i, p in enumerate(donor.policies[:6])]
+    ops += [("update_policy", dataclasses.replace(pols[i], ingress=pols[i + 1].ingress))
+            for i in (3, 30, 60)]
+    ops += [("remove_policy", pols[i].namespace, pols[i].name) for i in (10, 90, 150)]
+    ops += [("update_pod_labels", int(i), dict(cluster.pods[int(i) + 1].labels))
+            for i in rng.choice(1_999, 4, replace=False)]
+    ops += [("update_pod_labels", int(i), {"cv": "unseen"})
+            for i in rng.choice(2_000, 4, replace=False)]
+    victims = rng.choice(2_000, 6, replace=False)
+    ops += [("remove_pod", cluster.pods[int(i)].namespace, cluster.pods[int(i)].name)
+            for i in victims]
+    ops += [("add_namespace", kvt.Namespace("cv-ns", {"team": "cv"}))]
+    ops += [("add_pod", kvt.Pod(f"cv-pod-{k}", "cv-ns" if k % 3 else "ns1",
+                                dict(cluster.pods[k].labels))) for k in range(60)]
+    ops += [("update_namespace_labels", "ns2", dict(cluster.namespaces[4].labels)),
+            ("update_namespace_labels", "cv-ns", {"team": "other"})]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    engines = {d: kvt.PackedIncrementalVerifier(cluster, device=d)
+               for d in ("cuda", "cpu")}
+    if launch_counts() != (2, 0):
+        fail(f"engine card vs cpu: the card's build launched {launch_counts()}, not (2, 0)")
+    Np0 = engines["cuda"]._n_padded
+    for op, *args in [("build",)] + ops:
+        for e in engines.values():
+            if op != "build":
+                getattr(e, op)(*args)
+        want, got = engines["cpu"].state_dict(), engines["cuda"].state_dict()
+        for k in want:
+            w, g = np.asarray(want[k]), np.asarray(got[k])
+            if w.dtype != g.dtype or w.shape != g.shape or w.tobytes() != g.tobytes():
+                fail(f"engine card vs cpu: {k} differs after {op}")
+    if engines["cuda"]._n_padded <= Np0:
+        fail("engine card vs cpu: the pod axis did not grow")
+    closures = {d: e.closure_packed() for d, e in engines.items()}
+    eng = engines["cuda"]
+    if not (torch.equal(closures["cuda"], kvt.packed_closure(eng._packed.clone()))
+            and torch.equal(closures["cuda"].cpu(), closures["cpu"])):
+        fail("engine card vs cpu: closure_packed differs from packed_closure of the words")
+    if launch_counts() != (2, 0):
+        fail(f"engine card vs cpu: the stream launched a hand-written kernel: "
+             f"{launch_counts()}")
+    torch.cuda.synchronize()
+    log(f"engine card vs cpu: {len(ops)} ops, state_dict cuda == cpu after the build "
+        f"and after each op (Np {Np0} -> {eng._n_padded}, capacity {eng._capacity}); "
+        f"closure_packed == packed_closure of the words on the card and the CPU "
+        f"engine's; {time.perf_counter() - t0:.2f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -1192,12 +1513,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     verify_phase(dev)
     pair_masks_phase(cluster, any_enc, dev, smi)
-    del cluster, any_enc
+    del any_enc
     closure_phase(reach, smi)
+    main_words = reach.packed  # phase 14's build is held against them
     del reach
     delta_phase(dev)
     kano_phase(dev, smi)
     card_vs_cpu_phase(dev)
+    engine_launches = engine_phase(cluster, main_words, dev, smi)
+    del cluster, main_words
+    torch.cuda.empty_cache()
+    engine_card_vs_cpu_phase(dev)
     worst = max([worst] + [r["err"] for r in rows])
     worst_fused = max(worst_fused, fused_row["err"])
 
@@ -1211,6 +1537,7 @@ def main() -> int:
         "source": "kubernetes_verification_tpu_torch/csrc/packed_dir_allow.cu",
         "replaces": "kubernetes_verification_tpu/ops/pallas_kernels.py:151",
         "launches": launches,
+        "engine_build_launches": engine_launches,
         "max_abs_err": worst,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),

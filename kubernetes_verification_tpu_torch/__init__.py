@@ -17,6 +17,8 @@ Entry points run on ``cuda`` unless the caller passes a CPU device::
     closed = reach.closure()                    # packed transitive closure
     shadow, conflict = kvt.policy_pair_masks(enc)
     res = kvt.verify(cluster, kvt.VerifyConfig(backend="torch", closure=True))
+    engine = kvt.PackedIncrementalVerifier(cluster)  # the serving engine
+    engine.remove_policy(cluster.policies[0].namespace, cluster.policies[0].name)
     containers, policies = kvt.random_kano(1000, 100, seed=0)
     kano = kvt.verify_kano(containers, policies, kvt.VerifyConfig(backend="torch"))
 """
@@ -58,6 +60,7 @@ from .ops.closure import (
     transitive_closure,
 )
 from .ops.tiled import PackedReach, policy_pair_masks, tiled_k8s_reach
+from .packed_incremental import PackedIncrementalVerifier, PolicyVectorizer
 
 __all__ = [
     "Cluster",
@@ -71,10 +74,12 @@ __all__ = [
     "LabelRelation",
     "Namespace",
     "NetworkPolicy",
+    "PackedIncrementalVerifier",
     "PackedReach",
     "Peer",
     "Pod",
     "PortAtom",
+    "PolicyVectorizer",
     "PortSpec",
     "Rule",
     "Selector",

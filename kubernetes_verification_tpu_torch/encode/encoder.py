@@ -44,6 +44,8 @@ __all__ = [
     "EncodedCluster",
     "cluster_vocab",
     "encode_cluster",
+    "PolicyDelta",
+    "encode_policy_delta",
     "EncodedKano",
     "EncodedKanoRelation",
     "encode_kano",
@@ -433,6 +435,58 @@ def encode_cluster(
         restrict_bank=bank.array() if bank is not None else None,
         resolution=resolution,
         restrict_bank_intern=bank,
+    )
+
+
+@dataclass
+class PolicyDelta:
+    """One policy re-encoded against a *frozen* cluster encoding.
+
+    This is the unit of incremental re-verify (BASELINE config 5): a policy
+    diff re-enters the same compilation path as ``encode_cluster`` —
+    ``_encode_selector_stack`` + ``_encode_grants`` — but for a single policy,
+    against the vocab/atom/namespace universe captured at init. Selector pairs
+    the frozen vocab has never seen encode as ``impossible`` rows, which is
+    exact while the pod set is frozen (no pod can carry an unseen pair; pods
+    whose labels diverged after init are patched separately by the verifiers'
+    dirty-pod fixup). A policy in a namespace unknown to the frozen index gets
+    the sentinel ``pol_ns == -2``: it never equals a real pod namespace (>= 0)
+    or the pad sentinel (-1), so it selects nothing and peers nothing
+    same-namespace — correct, because the frozen pod set has no pods there.
+    """
+
+    pol_ns: int
+    affects_ingress: bool
+    affects_egress: bool
+    pod_sel: SelectorEnc  # [1] podSelector
+    ingress: GrantBlock
+    egress: GrantBlock
+
+
+def encode_policy_delta(
+    pol: NetworkPolicy,
+    vocab: Vocab,
+    atoms: Sequence[PortAtom],
+    ns_index: Dict[str, int],
+    pods: Sequence,
+    resolution: Optional[Dict] = None,
+    bank: Optional[_RestrictBank] = None,
+) -> PolicyDelta:
+    """Compile ONE policy against a frozen ``EncodedCluster`` universe.
+    ``resolution``/``bank`` (both frozen, from the init-time encoding)
+    enable named-port handling: unknown (name, atom) restrictions raise via
+    the frozen bank rather than silently changing the bank shape."""
+    return PolicyDelta(
+        pol_ns=ns_index.get(pol.namespace, -2),
+        affects_ingress=pol.affects_ingress,
+        affects_egress=pol.affects_egress,
+        pod_sel=_encode_selector_stack([pol.pod_selector], vocab),
+        ingress=_encode_grants(
+            [pol], pods, "ingress", atoms, vocab, resolution, bank
+        ),
+        egress=_encode_grants(
+            [pol], pods, "egress", atoms, vocab, resolution, bank
+        ),
     )
 
 

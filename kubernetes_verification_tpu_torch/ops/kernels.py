@@ -42,6 +42,7 @@ from .match import exact_fp32
 __all__ = [
     "packed_dir_allow",
     "packed_dir_allow_reference",
+    "packed_dir_allow_pod_major",
     "packed_reach",
     "k_major",
     "launch",
@@ -198,6 +199,39 @@ def launch(
 
 
 packed_dir_allow.launches = 0
+
+
+def packed_dir_allow_pod_major(
+    at: torch.Tensor,  # int8 [N, P] source-side map, pod-major
+    bt: torch.Tensor,  # int8 [N, P] destination-side map, pod-major
+    not_iso: torch.Tensor,  # int32 [8, N] (row 0 read)
+    *,
+    default_allow_axis: int = -1,
+) -> torch.Tensor:
+    """``packed_dir_allow`` on pod-major maps, the K-contiguous layout the
+    kernel reads: a CUDA tensor launches it on the maps themselves when P
+    is a positive multiple of ``K_STEP`` (else on zero-padded copies); a
+    CPU tensor takes the plain version on the transposes."""
+    if at.device.type == "cpu":
+        return packed_dir_allow_reference(
+            at.t().contiguous(), bt.t().contiguous(), not_iso,
+            default_allow_axis=default_allow_axis,
+        )
+    if at.device.type != "cuda":
+        raise BackendError(
+            f"packed_dir_allow runs on cuda or cpu, not {at.device}", backend="torch"
+        )
+    if at.shape != bt.shape or at.shape[0] % N_TILE:
+        raise ConfigError(
+            f"at {tuple(at.shape)} and bt {tuple(bt.shape)} must both be [N, P] "
+            f"with N a multiple of {N_TILE}"
+        )
+    p = at.shape[1]
+    pad = (-p) % K_STEP if p else K_STEP
+    if pad:
+        at = torch.nn.functional.pad(at, (0, pad))
+        bt = torch.nn.functional.pad(bt, (0, pad))
+    return launch(at, bt, not_iso, default_allow_axis)
 
 
 def packed_reach(

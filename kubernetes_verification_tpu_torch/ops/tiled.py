@@ -97,10 +97,12 @@ def _grant_peers_full(
     pod_ok = match_selectors(block.pod_sel, pod_kv, pod_key)
     ns_sel_ok = match_selectors(block.ns_sel, ns_kv, ns_key)  # [G, M]
     same_ns = pol_ns[block.pol.long()][:, None] == pod_ns[None, :]
-    # pad pods (namespace -1) gather namespace 0: whatever they pick up only
-    # reaches pad rows and masked pad columns
+    # pad pods (namespace -1) gather the last namespace, as a negative index
+    # does in the JAX package: whatever they pick up only reaches pad rows
+    # and masked pad columns, but the incremental engine keeps the pad
+    # columns of its peer maps as state, byte for byte
     ns_ok = torch.where(
-        block.ns_sel_null[:, None], same_ns, ns_sel_ok[:, pod_ns.clamp(min=0).long()]
+        block.ns_sel_null[:, None], same_ns, ns_sel_ok[:, pod_ns.long()]
     )
     ok = pod_ok & ns_ok
     if block.ip_match is not None:
@@ -406,6 +408,11 @@ class PackedReach:
     timings: Optional[dict] = None
     #: non-numeric provenance (which kernel ran)
     meta: Optional[dict] = None
+    #: bool [n_pods] — live pods, when the matrix carries tombstoned slots
+    #: (the incremental engine's pod-churn state; tombstone rows/cols are
+    #: all-zero). None ⇔ every slot is a live pod. Whole-matrix queries
+    #: neutralise tombstone rows and drop tombstone dsts from answers.
+    active: Optional[np.ndarray] = None
 
     @property
     def _on_host(self) -> bool:
@@ -427,20 +434,33 @@ class PackedReach:
 
     def _word_reduce(self, op: str) -> np.ndarray:
         words = self.packed[: self.n_pods]
+        if self.active is not None:
+            # neutralise tombstone rows: identity element for the reduction
+            if self._on_host:
+                fill = np.uint32(0xFFFFFFFF) if op == "and" else np.uint32(0)
+                words = np.where(self.active[:, None], words, fill)
+            else:
+                live = torch.as_tensor(self.active, device=words.device)
+                words = torch.where(live[:, None], words, -1 if op == "and" else 0)
         if self._on_host:
             ufunc = np.bitwise_and if op == "and" else np.bitwise_or
             return ufunc.reduce(words, axis=0)
         return to_host_words(_device_word_reduce(words, op))
 
+    def _live_dsts(self, mask: np.ndarray) -> List[int]:
+        if self.active is not None:
+            mask = mask & self.active
+        return np.nonzero(mask)[0].tolist()
+
     def all_reachable(self) -> List[int]:
         """Pods reachable from every pod (``kano/algorithm.py:4-9``)."""
         conj = self._word_reduce("and")
-        return np.nonzero(unpack_cols(conj[None, :], self.n_pods)[0])[0].tolist()
+        return self._live_dsts(unpack_cols(conj[None, :], self.n_pods)[0])
 
     def all_isolated(self) -> List[int]:
         """Pods reachable from no pod (``kano/algorithm.py:12-17``)."""
         disj = self._word_reduce("or")
-        return np.nonzero(~unpack_cols(disj[None, :], self.n_pods)[0])[0].tolist()
+        return self._live_dsts(~unpack_cols(disj[None, :], self.n_pods)[0])
 
     def out_degree(self) -> np.ndarray:
         """popcount per source row; never unpacks the matrix."""
@@ -455,8 +475,15 @@ class PackedReach:
 
     def system_isolation(self, idx: int) -> List[int]:
         """Pods NOT reachable from pod ``idx`` — the row complement
-        (``kano/algorithm.py:45-55``); unpacks one row only."""
-        return np.nonzero(~self.row(idx))[0].tolist()
+        (``kano/algorithm.py:45-55``); unpacks one row only. Tombstoned
+        dsts are dropped; a tombstoned src is an error, not "isolated
+        from everything"."""
+        if self.active is not None and not self.active[idx]:
+            raise ConfigError(
+                f"pod slot {idx} is tombstoned (removed); "
+                "system_isolation needs a live pod"
+            )
+        return self._live_dsts(~self.row(idx))
 
     def closure(
         self, tile: int = 7168, max_iter: int = 32, *, device=None, on_pass=None
@@ -481,11 +508,25 @@ class PackedReach:
     def user_crosscheck(self, objs, label: str) -> List[int]:
         """Pods reachable from a pod of a *different* user group
         (``kano/algorithm.py:27-42``) without unpacking: U per-group row-ORs
-        + a prefix/suffix OR over the [U, W] table answer all dsts at once."""
+        + a prefix/suffix OR over the [U, W] table answer all dsts at once.
+        On a churned matrix (``active`` set) ``objs`` may also be the live
+        pods alone, in slot order (what ``as_cluster()`` yields)."""
         from .queries import user_groups
 
         gid = user_groups(objs, label)
-        if gid.shape[0] != self.n_pods:
+        if self.active is not None and gid.shape[0] != self.n_pods:
+            # tombstone slots land in group 0, but their all-zero rows and
+            # columns can never contribute to or be flagged by the ORs
+            live = np.nonzero(self.active[: self.n_pods])[0]
+            if gid.shape[0] != live.shape[0]:
+                raise ConfigError(
+                    f"user_crosscheck: {gid.shape[0]} objects != "
+                    f"{self.n_pods} pod slots or {live.shape[0]} live pods"
+                )
+            full = np.zeros(self.n_pods, dtype=gid.dtype)
+            full[live] = gid
+            gid = full
+        elif gid.shape[0] != self.n_pods:
             raise ConfigError(
                 f"user_crosscheck: {gid.shape[0]} objects != {self.n_pods} pods"
             )
@@ -503,7 +544,10 @@ class PackedReach:
                     for i in range(n_groups)
                 ]
             )
-        return _crosscheck_from_group_or(group_or, gid, self.n_pods)
+        res = _crosscheck_from_group_or(group_or, gid, self.n_pods)
+        if self.active is None:
+            return res
+        return [i for i in res if self.active[i]]
 
 
 def tiled_k8s_reach(

@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Where the port's serving engine (``PackedIncrementalVerifier``) spends its
+time on one NVIDIA GPU: host against device per op, and the state round
+trip's parts.
+
+    python3 scripts/torch_profile_engine.py [--pods 100000 --policies 10000]
+
+Builds the engine on ``chip_smoke.py``'s main-path cluster, then:
+
+1. per op kind (8 of each): the whole op on the host clock after a device
+   sync, beside its host part alone (``PolicyVectorizer.vectors`` for a
+   policy op, ``_pod_cols`` for a pod op) — the rest is the device work;
+2. the device steps alone by CUDA events: one 512-row ``_patch_rows``
+   group, one 256-column ``_patch_cols`` group, one ``_pod_step``;
+3. ``state_dict``: the four maps packed to the JAX layout, the words
+   fetched;
+4. ``from_state``: the manifest copy, each map's upload and unpack, the
+   words' upload, the host bookkeeping and the vectorizer.
+
+Prints the card's name and power limit first.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def cuda_ms(fn, reps: int = 1) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_s(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def med(xs) -> str:
+    return f"median {statistics.median(xs) * 1e3:.1f} ms (of {len(xs)})"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--pods", type=int, default=100_000)
+    ap.add_argument("--policies", type=int, default=10_000)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch import packed_incremental as pi
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    gen = dict(n_pods=args.pods, n_policies=args.policies, n_namespaces=20,
+               p_ipblock_peer=0.0, min_selector_labels=1)
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(seed=0, **gen))
+    donor = kvt.random_cluster(kvt.GeneratorConfig(**{**gen, "n_pods": 2_000,
+                                                      "n_policies": 64, "seed": 1}))
+    eng = kvt.PackedIncrementalVerifier(cluster)
+    print("build: " + ", ".join(f"{k} {v:.2f} s" for k, v in eng.build_timings.items()),
+          flush=True)
+    rng = np.random.default_rng(5)
+
+    # 1. host against device, per op kind
+    parts = {}
+    for i, p in enumerate(donor.policies[:8]):
+        p = dataclasses.replace(p, name=f"prof-{i}")
+        parts.setdefault("add_policy host", []).append(
+            host_s(lambda: eng._vectorizer.vectors(p)))
+        parts.setdefault("add_policy", []).append(host_s(lambda: eng.add_policy(p)))
+    pols = list(eng.policies.values())
+    for j in rng.choice(len(pols) - 8, 8, replace=False):
+        q = dataclasses.replace(pols[j], ingress=pols[j + 1].ingress)
+        parts.setdefault("update_policy host", []).append(host_s(
+            lambda: (eng._vectorizer.vectors(pols[j]), eng._vectorizer.vectors(q))))
+        parts.setdefault("update_policy", []).append(host_s(lambda: eng.update_policy(q)))
+    for i in rng.choice(eng.active_indices(), 8, replace=False):
+        pod = dataclasses.replace(eng.pods[int(i)], labels={"prof": "x"})
+        parts.setdefault("update_pod_labels host", []).append(
+            host_s(lambda: eng._pod_cols(pod)))
+        parts.setdefault("update_pod_labels", []).append(
+            host_s(lambda: eng.update_pod_labels(int(i), {"prof": "x"})))
+    for name, xs in parts.items():
+        print(f"op {name}: {med(xs)}", flush=True)
+
+    # 2. the device steps alone
+    flags = eng._flags
+    rows = eng._put(np.sort(rng.choice(eng.n_pods, 512, replace=False)))
+    cols = np.sort(rng.choice(eng.n_pods, 256, replace=False))
+    meta = eng._col_meta(cols)
+    zeros = eng._put(np.zeros((4, eng._capacity), dtype=np.int8))
+    idx = int(eng.n_pods)  # a pad slot: occupied by an empty pod, then freed
+    for name, fn in (
+        ("_patch_rows 512 rows", lambda: pi._patch_rows(
+            eng._packed, eng._maps, eng._col_mask, rows, **flags)),
+        ("_patch_cols 256 cols", lambda: pi._patch_cols(
+            eng._packed, eng._maps, eng._row_valid, *meta, **flags)),
+        ("_pod_step occupy + tombstone", lambda: [pi._pod_step(
+            eng._packed, eng._maps, eng._col_mask, eng._row_valid, idx, zeros,
+            active, **flags) for active in (True, False)]),
+        ("_rows_step 1024 rows", lambda: pi._rows_step(
+            eng._maps, eng._col_mask, eng._row_valid, rows.repeat(2), **flags)),
+    ):
+        fn()
+        print(f"device {name}: {cuda_ms(fn, reps=5):.2f} ms; {smi}", flush=True)
+
+    # 3. state_dict
+    for name, m in zip(("sel_ing", "sel_eg", "ing_by_pol", "eg_by_pol"), eng._maps):
+        print(f"state_dict pack {name}: "
+              f"{host_s(lambda: pi._pack_pod_axis(m).cpu()) * 1e3:.1f} ms", flush=True)
+    print(f"state_dict words fetch: "
+          f"{host_s(lambda: pi._host_words(eng._packed)) * 1e3:.1f} ms", flush=True)
+    state = eng.state_dict()
+    manifest = eng.as_cluster(include_inactive=True)
+
+    # 4. from_state
+    dev = eng.device
+    copy_s = host_s(lambda: [
+        dataclasses.replace(p, labels=dict(p.labels), container_ports=dict(p.container_ports))
+        for p in manifest.pods
+    ])
+    print(f"from_state manifest copy: {copy_s * 1e3:.1f} ms", flush=True)
+    for name in ("sel_ing", "sel_eg", "ing_by_pol", "eg_by_pol"):
+        print(f"from_state unpack {name}: "
+              f"{host_s(lambda: pi._unpack_pod_axis(state[name], eng._n_padded, dev)) * 1e3:.1f} ms",
+              flush=True)
+    print(f"from_state words upload: "
+          f"{host_s(lambda: pi._words(state['packed'], dev)) * 1e3:.1f} ms", flush=True)
+    t = host_s(lambda: kvt.PackedIncrementalVerifier.from_state(manifest, state))
+    back = kvt.PackedIncrementalVerifier.from_state(manifest, state)
+    print(f"from_state whole: {t:.2f} s (" + ", ".join(
+        f"{k} {v:.2f} s" for k, v in back.build_timings.items()) + f"); {smi}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -298,3 +298,88 @@ def test_pair_masks_closure_and_kano_on_card_match_cpu(cuda_device):
         for name in ("reach", "src_sets", "dst_sets", "closure"):
             np.testing.assert_array_equal(getattr(runs[0][0], name), getattr(runs[1][0], name))
         assert runs[0][1] == runs[1][1]
+
+
+# ---------------------------------------------------------------------------
+# the packed incremental engine on the card
+# ---------------------------------------------------------------------------
+
+
+def _same_state(want, got, label):
+    assert sorted(want) == sorted(got), label
+    for k in want:
+        w, g = np.asarray(want[k]), np.asarray(got[k])
+        assert (w.dtype, w.shape) == (g.dtype, g.shape), (label, k)
+        assert w.tobytes() == g.tobytes(), (label, k)
+
+
+@pytest.mark.parametrize("slot_round", [256, 4])
+def test_engine_build_launches_the_kernel_twice(cuda_device, slot_round):
+    """slot_round=4 leaves the slot axis off the kernel's K step: the maps
+    are padded for the launch, and the words do not change."""
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=700, n_policies=60, n_namespaces=4, p_ipblock_peer=0.1, seed=8))
+    before = (packed_dir_allow.launches, fused_ports_reach.launches)
+    eng = kvt.PackedIncrementalVerifier(cluster, slot_round=slot_round)
+    assert (packed_dir_allow.launches, fused_ports_reach.launches) == (
+        before[0] + 2, before[1])
+    assert eng._packed.device.type == "cuda"
+    one_shot = kvt.tiled_k8s_reach(kvt.encode_cluster(cluster, compute_ports=False),
+                                   fetch=False)
+    w = -(-700 // 32)
+    assert torch.equal(eng._packed[:700, :w], one_shot.packed[:, :w])
+    cpu = kvt.PackedIncrementalVerifier(cluster, device="cpu", slot_round=slot_round)
+    _same_state(cpu.state_dict(), eng.state_dict(), "build")
+
+
+def test_engine_stream_on_card_matches_cpu(cuda_device):
+    import dataclasses
+
+    from kubernetes_verification_tpu_torch.ops import batched
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=300, n_policies=40, n_namespaces=4, seed=9))
+    donor = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=300, n_policies=8, n_namespaces=4, seed=10))
+    engines = {d: kvt.PackedIncrementalVerifier(cluster, device=d) for d in ("cuda", "cpu")}
+    mf = {d: kvt.PackedIncrementalVerifier(cluster, device=d, keep_matrix=False)
+          for d in ("cuda", "cpu")}
+    pols = list(cluster.policies)
+    ops = [
+        ("add_policy", dataclasses.replace(donor.policies[0], name="d0")),
+        ("update_policy", dataclasses.replace(pols[1], ingress=pols[2].ingress)),
+        ("remove_policy", pols[3].namespace, pols[3].name),
+        ("update_pod_labels", 7, {"fresh": "pair"}),
+        ("update_pod_labels", 8, dict(cluster.pods[9].labels)),
+        ("remove_pod", cluster.pods[11].namespace, cluster.pods[11].name),
+        ("add_pod", kvt.Pod("new-a", cluster.pods[0].namespace, {"app": "a"})),
+        ("add_pod", kvt.Pod("new-b", cluster.pods[0].namespace, {"app": "b"})),
+        ("update_namespace_labels", cluster.namespaces[1].name, {"relabel": "x"}),
+    ] + [("add_pod", kvt.Pod(f"grow-{i}", "ns-0", {"app": "g"})) for i in range(90)]
+    for op, *args in ops:
+        for group in (engines, mf):
+            for e in group.values():
+                getattr(e, op)(*args)
+            _same_state(group["cpu"].state_dict(), group["cuda"].state_dict(), op)
+    assert engines["cuda"]._n_padded > 384  # the pod axis grew
+    for e in engines.values():
+        e.closure_packed()
+    _same_state(engines["cpu"].state_dict(), engines["cuda"].state_dict(), "closure")
+    rows = [0, 7, 299, 300]
+    np.testing.assert_array_equal(engines["cuda"].solve_rows(rows),
+                                  engines["cpu"].solve_rows(rows))
+    np.testing.assert_array_equal(mf["cuda"].solve_stripe(0, 256),
+                                  mf["cpu"].solve_stripe(0, 256))
+    for group in (engines, mf):
+        got = batched.packed_any_port(*group["cuda"]._maps, group["cuda"]._col_mask,
+                                      group["cuda"]._row_valid, [0, 5, 299], [0, 1, 2, 2],
+                                      [4, 5, 6, 299], self_traffic=True, default_allow=True)
+        want = batched.packed_any_port(*group["cpu"]._maps, group["cpu"]._col_mask,
+                                       group["cpu"]._row_valid, [0, 5, 299], [0, 1, 2, 2],
+                                       [4, 5, 6, 299], self_traffic=True, default_allow=True)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    state = engines["cuda"].state_dict()
+    back = kvt.PackedIncrementalVerifier.from_state(
+        engines["cuda"].as_cluster(include_inactive=True), state)
+    _same_state(state, back.state_dict(), "from_state on the card")

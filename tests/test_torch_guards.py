@@ -69,8 +69,9 @@ def test_entry_points_refuse_the_cpu_without_a_gpu(monkeypatch):
 
 
 def test_new_entry_points_refuse_the_cpu_without_a_gpu(monkeypatch):
-    """The closures, the pair masks and kano mode default to ``cuda`` too:
-    host inputs raise without a GPU, and run on the CPU when asked."""
+    """The closures, the pair masks, kano mode and the serving engine default
+    to ``cuda`` too: host inputs raise without a GPU, and run on the CPU when
+    asked."""
     import numpy as np
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -79,7 +80,10 @@ def test_new_entry_points_refuse_the_cpu_without_a_gpu(monkeypatch):
     words = np.zeros((32, 1), np.uint32)
     containers, policies = kvt.random_kano(8, 3, seed=1)
     host = kvt.tiled_k8s_reach(enc, device="cpu")
+    state = kvt.PackedIncrementalVerifier(cluster, device="cpu").state_dict()
     calls = [
+        lambda **d: kvt.PackedIncrementalVerifier(cluster, **d),
+        lambda **d: kvt.PackedIncrementalVerifier.from_state(cluster, state, **d),
         lambda **d: kvt.packed_closure(words, **d),
         lambda **d: kvt.bounded_packed_closure(words, [0], **d),
         lambda **d: kvt.path_upto(words, 2, **d),

@@ -1,9 +1,12 @@
 """Shared helpers of the ``test_torch_*`` parity tests: one seeded cluster,
 encoded by the JAX package, carried into the PyTorch port as arrays, so both
 packages solve exactly the same operands."""
+import dataclasses
+
 import numpy as np
 import torch
 
+import kubernetes_verification_tpu.models.core as jcore
 from kubernetes_verification_tpu.encode.encoder import encode_cluster as jax_encode
 from kubernetes_verification_tpu.harness.generate import (
     GeneratorConfig as JaxGeneratorConfig,
@@ -49,3 +52,16 @@ def words(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.cpu().numpy().view("<u4")
     return np.asarray(x).view("<u4")
+
+
+def to_jax(x):
+    """A model object of the port (or a container of them) as the JAX
+    package's equal object, class by class and field by field."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        cls = getattr(jcore, type(x).__name__)
+        return cls(**{f.name: to_jax(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_jax(v) for v in x)
+    if isinstance(x, dict):
+        return {k: to_jax(v) for k, v in x.items()}
+    return x
