@@ -89,18 +89,35 @@ Phases; any failure exits non-zero before a result line is printed:
 15. the engine on the card against the engine on the CPU at phase 8's
     size: ``state_dict`` equal after the build and after every op of a
     policy, pod, label and namespace stream that grows the pod axis;
-    ``closure_packed`` equal to ``packed_closure`` of the words.
+    ``closure_packed`` equal to ``packed_closure`` of the words;
+16. the port-bitmap serving engine at full width:
+    ``PackedPortsIncrementalVerifier`` built on phase 6's cluster (the
+    counts set to 0 just before it: ``fused_ports_reach`` exactly once,
+    ``packed_dir_allow`` never; its build split and the layout's R, VP rows
+    and K' printed; its words equal phase 6's bit for bit), 512 sampled
+    rows and 256 sampled columns through the engine's ``_ports_reach_block``
+    against those words, then a diff stream of policy adds, updates and
+    removes, a policy outside the frozen port universe (refused, words
+    unchanged), pod relabels, removes and adds, a new namespace and its
+    relabel, with per-kind latencies and the host share of a pod op; the
+    live rows × live columns against a one-shot port-bitmap
+    ``tiled_k8s_reach`` of ``as_cluster()``; a ``state_dict`` →
+    ``from_state`` round trip, and one more diff on both engines;
+17. the ports engine on the card against the ports engine on the CPU at
+    phase 8's size: ``state_dict`` equal after the build and after every op
+    of a stream that grows the pod axis.
 
 Phases 9–13 launch neither hand-written kernel (their int8 products are
 ``torch._int_mm`` calls, as the JAX package leaves them to XLA): the counts
 are set to 0 before each and must read 0 after; phases 14–15 launch
-``packed_dir_allow`` only in their engine builds (the diff steps' products
-are ``torch._int_mm`` calls, as the JAX engine's are XLA dots). Each phase
+``packed_dir_allow`` only in their engine builds, phases 16–17
+``fused_ports_reach`` only in theirs (the diff steps' products are
+``torch._int_mm`` calls, as the JAX engines' are XLA dots). Each phase
 prints its seconds and its peak device memory.
 
-The second-to-last line is the kernel table as JSON (``packed_dir_allow``'s
-row carries phase 14's build launches as ``engine_build_launches``); the
-last is
+The second-to-last line is the kernel table as JSON (each kernel's row
+carries its engine build's launches, phase 14's and phase 16's, as
+``engine_build_launches``); the last is
 ``{"ok": true, "device": {...}}``. Tolerance everywhere: exact (every output
 is boolean or integer words).
 """
@@ -457,9 +474,11 @@ def kernel_full(enc, dev, smi: str) -> list:
     return rows
 
 
-def ports_path(enc, dev) -> int:
+def ports_path(enc, dev) -> tuple:
     """The port-bitmap path at full width: one launch of fused_ports_reach,
-    and the same words as the torch mask-group sweep."""
+    and the same words as the torch mask-group sweep. Returns the launches
+    and the words over the real pods, on the host (phase 16 holds the ports
+    engine's build against them)."""
     import kubernetes_verification_tpu_torch as kvt
     from kubernetes_verification_tpu_torch.ops.tiled_ports import port_layout_stats
 
@@ -504,7 +523,7 @@ def ports_path(enc, dev) -> int:
             and (res.egress_isolated == sweep.egress_isolated).all()):
         fail("isolation differs between the port routes")
     log("ports: kernel path == torch mask-group sweep, bit for bit")
-    return fused
+    return fused, res.packed[:, :w].cpu()
 
 
 def fused_full(enc, dev, smi: str) -> dict:
@@ -1481,6 +1500,305 @@ def engine_card_vs_cpu_phase(dev) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def _fits(eng, pol, recycled: dict, margin: int = 2) -> bool:
+    """True when ``pol``'s VP row groups lie inside the ports engine's
+    frozen universe and leave every segment they use at least ``margin``
+    free rows: the engine's own host planner, which mutates nothing."""
+    import kubernetes_verification_tpu_torch as kvt
+
+    try:
+        _, _, gi, ge = eng._policy_groups(pol)
+        for d, groups in (("i", gi), ("e", ge)):
+            eng._plan_alloc(d, groups, list(recycled.get(d, ())))
+            used: dict = {}
+            for seg, _ in groups:
+                used[seg] = used.get(seg, 0) + 1
+            for seg, k in used.items():
+                back = sum(eng._seg_of_row(d, r) == seg for r in recycled.get(d, ()))
+                if len(eng._free_rows[d][seg]) + back - k < margin:
+                    return False
+    except kvt.PortUniverseChanged:
+        return False
+    return True
+
+
+def _ports_stream(eng, cluster, rng, lat: dict) -> None:
+    """Phase 16's diff stream: 8 policy adds (copies of existing policies
+    under new names, each leaving its segments free rows), 8 updates, 8
+    removes, one policy outside the frozen universe (refused, words
+    unchanged), 8 pod relabels (half to unseen pairs), 4 pod removes, a new
+    namespace, 8 pod adds into it (4 reuse the tombstones, 4 take headroom
+    slots), 4 more removes, and one relabel of the new namespace."""
+    import dataclasses
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    pols = list(cluster.policies)
+    order = iter(rng.permutation(len(pols)))
+    k = 0
+    while k < 8:
+        p = dataclasses.replace(pols[next(order)], name=f"smoke-add-{k}")
+        if _fits(eng, p, {}):
+            _timed(lat, "add_policy", lambda: eng.add_policy(p))
+            k += 1
+    k = 0
+    while k < 8:
+        tgt, src = pols[next(order)], pols[next(order)]
+        p = dataclasses.replace(tgt, ingress=src.ingress, egress=src.egress,
+                                policy_types=src.policy_types)
+        if _fits(eng, p, eng._pol_rows[eng._key(tgt)]):
+            _timed(lat, "update_policy", lambda: eng.update_policy(p))
+            k += 1
+    for _ in range(8):
+        p = pols[next(order)]
+        _timed(lat, "remove_policy", lambda: eng.remove_policy(p.namespace, p.name))
+    # a port number inside a wide atom splits it: refused before any mutation
+    atom = next(a for a in eng._atoms if a.name is None and a.hi - a.lo >= 2)
+    alien = kvt.NetworkPolicy(
+        "smoke-alien", namespace=cluster.namespaces[0].name, pod_selector=kvt.Selector(),
+        ingress=(kvt.Rule(peers=(), ports=(kvt.PortSpec(atom.protocol, atom.lo + 1),)),))
+    before, count = eng._packed.clone(), eng.update_count
+    try:
+        eng.add_policy(alien)
+        fail("ports engine: a policy splitting a port atom was accepted")
+    except kvt.PortUniverseChanged as e:
+        log(f"ports engine: refused {atom.protocol} {atom.lo + 1} inside atom "
+            f"[{atom.lo}, {atom.hi}]: {e}")
+    if not torch.equal(before, eng._packed) or eng.update_count != count:
+        fail("ports engine: the refused policy changed the words")
+    del before
+    live = eng.active_indices()
+    for k, i in enumerate(rng.choice(live, 8, replace=False)):
+        labels = (dict(eng.pods[int(rng.choice(live))].labels) if k < 4
+                  else {"smoke": f"unseen-{k}", "app": "alpha"})
+        _timed(lat, "update_pod_labels", lambda: eng.update_pod_labels(int(i), labels))
+    victims = rng.choice(eng.active_indices(), 8, replace=False)
+    for i in victims[:4]:
+        p = eng.pods[int(i)]
+        _timed(lat, "remove_pod", lambda: eng.remove_pod(p.namespace, p.name))
+    _timed(lat, "add_namespace", lambda: eng.add_namespace(
+        kvt.Namespace("smoke-ns", dict(cluster.namespaces[3].labels))))
+    ported = [p for p in cluster.pods if p.container_ports]
+    for k in range(8):
+        donor = cluster.pods[int(rng.integers(len(cluster.pods)))]
+        ports = dict(ported[int(rng.integers(len(ported)))].container_ports)
+        _timed(lat, "add_pod", lambda: eng.add_pod(kvt.Pod(
+            f"smoke-pod-{k}", "smoke-ns", dict(donor.labels), ip=donor.ip,
+            container_ports=ports)))
+    for i in victims[4:]:
+        p = eng.pods[int(i)]
+        _timed(lat, "remove_pod", lambda: eng.remove_pod(p.namespace, p.name))
+    _timed(lat, "update_namespace_labels", lambda: eng.update_namespace_labels(
+        "smoke-ns", dict(cluster.namespaces[7].labels)))
+
+
+def ports_engine_phase(cluster, ports_words, dev, smi: str) -> int:
+    """Phase 16: the port-bitmap serving engine at full width on phase 6's
+    cluster. Returns the build's ``fused_ports_reach`` launches."""
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch import packed_incremental_ports as pip
+    from kubernetes_verification_tpu_torch.ops.bits import pack_bool_cols, unpack_words_i8
+    from kubernetes_verification_tpu_torch.ops.tiled_ports import _padded_k, _segments
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = kvt.PackedPortsIncrementalVerifier(cluster, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = launch_counts()
+    n, Np, lay = eng.n_pods, eng._n_padded, eng._layout
+    log(f"ports engine: build {build_s:.2f} s (" + ", ".join(
+        f"{k} {v:.2f} s" for k, v in eng.build_timings.items())
+        + f"), Np {Np}, R {lay.n_masks}, VP rows {eng._total_rows['i']} ingress + "
+        f"{eng._total_rows['e']} egress (sink rows included), K' "
+        f"{_padded_k(_segments(lay))}, fused_ports_reach launches {launches[1]}, "
+        f"packed_dir_allow launches {launches[0]}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    if launches != (0, 1):
+        fail(f"the ports engine build launched {launches}, not (0, 1)")
+    w = ports_words.shape[1]
+    if not torch.equal(eng._packed[:n, :w].cpu(), ports_words):
+        fail("ports engine: the build's words differ from phase 6's tiled_k8s_reach words")
+    if eng._packed[:, w:].any() or eng._packed[n:].any():
+        fail("ports engine: a pad word or pad row of the build is not zero")
+    log(f"ports engine: build words [:{n}, :{w}] == phase 6's words, bit for bit")
+
+    # the diff path's formula against the kernel, before any diff
+    rng = np.random.default_rng(16)
+    flags = dict(self_traffic=True, default_allow=True)
+    args = (eng._src, eng._dst, lay)
+    ar = torch.arange(Np, device=dev)
+    rows = torch.as_tensor(np.sort(rng.choice(n, 512, replace=False)), device=dev)
+    t0 = time.perf_counter()
+    r = pip._ports_reach_block(*args, eng._ing_cnt, eng._eg_cnt[rows], rows, ar,
+                               rows=rows, **flags)
+    r &= (eng._row_valid[rows] > 0)[:, None]
+    if not torch.equal(pack_bool_cols(r) & eng._col_mask[None, :], eng._packed[rows]):
+        fail("ports engine: _ports_reach_block rows differ from the kernel's words")
+    cols = torch.as_tensor(np.sort(rng.choice(n, 256, replace=False)), device=dev)
+    c = pip._ports_reach_block(*args, eng._ing_cnt[cols], eng._eg_cnt, ar, cols,
+                               cols=cols, **flags)
+    c &= (eng._row_valid > 0)[:, None]
+    bits = (eng._packed[:, cols // 32] >> (cols % 32).to(torch.int32)) & 1
+    if not torch.equal(c, bits > 0):
+        fail("ports engine: _ports_reach_block columns differ from the kernel's words")
+    torch.cuda.synchronize()
+    log(f"ports engine: 512 sampled rows and 256 sampled columns through "
+        f"_ports_reach_block == the kernel's words ({time.perf_counter() - t0:.2f} s)")
+    del r, c, bits
+
+    lat: dict = {}
+    _ports_stream(eng, cluster, rng, lat)
+    if launch_counts() != launches:
+        fail(f"ports engine: the diff stream launched a hand-written kernel: {launch_counts()}")
+    for kind, ts in lat.items():
+        log(f"ports engine: {kind} x{len(ts)}: median {statistics.median(ts) * 1e3:.1f} ms, "
+            f"max {max(ts) * 1e3:.1f} ms (host clock after a device sync)")
+    host = []
+    for i in rng.choice(eng.active_indices(), 4, replace=False):
+        t0 = time.perf_counter()
+        eng._pod_vp_cols(eng.pods[int(i)])
+        host.append(time.perf_counter() - t0)
+    log(f"ports engine: a pod op's host evaluation (_pod_vp_cols) x4: median "
+        f"{statistics.median(host) * 1e3:.1f} ms, max {max(host) * 1e3:.1f} ms; after "
+        f"the stream {eng.n_active} live pods in {eng.n_pods} slots, "
+        f"{len(eng.policies)} policies, {len(eng._vectorizer.dirty)} label-drifted pods")
+
+    # an independent one-shot solve of the mutated cluster
+    t0 = time.perf_counter()
+    enc = kvt.encode_cluster(eng.as_cluster(), compute_ports=True)
+    one = kvt.tiled_k8s_reach(enc, fetch=False, device=dev)
+    log(f"ports engine: one-shot re-solve of the mutated cluster ({enc.n_pods} pods, "
+        f"{enc.n_policies} policies) {time.perf_counter() - t0:.2f} s")
+    act = torch.as_tensor(eng.active_indices(), device=dev)
+    n_live = act.shape[0]
+    for r0 in range(0, n_live, 4096):
+        mine = unpack_words_i8(eng._packed[act[r0 : r0 + 4096]], Np)[:, act]
+        theirs = unpack_words_i8(one.packed[r0 : r0 + 4096], one.packed.shape[1] * 32)
+        if not (torch.equal(mine, theirs[:, :n_live]) and not theirs[:, n_live:].any()):
+            fail(f"ports engine: live rows {r0}.. differ from the one-shot solve of as_cluster()")
+    log(f"ports engine: live rows x live columns ({n_live} x {n_live}) == the one-shot "
+        f"port-bitmap solve of as_cluster(), bit for bit")
+    del one, enc
+
+    # the round trip; no hand-written kernel runs in it
+    reset_counts()
+    t0 = time.perf_counter()
+    arrays, meta = eng.state_dict()
+    save_s = time.perf_counter() - t0
+    manifest = eng.as_cluster(include_inactive=True)
+    t0 = time.perf_counter()
+    back = kvt.PackedPortsIncrementalVerifier.from_state(manifest, arrays, meta, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if not torch.equal(back._packed, eng._packed):
+        fail("ports engine: from_state(state_dict()) words differ")
+    again, meta2 = back.state_dict()
+    if meta2 != meta or any(np.asarray(v).tobytes() != np.asarray(again[k]).tobytes()
+                            for k, v in arrays.items()):
+        fail("ports engine: from_state(state_dict()) changes the state")
+    i = int(eng.active_indices()[77])
+    for e in (eng, back):
+        e.update_pod_labels(i, {"after": "resume"})
+    if not torch.equal(back._packed, eng._packed):
+        fail("ports engine: one diff after the resume differs between the engines")
+    if launch_counts() != (0, 0):
+        fail(f"ports engine: the round trip launched a hand-written kernel: {launch_counts()}")
+    host_gib = sum(np.asarray(v).nbytes for v in arrays.values()) / 2**30
+    log(f"ports engine: state_dict {save_s:.2f} s ({host_gib:.2f} GiB on the host), "
+        f"from_state {load_s:.2f} s (" + ", ".join(
+            f"{k} {v:.2f} s" for k, v in back.build_timings.items())
+        + "); the resumed words and state == the saved ones, and one more relabel "
+        "keeps both engines equal")
+    del back, again, arrays
+    torch.cuda.synchronize()
+    log(f"ports engine: {time.perf_counter() - t_phase:.2f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    return launches[1]
+
+
+def ports_engine_card_vs_cpu_phase(dev) -> None:
+    """Phase 17: the ports engine on the card against the ports engine on
+    the CPU, at phase 8's size with port bitmaps, ``state_dict`` equal after
+    the build and after every op of a stream that grows the pod axis."""
+    import dataclasses
+
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(**VERIFY))
+    donor = kvt.random_cluster(kvt.GeneratorConfig(**{**VERIFY, "seed": 2}))
+    pols = list(cluster.policies)
+    rng = np.random.default_rng(17)
+    ops = [("add_policy", dataclasses.replace(p, name=f"cv-{i}"))
+           for i, p in enumerate(donor.policies[:6])]
+    ops += [("update_policy", dataclasses.replace(pols[i], ingress=pols[i + 1].ingress))
+            for i in (3, 30, 60)]
+    ops += [("remove_policy", pols[i].namespace, pols[i].name) for i in (10, 90, 150)]
+    ops += [("update_pod_labels", int(i), dict(cluster.pods[int(i) + 1].labels))
+            for i in rng.choice(1_999, 4, replace=False)]
+    ops += [("update_pod_labels", int(i), {"cv": "unseen"})
+            for i in rng.choice(2_000, 4, replace=False)]
+    ops += [("remove_pod", cluster.pods[int(i)].namespace, cluster.pods[int(i)].name)
+            for i in rng.choice(2_000, 6, replace=False)]
+    ops += [("add_namespace", kvt.Namespace("cv-ns", {"team": "cv"}))]
+    ops += [("add_pod", kvt.Pod(f"cv-pod-{k}", "cv-ns" if k % 3 else "ns1",
+                                dict(cluster.pods[k].labels),
+                                container_ports=dict(cluster.pods[k].container_ports)))
+            for k in range(60)]
+    ops += [("update_namespace_labels", "ns2", dict(cluster.namespaces[4].labels)),
+            ("update_namespace_labels", "cv-ns", {"team": "other"})]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    engines = {d: kvt.PackedPortsIncrementalVerifier(cluster, device=d)
+               for d in ("cuda", "cpu")}
+    if launch_counts() != (0, 1):
+        fail(f"ports engine card vs cpu: the card's build launched {launch_counts()}, not (0, 1)")
+    Np0 = engines["cuda"]._n_padded
+    refused = 0
+    for op, *args in [("build",)] + ops:
+        if op != "build":
+            outcomes = []
+            for e in engines.values():
+                try:
+                    getattr(e, op)(*args)
+                    outcomes.append("applied")
+                except kvt.PortUniverseChanged:
+                    outcomes.append("refused")
+            if outcomes[0] != outcomes[1]:
+                fail(f"ports engine card vs cpu: {op} {outcomes} on (cuda, cpu)")
+            refused += outcomes[0] == "refused"
+        (want, wmeta), (got, gmeta) = engines["cpu"].state_dict(), engines["cuda"].state_dict()
+        if wmeta != gmeta:
+            fail(f"ports engine card vs cpu: meta differs after {op}")
+        for k in want:
+            w, g = np.asarray(want[k]), np.asarray(got[k])
+            if w.dtype != g.dtype or w.shape != g.shape or w.tobytes() != g.tobytes():
+                fail(f"ports engine card vs cpu: {k} differs after {op}")
+    eng = engines["cuda"]
+    if eng._n_padded <= Np0:
+        fail("ports engine card vs cpu: the pod axis did not grow")
+    if launch_counts() != (0, 1):
+        fail(f"ports engine card vs cpu: the stream launched a hand-written kernel: "
+             f"{launch_counts()}")
+    torch.cuda.synchronize()
+    log(f"ports engine card vs cpu: {len(ops)} ops ({refused} refused by both as "
+        f"outside the frozen universe), state_dict cuda == cpu after the build and "
+        f"after each op (Np {Np0} -> {eng._n_padded}, R {eng._layout.n_masks}); "
+        f"{time.perf_counter() - t0:.2f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -1506,7 +1824,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     enc = encode_main(cluster, compute_ports=True)
     torch.cuda.reset_peak_memory_stats()
-    fused_launches = ports_path(enc, dev)
+    fused_launches, ports_words = ports_path(enc, dev)
     torch.cuda.empty_cache()
     fused_row = fused_full(enc, dev, smi)
     del enc
@@ -1521,9 +1839,14 @@ def main() -> int:
     kano_phase(dev, smi)
     card_vs_cpu_phase(dev)
     engine_launches = engine_phase(cluster, main_words, dev, smi)
-    del cluster, main_words
+    del main_words
     torch.cuda.empty_cache()
     engine_card_vs_cpu_phase(dev)
+    torch.cuda.empty_cache()
+    ports_engine_launches = ports_engine_phase(cluster, ports_words, dev, smi)
+    del cluster, ports_words
+    torch.cuda.empty_cache()
+    ports_engine_card_vs_cpu_phase(dev)
     worst = max([worst] + [r["err"] for r in rows])
     worst_fused = max(worst_fused, fused_row["err"])
 
@@ -1550,6 +1873,7 @@ def main() -> int:
         "source": "kubernetes_verification_tpu_torch/csrc/fused_ports_reach.cu",
         "replaces": "kubernetes_verification_tpu/ops/pallas_kernels.py:348",
         "launches": fused_launches,
+        "engine_build_launches": ports_engine_launches,
         "max_abs_err": worst_fused,
         **{k: fused_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},

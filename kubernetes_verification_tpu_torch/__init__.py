@@ -19,6 +19,7 @@ Entry points run on ``cuda`` unless the caller passes a CPU device::
     res = kvt.verify(cluster, kvt.VerifyConfig(backend="torch", closure=True))
     engine = kvt.PackedIncrementalVerifier(cluster)  # the serving engine
     engine.remove_policy(cluster.policies[0].namespace, cluster.policies[0].name)
+    ports = kvt.PackedPortsIncrementalVerifier(cluster)  # ... with port bitmaps
     containers, policies = kvt.random_kano(1000, 100, seed=0)
     kano = kvt.verify_kano(containers, policies, kvt.VerifyConfig(backend="torch"))
 """
@@ -61,6 +62,7 @@ from .ops.closure import (
 )
 from .ops.tiled import PackedReach, policy_pair_masks, tiled_k8s_reach
 from .packed_incremental import PackedIncrementalVerifier, PolicyVectorizer
+from .packed_incremental_ports import PackedPortsIncrementalVerifier, PortUniverseChanged
 
 __all__ = [
     "Cluster",
@@ -75,12 +77,14 @@ __all__ = [
     "Namespace",
     "NetworkPolicy",
     "PackedIncrementalVerifier",
+    "PackedPortsIncrementalVerifier",
     "PackedReach",
     "Peer",
     "Pod",
     "PortAtom",
     "PolicyVectorizer",
     "PortSpec",
+    "PortUniverseChanged",
     "Rule",
     "Selector",
     "VerifyConfig",

@@ -50,6 +50,7 @@ __all__ = [
     "PortLayout",
     "PortOperands",
     "VPArrays",
+    "engine_fused_args",
     "ports_step",
     "port_kernel_operands",
     "port_layout_stats",
@@ -442,26 +443,44 @@ def _overlap_table(layout: PortLayout, dev) -> torch.Tensor:
     return torch.tensor(words, dtype=torch.int64, device=dev)
 
 
+def _write_segments(
+    layout: PortLayout, n: int, dev, rows
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused kernel's K-contiguous operands and its plan: ``(at, bt,
+    plan)``. ``rows(dirn, start, length, slab)`` gives one segment's src-
+    and dst-side rows as pod-major [n, length] tensors (views allowed),
+    written straight into one preallocated int8 [n, K'] tensor per side;
+    each segment starts on a ``K_STEP`` boundary and its pad columns stay
+    zero. No segment at all: one inert zero step (JAX keeps one inert
+    chunk)."""
+    segs = _segments(layout)
+    kp = _padded_k(segs)
+    at = torch.zeros((n, kp), dtype=_I8, device=dev)
+    bt = torch.zeros((n, kp), dtype=_I8, device=dev)
+    plan, off = [], 0
+    for dirn, s, l, kind, slab in segs:
+        a, b = rows(dirn, s, l, slab)
+        at[:, off : off + l] = a
+        bt[:, off : off + l] = b
+        del a, b
+        off += l + (-l) % K_STEP
+        plan.append((off // K_STEP, kind, slab))
+    if not plan:
+        plan = [(1, 0, 0)]
+    return at, bt, torch.tensor(plan, dtype=_I32, device=dev)
+
+
 def _fused_operands(
     layout: PortLayout, sel_ing_ext, sel_eg_ext, vp_peers_i, vp_peers_e,
     vp: VPArrays,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The fused kernel's K-contiguous operands and its plan: ``(at, bt,
-    plan)``. Each segment's src rows (egress: ``sel_eg_ext[vp_pol_e]``;
-    ingress: ``vp_peers_i``) and dst rows with the named-port gating folded
-    in (egress: ``vp_peers_e · bank8[vp_res_e]``; ingress:
-    ``sel_ing_ext[vp_pol_i] · bank8[vp_res_i]``) are written, transposed,
-    straight into one preallocated int8 [N, K'] tensor per side; each
-    segment starts on a ``K_STEP`` boundary and its pad columns stay zero.
-    No grants at all: one inert zero step (JAX keeps one inert chunk)."""
-    segs = _segments(layout)
-    N = sel_ing_ext.shape[1]
-    dev = sel_ing_ext.device
-    kp = _padded_k(segs)
-    at = torch.zeros((N, kp), dtype=_I8, device=dev)
-    bt = torch.zeros((N, kp), dtype=_I8, device=dev)
-    plan, off = [], 0
-    for dirn, s, l, kind, slab in segs:
+    """``_write_segments`` of the one-shot solve: each segment's src rows
+    (egress: ``sel_eg_ext[vp_pol_e]``; ingress: ``vp_peers_i``) and dst rows
+    with the named-port gating folded in (egress: ``vp_peers_e ·
+    bank8[vp_res_e]``; ingress: ``sel_ing_ext[vp_pol_i] · bank8[vp_res_i]``),
+    gathered from the policy-level maps and transposed."""
+
+    def rows(dirn, s, l, slab):
         sl = slice(s, s + l)
         if dirn == "e":
             a = sel_eg_ext[vp.pol_e[sl].long()]
@@ -469,14 +488,9 @@ def _fused_operands(
         else:
             a = vp_peers_i[sl]
             b = sel_ing_ext[vp.pol_i[sl].long()] * vp.bank8[vp.res_i[sl].long()]
-        at[:, off : off + l] = a.T
-        bt[:, off : off + l] = b.T
-        del a, b
-        off += l + (-l) % K_STEP
-        plan.append((off // K_STEP, kind, slab))
-    if not plan:
-        plan = [(1, 0, 0)]
-    return at, bt, torch.tensor(plan, dtype=_I32, device=dev)
+        return a.T, b.T
+
+    return _write_segments(layout, sel_ing_ext.shape[1], sel_ing_ext.device, rows)
 
 
 class FusedArgs(NamedTuple):
@@ -506,6 +520,25 @@ def _fused_inputs(
     niso_i = (~ing_iso).to(_I32)
     niso_e = (~eg_iso).to(_I32)
     return FusedArgs(at, bt, plan, ov, niso_i, niso_e), ing_iso, eg_iso, selected8
+
+
+def engine_fused_args(
+    layout: PortLayout, src: dict, dst: dict, niso_i: torch.Tensor,
+    niso_e: torch.Tensor,
+) -> FusedArgs:
+    """The fused kernel's operands from the ports engine's resident VP maps
+    (``packed_incremental_ports.py``), which are already gathered and gated:
+    ``src[d][m]`` / ``dst[d][m]`` are the pod-major int8 [N, l] src- and
+    dst-side rows of segment ``m`` of direction ``d`` (``"i"``, ``"e"``),
+    the ported masks in ``layout`` order and then the full block (index R,
+    the ``slab`` of ``_segments``). One transient copy of each side into the
+    kernel's K layout."""
+    n = niso_i.shape[0]
+    at, bt, plan = _write_segments(
+        layout, n, niso_i.device,
+        lambda dirn, s, l, slab: (src[dirn][slab], dst[dirn][slab]),
+    )
+    return FusedArgs(at, bt, plan, _overlap_table(layout, niso_i.device), niso_i, niso_e)
 
 
 def _tiled_ports_fused_step(

@@ -38,8 +38,8 @@ Differences from the JAX engine, none of which changes a bit of state:
   dispatch, so nothing is prewarmed and no index group is padded to a fixed
   size; the engine still grows its slot axis where the JAX prewarm does
   (no free slot left after a build, a resume or a pod-axis growth);
-* the single-device form only: the mesh-sharded state is ROADMAP §1 item 10,
-  the ``kvtpu_*`` metrics and the dispatch tracker item 13.
+* the single-device form only: the mesh-sharded state is ROADMAP §1 item 12,
+  the ``kvtpu_*`` metrics and the dispatch tracker item 14.
 """
 from __future__ import annotations
 
@@ -87,6 +87,17 @@ def _groups(idx: np.ndarray, cap: int) -> Iterable[np.ndarray]:
     eager torch compiles nothing, so the buckets stay unpadded."""
     for i in range(0, len(idx), cap):
         yield np.asarray(idx[i : i + cap], dtype=np.int64)
+
+
+def _copy_pods(pods) -> List[Pod]:
+    """Deep-enough copies of the caller's pods: an aliased label or port
+    dict mutated in place would otherwise change the engine's state."""
+    return [
+        dataclasses.replace(
+            p, labels=dict(p.labels), container_ports=dict(p.container_ports)
+        )
+        for p in pods
+    ]
 
 
 def _bit(j: int) -> int:
@@ -714,12 +725,7 @@ class PackedIncrementalVerifier:
         self.device = resolve_device(device)
         if pod_headroom < 0:
             raise ConfigError("pod_headroom must be >= 0")
-        self.pods: List[Pod] = [
-            dataclasses.replace(
-                p, labels=dict(p.labels), container_ports=dict(p.container_ports)
-            )
-            for p in cluster.pods
-        ]
+        self.pods: List[Pod] = _copy_pods(cluster.pods)
         self.namespaces = list(cluster.namespaces)
         self.policies: Dict[str, NetworkPolicy] = {}
         self._slot: Dict[str, int] = {}
@@ -1447,12 +1453,7 @@ class PackedIncrementalVerifier:
         self = cls.__new__(cls)
         self.config = config or VerifyConfig()
         self.device = resolve_device(device)
-        self.pods = [
-            dataclasses.replace(
-                p, labels=dict(p.labels), container_ports=dict(p.container_ports)
-            )
-            for p in cluster.pods
-        ]
+        self.pods = _copy_pods(cluster.pods)
         # the manifest already lists every auto-created namespace; the
         # state's authoritative ns list prunes namespaces a tombstone pod
         # resurrected through auto-create (see state_dict)

@@ -383,3 +383,69 @@ def test_engine_stream_on_card_matches_cpu(cuda_device):
     back = kvt.PackedIncrementalVerifier.from_state(
         engines["cuda"].as_cluster(include_inactive=True), state)
     _same_state(state, back.state_dict(), "from_state on the card")
+
+
+# ---------------------------------------------------------------------------
+# the port-bitmap engine on the card
+# ---------------------------------------------------------------------------
+
+
+def _same_ports_state(want, got, label):
+    _same_state(want[0], got[0], label)
+    assert want[1] == got[1], label
+
+
+def test_ports_engine_on_card_matches_cpu(cuda_device):
+    """The build launches ``fused_ports_reach`` exactly once (and
+    ``packed_dir_allow`` never); over a short stream that grows the pod
+    axis, the card's ``state_dict`` equals the CPU engine's after every op."""
+    import dataclasses
+
+    gen = dict(n_pods=250, n_policies=30, n_namespaces=4, p_ports=0.8,
+               p_named_port=0.3, p_container_ports=0.5)
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(seed=12, **gen))
+    donor = kvt.random_cluster(kvt.GeneratorConfig(seed=13, **gen))
+    before = (packed_dir_allow.launches, fused_ports_reach.launches)
+    card = kvt.PackedPortsIncrementalVerifier(cluster, pod_headroom=6)
+    assert (packed_dir_allow.launches, fused_ports_reach.launches) == (
+        before[0], before[1] + 1)
+    assert card._packed.device.type == "cuda"
+    engines = {"cuda": card, "cpu": kvt.PackedPortsIncrementalVerifier(
+        cluster, device="cpu", pod_headroom=6)}
+    _same_ports_state(engines["cpu"].state_dict(), card.state_dict(), "build")
+    one_shot = kvt.tiled_k8s_reach(kvt.encode_cluster(cluster, compute_ports=True),
+                                   fetch=False)
+    w = -(-250 // 32)
+    assert torch.equal(card._packed[:250, :w], one_shot.packed[:, :w])
+    launched = fused_ports_reach.launches  # the build's and the one-shot's
+    pols = list(cluster.policies)
+    ops = [
+        ("update_policy", dataclasses.replace(pols[1], ingress=pols[2].ingress)),
+        ("remove_policy", pols[3].namespace, pols[3].name),
+        ("update_pod_labels", 7, {"fresh": "pair"}),
+        ("update_pod_labels", 8, dict(cluster.pods[9].labels)),
+        ("remove_pod", cluster.pods[11].namespace, cluster.pods[11].name),
+        ("update_namespace_labels", cluster.namespaces[1].name, {"relabel": "x"}),
+    ] + [("add_pod", kvt.Pod(f"grow-{i}", "ns-0", {"app": "g"},
+                             container_ports=dict(cluster.pods[i].container_ports)))
+         for i in range(12)]
+    for i, p in enumerate(donor.policies[:4]):
+        ops.insert(i, ("add_policy", dataclasses.replace(p, name=f"d{i}")))
+    applied = 0
+    for op, *args in ops:
+        try:
+            getattr(engines["cpu"], op)(*args)
+        except kvt.PortUniverseChanged:
+            continue  # a donor mask outside the frozen universe
+        getattr(card, op)(*args)
+        applied += 1
+        _same_ports_state(engines["cpu"].state_dict(), card.state_dict(), op)
+    assert applied >= len(ops) - 2 and card._n_padded > 256  # the pod axis grew
+    assert fused_ports_reach.launches == launched  # the diffs launch no kernel
+    state = card.state_dict()
+    back = kvt.PackedPortsIncrementalVerifier.from_state(
+        card.as_cluster(include_inactive=True), *state)
+    _same_ports_state(state, back.state_dict(), "from_state on the card")
+    for e in engines.values():
+        e.closure_packed()
+    _same_ports_state(engines["cpu"].state_dict(), card.state_dict(), "closure")

@@ -69,8 +69,8 @@ def test_entry_points_refuse_the_cpu_without_a_gpu(monkeypatch):
 
 
 def test_new_entry_points_refuse_the_cpu_without_a_gpu(monkeypatch):
-    """The closures, the pair masks, kano mode and the serving engine default
-    to ``cuda`` too: host inputs raise without a GPU, and run on the CPU when
+    """The closures, the pair masks, kano mode and both serving engines
+    default to ``cuda`` too: host inputs raise without a GPU, and run on the CPU when
     asked."""
     import numpy as np
 
@@ -81,9 +81,13 @@ def test_new_entry_points_refuse_the_cpu_without_a_gpu(monkeypatch):
     containers, policies = kvt.random_kano(8, 3, seed=1)
     host = kvt.tiled_k8s_reach(enc, device="cpu")
     state = kvt.PackedIncrementalVerifier(cluster, device="cpu").state_dict()
+    ports_state = kvt.PackedPortsIncrementalVerifier(cluster, device="cpu").state_dict()
     calls = [
         lambda **d: kvt.PackedIncrementalVerifier(cluster, **d),
         lambda **d: kvt.PackedIncrementalVerifier.from_state(cluster, state, **d),
+        lambda **d: kvt.PackedPortsIncrementalVerifier(cluster, **d),
+        lambda **d: kvt.PackedPortsIncrementalVerifier.from_state(
+            cluster, *ports_state, **d),
         lambda **d: kvt.packed_closure(words, **d),
         lambda **d: kvt.bounded_packed_closure(words, [0], **d),
         lambda **d: kvt.path_upto(words, 2, **d),

@@ -392,3 +392,62 @@ def test_tombstoned_pod_zero_stays_zero_across_a_resume():
     raw = res.reach
     assert not raw[0].any() and not raw[:, 0].any()
     assert_same_state(inc.state_dict(), res.state_dict())
+
+
+@pytest.mark.parametrize("keep_matrix", [True, False])
+def test_fuzzed_mixed_stream_with_resumes(keep_matrix):
+    """A seeded stream of policy ops, pod adds, removes and relabels,
+    namespace relabels, ``closure_packed`` and resumes across the packages
+    (both directions at once), held byte for byte against the JAX engine
+    after every op. Pod 0 is never removed: the JAX engine's resume
+    re-solves row 0 without the row-validity mask (ROADMAP §3), so a
+    tombstoned pod 0 would differ there by design."""
+    c = cluster(**_SIZES[0])
+    t = Twin(c, keep_matrix=keep_matrix)
+    donor = cluster(n_pods=57, n_policies=24, n_namespaces=3, seed=8)
+    rng = random.Random(keep_matrix)
+    kinds = ["add_pol", "upd_pol", "rm_pol", "add_pod", "rm_pod", "relabel",
+             "relabel_ns", "resume"] + ["closure"] * keep_matrix
+    resumes = 0
+    for step in range(30):
+        op = rng.choice(kinds)
+        pols = sorted(t.p.policies)
+        if op == "add_pol":
+            t("add_policy", dataclasses.replace(donor.policies[step % 24], name=f"mx-{step}"))
+        elif op == "upd_pol" and pols:
+            ns, name = rng.choice(pols).split("/", 1)
+            src = donor.policies[rng.randrange(24)]
+            t("update_policy", dataclasses.replace(
+                t.p.policies[f"{ns}/{name}"], ingress=src.ingress, egress=src.egress))
+        elif op == "rm_pol" and pols:
+            t("remove_policy", *rng.choice(pols).split("/", 1))
+        elif op == "add_pod":
+            t("add_pod", kvt.Pod(f"mx-pod-{step}", rng.choice(t.p.namespaces).name,
+                                 dict(rng.choice(c.pods).labels)))
+        elif op == "rm_pod" and t.p.n_active > 8:
+            i = rng.choice([int(i) for i in t.p.active_indices() if i])
+            t("remove_pod", t.p.pods[i].namespace, t.p.pods[i].name)
+        elif op == "relabel":
+            i = int(rng.choice(list(t.p.active_indices())))
+            labels = dict(rng.choice(c.pods).labels) if step % 2 else {"mx": f"v{step}"}
+            t("update_pod_labels", i, labels)
+        elif op == "relabel_ns":
+            ns = rng.choice(t.p.namespaces).name
+            t("update_namespace_labels", ns, {**dict(rng.choice(c.namespaces).labels),
+                                             "mx": f"s{step}"})
+        elif op == "closure":
+            np.testing.assert_array_equal(words(t.p.closure_packed(tile=64)),
+                                          words(t.j.closure_packed(tile=64)))
+            t.check("closure")
+        elif op == "resume":  # each package from the other's state
+            assert t.p.pod_active[0]
+            manifest = t.p.as_cluster(include_inactive=True)
+            jstate, pstate = t.j.state_dict(), t.p.state_dict()
+            t.p = kvt.PackedIncrementalVerifier.from_state(
+                manifest, jstate, t.cfg, device="cpu")
+            t.j = JaxEngine.from_state(to_jax(manifest), pstate,
+                                       jkv.VerifyConfig(compute_ports=False))
+            resumes += 1
+            t.check("resume")
+    assert resumes >= 2
+    t.oracle()
