@@ -105,19 +105,49 @@ Phases; any failure exits non-zero before a result line is printed:
     ``from_state`` round trip, and one more diff on both engines;
 17. the ports engine on the card against the ports engine on the CPU at
     phase 8's size: ``state_dict`` equal after the build and after every op
-    of a stream that grows the pod axis.
+    of a stream that grows the pod axis;
+18. the dense engine (``IncrementalVerifier``) at the JAX bench's dense
+    ceiling, ``random_cluster(32,768 pods, 3,277 policies, 20 namespaces,
+    seed 0)``: its build split printed, no hand-written kernel launched
+    (its contraction is one ``bool_dot`` per direction, re-run from the
+    engine's vectors and timed beside its bound), ``reach`` == the unpacked
+    words of ``tiled_k8s_reach`` (2 ``packed_dir_allow`` launches); a stream
+    of 8 policy adds, updates and removes, 8 pod relabels, a namespace
+    relabel, a namespace added and removed, and one refused op of each kind
+    (the state unchanged); ``reach`` == a one-shot solve of
+    ``as_cluster()``; ``dense_query_state``'s words == a host pack;
+    ``batched_reach_rows/cols/any_port`` (1,024 sources, 1,024
+    destinations, 4,096 probes) == ``reach``, and the stripe twins over 8
+    stripes of 4,096 rows, concatenated, == the batched ones;
+19. the dense engine on the card against the dense engine on the CPU at
+    phase 8's size: counts and isolation counts byte-equal after the build
+    and after every op, refused ops included;
+20. (run right after phase 14, on its engine) the posture ops at the
+    flagship: the words before and after one policy op and one pod relabel
+    diffed by ``packed_xor_popcount`` == the host's planes, the row counts,
+    ``ns_pair_counts`` and ``topk_changed_rows(k=8)`` == the host's exact
+    counts, ``packed_row_popcount`` == the host on 1,024 sampled rows; each
+    op's time beside its byte bound;
+21. the CPU oracle (``verify(backend="cpu")``, host NumPy) against
+    ``verify(backend="torch")`` on the card at phase 8's size (any-port)
+    and at 500 pods with port semantics, and the paper fixtures'
+    documented answers on both backends.
 
 Phases 9–13 launch neither hand-written kernel (their int8 products are
 ``torch._int_mm`` calls, as the JAX package leaves them to XLA): the counts
 are set to 0 before each and must read 0 after; phases 14–15 launch
 ``packed_dir_allow`` only in their engine builds, phases 16–17
 ``fused_ports_reach`` only in theirs (the diff steps' products are
-``torch._int_mm`` calls, as the JAX engines' are XLA dots). Each phase
-prints its seconds and its peak device memory.
+``torch._int_mm`` calls, as the JAX engines' are XLA dots). Phases 18–21
+launch neither in the dense engine, the posture ops or the oracle (no TPU
+kernel is on their path); phase 18's two one-shot checks launch
+``packed_dir_allow`` twice each. Each phase prints its seconds and its peak
+device memory.
 
 The second-to-last line is the kernel table as JSON (each kernel's row
 carries its engine build's launches, phase 14's and phase 16's, as
-``engine_build_launches``); the last is
+``engine_build_launches``, and ``packed_dir_allow``'s its launches in phase
+18's checks as ``dense_check_launches``); the last is
 ``{"ok": true, "device": {...}}``. Tolerance everywhere: exact (every output
 is boolean or integer words).
 """
@@ -145,6 +175,15 @@ KANO = dict(n_containers=10_000, n_policies=1_000, seed=0)
 #: (its pairs are not every row with an edge times every column with one)
 KANO_SPARSE = dict(n_containers=10_000, n_policies=20, seed=0)
 DELTA_N = 8_192
+#: the dense engine at the JAX bench's dense ceiling (``bench.py``'s
+#: ``_DENSE_QUERY_LIMIT``, 32,768 pods) with the flagship's 10 pods per
+#: policy; its count matrices are 2 x 4.29 GB
+DENSE = dict(n_pods=32_768, n_policies=3_277, n_namespaces=20,
+             p_ipblock_peer=0.0, min_selector_labels=1, seed=0)
+DENSE_STRIPES = 8
+#: the CPU oracle with port semantics, cut from phase 8's size for the
+#: host's time (its [N, N, Q] allow tensors are built per rule)
+ORACLE_PORTS = dict(n_pods=500, n_policies=50, n_namespaces=10, seed=1)
 
 
 def log(msg: str) -> None:
@@ -1266,9 +1305,10 @@ def _diff_stream(eng, cluster, donor, rng, lat: dict) -> None:
         "smoke-ns", dict(cluster.namespaces[7].labels)))
 
 
-def engine_phase(cluster, main_words, dev, smi: str) -> int:
+def engine_phase(cluster, main_words, dev, smi: str) -> tuple:
     """Phase 14: the serving engine at full width on phase 4's cluster.
-    Returns the build's ``packed_dir_allow`` launches."""
+    Returns the build's ``packed_dir_allow`` launches and the engine (phase
+    20 diffs its words)."""
     import dataclasses
 
     import numpy as np
@@ -1430,7 +1470,8 @@ def engine_phase(cluster, main_words, dev, smi: str) -> int:
              f"hand-written kernel: {launch_counts()}")
     log(f"engine: {time.perf_counter() - t_phase:.2f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
-    return launches[0]
+    del mf
+    return launches[0], eng
 
 
 def engine_card_vs_cpu_phase(dev) -> None:
@@ -1799,6 +1840,489 @@ def ports_engine_card_vs_cpu_phase(dev) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def posture_phase(eng, dev, smi: str) -> None:
+    """Phase 20: the posture ops on phase 14's engine at the flagship: its
+    words before and after one policy op and one pod relabel, diffed on the
+    card and on the host. The planes are held whole; the row counts, the
+    namespace-pair counts and the top 8 rows exactly, from the host's
+    nonzero words; the gauge (``packed_row_popcount``) on 1,024 sampled
+    rows. Each op's time (CUDA events) beside its byte bound."""
+    import numpy as np
+
+    from kubernetes_verification_tpu_torch.ops import posture
+    from kubernetes_verification_tpu_torch.ops.bits import to_host_words, unpack_cols
+
+    with Phase("posture"):
+        import kubernetes_verification_tpu_torch as kvt
+
+        rng = np.random.default_rng(20)
+        prev = eng._packed.clone()
+        # the policy op: deny all ingress into the namespace with the fewest
+        # live pods (phase 14's new one at the flagship), so the diff is
+        # sure to narrow and stays small enough to check on the host
+        live = [eng.pods[k].namespace for k in eng.active_indices()]
+        small = min(set(live), key=lambda name: (live.count(name), name))
+        eng.add_policy(kvt.NetworkPolicy(
+            "posture-deny", namespace=small, pod_selector=kvt.Selector(), ingress=(),
+            policy_types=("Ingress",)))
+        i = int(rng.choice(eng.active_indices()))
+        eng.update_pod_labels(i, {"posture": "moved", "app": "alpha"})
+        cur = eng._packed
+        R, W = cur.shape
+        names = [ns.name for ns in eng.namespaces]
+        G = len(names)
+        index = {name: g for g, name in enumerate(names)}
+        col_ns = np.array([index[p.namespace] if eng.pod_active[k] else -1
+                           for k, p in enumerate(eng.pods)])
+        row_ns = np.full(R, G, dtype=np.int32)
+        row_ns[: eng.n_pods] = np.where(col_ns >= 0, col_ns, G)
+        masks = posture.ns_word_masks(col_ns, G, W)
+        masks_dev = torch.as_tensor(masks.view(np.int32), device=dev)
+        row_ns_dev = torch.as_tensor(row_ns, device=dev)
+        out = {}
+
+        def xor():
+            out["xor"] = posture.packed_xor_popcount(prev, cur)
+
+        plane = R * W * 4
+        timed = {"packed_xor_popcount": (cuda_ms(xor, reps=3), 4 * plane + 2 * R * 4)}
+        wid, nar, rw, rn = out["xor"]
+        delta = wid | nar
+        timed["packed_row_popcount"] = (
+            cuda_ms(lambda: out.__setitem__("rows", posture.packed_row_popcount(cur)), reps=3),
+            plane + R * 4)
+        timed["ns_pair_counts"] = (
+            cuda_ms(lambda: out.__setitem__("ns", posture.ns_pair_counts(
+                delta, masks_dev, row_ns_dev, G))),
+            plane + G * W * 4 + R * 4 + G * G * 4)
+        changed = rw + rn
+        timed["topk_changed_rows(k=8)"] = (
+            cuda_ms(lambda: out.__setitem__("top", posture.topk_changed_rows(changed, 8)),
+                    reps=3),
+            R * 4 + 8 * 8)
+        for name, (ms, nbytes) in timed.items():
+            log(f"posture: {name} {ms:.3f} ms, byte bound {1e3 * nbytes / H100_BYTES_PER_S:.3f} "
+                f"ms ({nbytes / 1e9:.2f} GB; {smi})")
+        log(f"posture: ns_pair_counts reads the plane once per namespace: {G} passes, "
+            f"{1e3 * G * plane / H100_BYTES_PER_S:.2f} ms at the memory rate")
+
+        # the host's diff of the same words
+        hp, hc = to_host_words(prev), to_host_words(cur)
+        host_w, host_n = hc & ~hp, hp & ~hc
+        if not (np.array_equal(to_host_words(wid), host_w)
+                and np.array_equal(to_host_words(nar), host_n)):
+            fail("posture: a packed_xor_popcount plane differs from the host's")
+        counts = {}
+        pairs = np.zeros((G, G), dtype=np.int64)
+        for name, h in (("widened", host_w), ("narrowed", host_n)):
+            r, w = np.nonzero(h)
+            bits = np.unpackbits(h[r, w].view(np.uint8).reshape(-1, 4), axis=1,
+                                 bitorder="little").astype(bool)
+            counts[name] = np.bincount(r, weights=bits.sum(1), minlength=R).astype(np.int64)
+            rr, bb = np.nonzero(bits)
+            rows, cols = r[rr], w[rr] * 32 + bb
+            keep = (row_ns[rows] < G) & (cols < len(col_ns))
+            keep[keep] &= col_ns[cols[keep]] >= 0
+            np.add.at(pairs, (row_ns[rows[keep]], col_ns[cols[keep]]), 1)
+        if not (np.array_equal(rw.cpu().numpy(), counts["widened"])
+                and np.array_equal(rn.cpu().numpy(), counts["narrowed"])):
+            fail("posture: the planes' row popcounts differ from the host's")
+        if counts["widened"].sum() + counts["narrowed"].sum() == 0:
+            fail("posture: the policy op and the relabel changed no pair")
+        if not np.array_equal(out["ns"].cpu().numpy(), pairs):
+            fail("posture: ns_pair_counts differs from the host's count")
+        host_changed = counts["widened"] + counts["narrowed"]
+        order = np.argsort(-host_changed, kind="stable")[:8]
+        top_v, top_i = (t.cpu().numpy() for t in out["top"])
+        if not (np.array_equal(top_i, order) and np.array_equal(top_v, host_changed[order])):
+            fail("posture: topk_changed_rows differs from the host's stable order")
+        sample = np.sort(rng.choice(eng.n_pods, 1024, replace=False))
+        want = unpack_cols(hc[sample], R).sum(1)
+        if not np.array_equal(out["rows"].cpu().numpy()[sample], want):
+            fail("posture: packed_row_popcount differs from the host on sampled rows")
+        log(f"posture: diff of words [{R}, {W}] ({R * W * 4 / 2**30:.2f} GiB) over "
+            f"add_policy (deny ingress into {small}, {live.count(small)} live pods) + "
+            f"update_pod_labels: {int(counts['widened'].sum())} pairs widened, "
+            f"{int(counts['narrowed'].sum())} narrowed in {int((host_changed > 0).sum())} rows, "
+            f"{G} namespaces; planes == host (whole), row counts, ns_pair_counts and "
+            f"top-8 rows == host (exact, from the nonzero words), packed_row_popcount == host "
+            f"on 1,024 sampled rows")
+        del prev, out, wid, nar, delta
+
+
+def _dense_stream(eng, cluster, donor, rng, lat: dict) -> None:
+    """Phase 18's diff stream: 8 policy adds (from ``donor``), 8 updates, 8
+    removes, 8 pod relabels (half to label sets other pods carry, half to
+    pairs the frozen vocabulary never saw), one namespace relabel, and a
+    namespace added then removed."""
+    import dataclasses
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    pols = list(cluster.policies)
+    picks = rng.choice(len(pols), 16, replace=False)
+    for i, p in enumerate(donor.policies[:8]):
+        _timed(lat, "add_policy", lambda: eng.add_policy(
+            dataclasses.replace(p, name=f"dense-add-{i}")))
+    for j in picks[:8]:
+        src = pols[(j + 1) % len(pols)]
+        _timed(lat, "update_policy", lambda: eng.update_policy(dataclasses.replace(
+            pols[j], ingress=src.ingress, egress=src.egress,
+            policy_types=src.policy_types)))
+    for j in picks[8:]:
+        _timed(lat, "remove_policy", lambda: eng.remove_policy(
+            pols[j].namespace, pols[j].name))
+    n = len(eng.pods)
+    for k, i in enumerate(rng.choice(n, 8, replace=False)):
+        labels = (dict(eng.pods[int(rng.integers(n))].labels) if k < 4
+                  else {"smoke": f"unseen-{k}", "app": "alpha"})
+        _timed(lat, "update_pod_labels", lambda: eng.update_pod_labels(int(i), labels))
+    _timed(lat, "update_namespace_labels", lambda: eng.update_namespace_labels(
+        cluster.namespaces[3].name, dict(cluster.namespaces[7].labels)))
+    _timed(lat, "add_namespace", lambda: eng.add_namespace(
+        kvt.Namespace("dense-ns", dict(cluster.namespaces[5].labels))))
+    _timed(lat, "remove_namespace", lambda: eng.remove_namespace("dense-ns"))
+
+
+def _dense_refusals(eng) -> int:
+    """One refused op of each kind; the counts, isolation counts, vectors
+    and ``update_count`` must not move. Returns the refusals."""
+    import dataclasses
+
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    held = next(iter(eng.policies.values()))
+    counts = (eng._ing_count.clone(), eng._eg_count.clone())
+    iso = (eng._ing_iso.copy(), eng._eg_iso.copy())
+    keys, updates = list(eng._vectors), eng.update_count
+    cases = [
+        ("add_policy", (held,), KeyError),
+        ("update_policy", (dataclasses.replace(held, name="dense-absent"),), KeyError),
+        ("remove_policy", (held.namespace, "dense-absent"), KeyError),
+        ("update_pod_labels", (len(eng.pods) + 1, {}), IndexError),
+        ("update_namespace_labels", ("dense-absent-ns", {}), KeyError),
+        ("remove_namespace", (held.namespace,), ValueError),
+    ]
+    for op, args, kind in cases:
+        try:
+            getattr(eng, op)(*args)
+            fail(f"dense engine: {op} was not refused")
+        except kind:
+            pass
+    ns = eng.namespaces[0]
+    if eng.add_namespace(kvt.Namespace(ns.name, dict(ns.labels))) is not False:
+        fail("dense engine: add_namespace of a known namespace was not a no-op")
+    if not (torch.equal(counts[0], eng._ing_count) and torch.equal(counts[1], eng._eg_count)
+            and np.array_equal(iso[0], eng._ing_iso) and np.array_equal(iso[1], eng._eg_iso)
+            and keys == list(eng._vectors) and updates == eng.update_count):
+        fail("dense engine: a refused op changed the state")
+    return len(cases) + 1
+
+
+def _dense_one_shot(cluster, dev):
+    """bool [n, n] host reach of a one-shot any-port ``tiled_k8s_reach`` of
+    ``cluster`` (2 ``packed_dir_allow`` launches), and its seconds."""
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.ops.bits import to_host_words, unpack_cols
+
+    t0 = time.perf_counter()
+    enc = kvt.encode_cluster(cluster, compute_ports=False)
+    res = kvt.tiled_k8s_reach(enc, fetch=False, device=dev)
+    return unpack_cols(to_host_words(res.packed), enc.n_pods), time.perf_counter() - t0
+
+
+def dense_engine_phase(dev, smi: str) -> int:
+    """Phase 18: the dense engine at the JAX bench's dense ceiling. Returns
+    the ``packed_dir_allow`` launches of its two one-shot checks."""
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.incremental import _derive_reach
+    from kubernetes_verification_tpu_torch.ops import batched
+    from kubernetes_verification_tpu_torch.ops.bits import to_host_words
+    from kubernetes_verification_tpu_torch.ops.device_state import dense_query_state
+
+    t_phase = time.perf_counter()
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(**DENSE))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = kvt.IncrementalVerifier(cluster, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n, P = len(eng.pods), len(eng.policies)
+    log(f"dense: build {build_s:.2f} s (" + ", ".join(
+        f"{k} {v:.3f} s" for k, v in eng.build_timings.items())
+        + f"), {n} pods, {P} policies, counts 2 x {n * n * 4 / 1e9:.2f} GB, launches "
+        f"{launch_counts()}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    if launch_counts() != (0, 0):
+        fail(f"dense: the build launched a hand-written kernel: {launch_counts()}")
+
+    # the contraction alone, re-run from the engine's own vectors: the same
+    # counts, and its time beside the bound
+    vec = [torch.as_tensor(np.stack([v[k] for v in eng._vectors.values()]), device=dev)
+           .to(torch.int8) for k in range(4)]
+    sel_ing, sel_eg, ing_peers, eg_peers = vec
+    got = {}
+    ms = cuda_ms(lambda: got.update(zip(("ing", "eg"), eng._contract_counts(
+        sel_ing, sel_eg, ing_peers, eg_peers))))
+    if not (torch.equal(got["ing"], eng._ing_count) and torch.equal(got["eg"], eng._eg_count)):
+        fail("dense: the counts re-contracted from the vectors differ from the build's")
+    ops = 2 * 2 * n * n * P
+    nbytes = 4 * P * n + 2 * n * n * 4
+    log(f"dense: contraction (2 bool_dot [{n} x {P}] . [{n} x {P}]^T with their "
+        f"K-contiguous copies) {ms:.2f} ms, {ops / ms / 1e9:.1f} TOP/s, bound "
+        f"{1e3 * max(ops / H100_INT8_OPS, nbytes / H100_BYTES_PER_S):.2f} ms "
+        f"(operations); == the build's counts; {smi}")
+    del vec, sel_ing, sel_eg, ing_peers, eg_peers, got
+
+    t0 = time.perf_counter()
+    reach = eng.reach
+    derive_s = time.perf_counter() - t0
+    ing_iso, eg_iso = eng._iso_tensors()
+    flags = dict(self_traffic=True, default_allow_unselected=True)
+    ms = cuda_ms(lambda: _derive_reach(eng._ing_count, eng._eg_count, ing_iso, eg_iso,
+                                       **flags), reps=3)
+    nbytes = 2 * n * n * 4 + n * n + 2 * n * 4
+    log(f"dense: reach {derive_s * 1e3:.1f} ms with its {n * n / 1e9:.2f} GB D2H copy; "
+        f"derivation on the card {ms:.2f} ms, byte bound "
+        f"{1e3 * nbytes / H100_BYTES_PER_S:.2f} ms ({smi})")
+    reset_counts()
+    one, one_s = _dense_one_shot(cluster, dev)
+    launches = launch_counts()[0]
+    if launch_counts() != (2, 0):
+        fail(f"dense: the one-shot solve launched {launch_counts()}, not (2, 0)")
+    if not np.array_equal(reach, one):
+        fail("dense: the build's reach differs from tiled_k8s_reach's unpacked words")
+    log(f"dense: build reach == the unpacked words of tiled_k8s_reach ({one_s:.2f} s, "
+        f"{int(reach.sum())} pairs)")
+    del one
+
+    rng = np.random.default_rng(18)
+    donor = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=2_000, n_policies=64, n_namespaces=20, p_ipblock_peer=0.0,
+        min_selector_labels=1, seed=3))
+    lat: dict = {}
+    reset_counts()
+    _dense_stream(eng, cluster, donor, rng, lat)
+    refused = _dense_refusals(eng)
+    if launch_counts() != (0, 0):
+        fail(f"dense: the stream launched a hand-written kernel: {launch_counts()}")
+    for kind, ts in lat.items():
+        log(f"dense: {kind} x{len(ts)}: median {statistics.median(ts) * 1e3:.2f} ms, "
+            f"max {max(ts) * 1e3:.2f} ms (host clock after a device sync)")
+    log(f"dense: {refused} refused ops (one of each kind) left the state unchanged; "
+        f"a rank-1 update over the whole matrix would read and write "
+        f"{n * n * 4 * 2 / 1e9:.1f} GB ({1e3 * n * n * 8 / H100_BYTES_PER_S:.2f} ms at the "
+        f"memory rate, x2 per policy op)")
+    t0 = time.perf_counter()
+    reach = eng.reach
+    derive_s = time.perf_counter() - t0
+    reset_counts()
+    one, one_s = _dense_one_shot(eng.as_cluster(), dev)
+    launches += launch_counts()[0]
+    if not np.array_equal(reach, one):
+        fail("dense: reach after the stream differs from a one-shot solve of as_cluster()")
+    log(f"dense: after the stream reach ({derive_s * 1e3:.1f} ms with D2H) == a one-shot "
+        f"tiled_k8s_reach of as_cluster() ({one_s:.2f} s), {int(reach.sum())} pairs")
+    del one
+
+    # the query twins against reach, dense and in 8 stripes of 4,096 rows
+    t0 = time.perf_counter()
+    state = dense_query_state(eng, 1, with_reach_words=True)
+    torch.cuda.synchronize()
+    state_s = time.perf_counter() - t0
+    a = state.arrays
+    words = to_host_words(a["reach_words"])
+    host = np.packbits(reach, axis=1, bitorder="little")
+    if words.tobytes() != host.tobytes():
+        fail("dense: dense_query_state's reach words differ from a host pack of reach")
+    ops4 = (a["ing_count"], a["eg_count"], a["ing_iso"], a["eg_iso"])
+    src = np.sort(rng.choice(n, 1024, replace=False))
+    dst = np.sort(rng.choice(n, 1024, replace=False))
+    q_row = rng.integers(0, len(src), 4096)
+    q_dst = rng.integers(0, n, 4096)
+    q = {}
+    for name, fn in (
+        ("rows", lambda: batched.batched_reach_rows(*ops4, src, **flags)),
+        ("cols", lambda: batched.batched_reach_cols(*ops4, dst, **flags)),
+        ("probe", lambda: batched.batched_any_port(*ops4, src, q_row, q_dst, **flags)),
+    ):
+        t0 = time.perf_counter()
+        q[name] = fn()
+        q[name + "_s"] = time.perf_counter() - t0
+    if not (np.array_equal(q["rows"], reach[src]) and np.array_equal(q["cols"], reach[:, dst])
+            and np.array_equal(q["probe"][0], reach[src])
+            and np.array_equal(q["probe"][1], reach[src[q_row], q_dst])):
+        fail("dense: a batched query twin differs from reach")
+    S = n // DENSE_STRIPES
+    rows, frags, ans = [], [], np.zeros(len(q_row), dtype=bool)
+    t0 = time.perf_counter()
+    for k in range(DENSE_STRIPES):
+        lo, hi = k * S, (k + 1) * S
+        stripe = (a["ing_count"][lo:hi], a["eg_count"][lo:hi], a["ing_iso"], a["eg_iso"][lo:hi])
+        kw = dict(row_base=lo, **flags)
+        loc = src[(src >= lo) & (src < hi)] - lo
+        rows.append(batched.stripe_reach_rows(*stripe, loc, **kw))
+        frags.append(batched.stripe_reach_cols(*stripe, dst, **kw))
+        sel = (src[q_row] >= lo) & (src[q_row] < hi)
+        _, got_ans = batched.stripe_any_port(
+            *stripe, loc, np.searchsorted(loc, src[q_row[sel]] - lo), q_dst[sel], **kw)
+        ans[sel] = got_ans
+    stripes_s = time.perf_counter() - t0
+    if not (np.array_equal(np.concatenate(rows), q["rows"])
+            and np.array_equal(np.concatenate(frags), q["cols"])
+            and np.array_equal(ans, q["probe"][1])):
+        fail("dense: the stripe twins, concatenated, differ from the batched ones")
+    log(f"dense: dense_query_state(with_reach_words) {state_s * 1e3:.1f} ms, words == a host "
+        f"pack of reach; batched_reach_rows(1,024) {q['rows_s'] * 1e3:.1f} ms, "
+        f"batched_reach_cols(1,024) {q['cols_s'] * 1e3:.1f} ms, batched_any_port(4,096 "
+        f"probes) {q['probe_s'] * 1e3:.1f} ms (host clock, D2H included) == reach; "
+        f"{DENSE_STRIPES} stripes of {S}: rows, column fragments and probes, concatenated, "
+        f"== the batched twins ({stripes_s * 1e3:.1f} ms)")
+    del state, a, ops4, reach, host, words
+    log(f"dense: {time.perf_counter() - t_phase:.2f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    return launches
+
+
+def dense_card_vs_cpu_phase(dev) -> None:
+    """Phase 19: the dense engine on the card against the dense engine on
+    the CPU at phase 8's size: the count matrices and the isolation counts
+    byte-equal after the build and after every op, refused ops included."""
+    import dataclasses
+
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(**VERIFY))
+    donor = kvt.random_cluster(kvt.GeneratorConfig(**{**VERIFY, "seed": 2}))
+    pols = list(cluster.policies)
+    rng = np.random.default_rng(19)
+    ops = [("add_policy", dataclasses.replace(p, name=f"cv-{i}"))
+           for i, p in enumerate(donor.policies[:6])]
+    ops += [("add_policy", pols[0])]  # refused: exists
+    ops += [("update_policy", dataclasses.replace(pols[i], ingress=pols[i + 1].ingress))
+            for i in (3, 30, 60)]
+    ops += [("remove_policy", pols[i].namespace, pols[i].name) for i in (10, 90, 150)]
+    ops += [("remove_policy", pols[10].namespace, pols[10].name)]  # refused: gone
+    ops += [("update_pod_labels", int(i), dict(cluster.pods[int(i) + 1].labels))
+            for i in rng.choice(1_999, 4, replace=False)]
+    ops += [("update_pod_labels", int(i), {"cv": "unseen"})
+            for i in rng.choice(2_000, 4, replace=False)]
+    ops += [("update_pod_labels", 2_000, {})]  # refused: no such pod
+    ops += [("add_namespace", kvt.Namespace("cv-ns", {"team": "cv"})),
+            ("update_namespace_labels", "ns2", dict(cluster.namespaces[4].labels)),
+            ("update_namespace_labels", "cv-ns", {"team": "other"}),
+            ("remove_namespace", "cv-ns"),
+            ("remove_namespace", "ns3")]  # refused: holds policies and pods
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    engines = {d: kvt.IncrementalVerifier(cluster, device=d) for d in (dev, "cpu")}
+    refused = 0
+    for op, *args in [("build",)] + ops:
+        if op != "build":
+            outcomes = []
+            for e in engines.values():
+                try:
+                    getattr(e, op)(*args)
+                    outcomes.append("applied")
+                except (KeyError, ValueError, IndexError) as err:
+                    outcomes.append(type(err).__name__)
+            if outcomes[0] != outcomes[1]:
+                fail(f"dense card vs cpu: {op} {outcomes} on (cuda, cpu)")
+            refused += outcomes[0] != "applied"
+        g, w = engines[dev], engines["cpu"]
+        for a, b, name in ((g._ing_count.cpu().numpy(), w._ing_count.numpy(), "ing_count"),
+                           (g._eg_count.cpu().numpy(), w._eg_count.numpy(), "eg_count"),
+                           (g._ing_iso, w._ing_iso, "ing_iso"), (g._eg_iso, w._eg_iso, "eg_iso")):
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                fail(f"dense card vs cpu: {name} differs after {op}")
+        if g.update_count != w.update_count or list(g._vectors) != list(w._vectors):
+            fail(f"dense card vs cpu: the bookkeeping differs after {op}")
+    if not np.array_equal(engines[dev].reach, engines["cpu"].reach):
+        fail("dense card vs cpu: reach differs")
+    if launch_counts() != (0, 0):
+        fail(f"dense card vs cpu: a hand-written kernel ran: {launch_counts()}")
+    log(f"dense card vs cpu: {len(ops)} ops ({refused} refused by both), counts and "
+        f"isolation counts byte-equal cuda == cpu after the build and after each op, "
+        f"reach equal; {time.perf_counter() - t0:.2f} s")
+
+
+def cpu_oracle_phase(dev) -> None:
+    """Phase 21: the CPU oracle (``backend="cpu"``, host NumPy) on the card's
+    host against ``backend="torch"`` on the card, and the paper fixtures'
+    documented answers on both."""
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.models.fixtures import (
+        kano_paper_example,
+        kubesv_paper_example,
+    )
+
+    fields = ("reach", "reach_ports", "src_sets", "dst_sets", "selected",
+              "ingress_isolated", "egress_isolated")
+    card = (("device", str(dev)),)
+    for gen, compute_ports in ((VERIFY, False), (ORACLE_PORTS, True)):
+        cluster = kvt.random_cluster(kvt.GeneratorConfig(**gen))
+        t0 = time.perf_counter()
+        oracle = kvt.verify(cluster, kvt.VerifyConfig(backend="cpu", compute_ports=compute_ports))
+        oracle_s = time.perf_counter() - t0
+        with Phase(f"oracle: verify(backend='torch', compute_ports={compute_ports}) on the card"):
+            solve = kvt.verify(cluster, kvt.VerifyConfig(
+                compute_ports=compute_ports, backend_options=card))
+        for f in fields:
+            g, w = getattr(oracle, f), getattr(solve, f)
+            if (g is None) != (w is None) or (g is not None and not np.array_equal(g, w)):
+                fail(f"oracle: {f} of the cpu backend differs from the card's "
+                     f"(compute_ports={compute_ports})")
+        log(f"oracle: verify(backend='cpu') on the host ({gen['n_pods']} pods, "
+            f"{gen['n_policies']} policies, compute_ports={compute_ports}, "
+            f"{len(oracle.port_atoms)} atoms) {oracle_s:.2f} s == verify(backend='torch') "
+            f"on the card on every field, {int(oracle.reach.sum())} pairs")
+    expected = np.zeros((5, 5), dtype=bool)
+    expected[[0, 3], 1] = True
+    expected[4, 2] = True
+    expected[2, [0, 3]] = True
+    expected[np.ix_([0, 1, 2], [0, 3])] = True
+    for backend, opts in (("cpu", ()), ("torch", card)):
+        containers, policies = kano_paper_example()
+        res = kvt.verify_kano(containers, policies, kvt.VerifyConfig(
+            backend=backend, backend_options=opts))
+        if not (np.array_equal(res.reach, expected) and res.all_reachable() == []
+                and res.all_isolated() == [4]
+                and res.user_crosscheck(containers, "app") == [1, 2, 3]
+                and res.policy_shadow() == [(2, 3), (3, 2)]
+                and containers[2].select_policies == [2, 3]):
+            fail(f"oracle: kano_paper_example's documented answers differ ({backend})")
+        cluster = kubesv_paper_example()
+        pods = cluster.pods
+        role = {r: [i for i, p in enumerate(pods)
+                    if p.labels["role"] == r and p.namespace == "default"]
+                for r in ("db", "tomcat", "nginx")}
+        strict = kvt.verify(cluster, kvt.VerifyConfig(
+            backend=backend, default_allow_unselected=False, backend_options=opts))
+        real = kvt.verify(cluster, kvt.VerifyConfig(backend=backend, backend_options=opts))
+        if not (strict.ingress_isolated[role["db"]].all()
+                and not strict.reach[np.ix_(role["tomcat"], role["db"])].any()
+                and real.reach[np.ix_(role["tomcat"], role["db"])].all()
+                and not real.reach[np.ix_(role["nginx"], role["db"])].any()):
+            fail(f"oracle: kubesv_paper_example's documented answers differ ({backend})")
+    log("oracle: kano_paper_example (reach, all_reachable [], all_isolated [4], "
+        "user_crosscheck [1, 2, 3], policy_shadow [(2, 3), (3, 2)]) and "
+        "kubesv_paper_example (db isolated; tomcat -> db only under default-allow; "
+        "nginx -> db never) as documented, on the cpu backend and on the card")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -1838,8 +2362,10 @@ def main() -> int:
     delta_phase(dev)
     kano_phase(dev, smi)
     card_vs_cpu_phase(dev)
-    engine_launches = engine_phase(cluster, main_words, dev, smi)
+    engine_launches, eng = engine_phase(cluster, main_words, dev, smi)
     del main_words
+    posture_phase(eng, dev, smi)
+    del eng
     torch.cuda.empty_cache()
     engine_card_vs_cpu_phase(dev)
     torch.cuda.empty_cache()
@@ -1847,6 +2373,11 @@ def main() -> int:
     del cluster, ports_words
     torch.cuda.empty_cache()
     ports_engine_card_vs_cpu_phase(dev)
+    torch.cuda.empty_cache()
+    dense_launches = dense_engine_phase(dev, smi)
+    torch.cuda.empty_cache()
+    dense_card_vs_cpu_phase(dev)
+    cpu_oracle_phase(dev)
     worst = max([worst] + [r["err"] for r in rows])
     worst_fused = max(worst_fused, fused_row["err"])
 
@@ -1861,6 +2392,7 @@ def main() -> int:
         "replaces": "kubernetes_verification_tpu/ops/pallas_kernels.py:151",
         "launches": launches,
         "engine_build_launches": engine_launches,
+        "dense_check_launches": dense_launches,
         "max_abs_err": worst,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),

@@ -17,11 +17,18 @@ Entry points run on ``cuda`` unless the caller passes a CPU device::
     closed = reach.closure()                    # packed transitive closure
     shadow, conflict = kvt.policy_pair_masks(enc)
     res = kvt.verify(cluster, kvt.VerifyConfig(backend="torch", closure=True))
+    dense = kvt.IncrementalVerifier(cluster)   # the dense engine (≤ ~32k pods)
     engine = kvt.PackedIncrementalVerifier(cluster)  # the serving engine
     engine.remove_policy(cluster.policies[0].namespace, cluster.policies[0].name)
     ports = kvt.PackedPortsIncrementalVerifier(cluster)  # ... with port bitmaps
     containers, policies = kvt.random_kano(1000, 100, seed=0)
     kano = kvt.verify_kano(containers, policies, kvt.VerifyConfig(backend="torch"))
+    oracle = kvt.verify(cluster, kvt.VerifyConfig(backend="cpu"))  # host NumPy
+
+The query twins (``ops/batched.py``), the device query state
+(``ops/device_state.py``) and the posture ops (``ops/posture.py``) are
+imported from their modules. ``ingest`` and ``utils.persist`` are host-only,
+need PyYAML, and are not imported here.
 """
 from .backends.base import (
     PortAtom,
@@ -36,6 +43,7 @@ from .backends.base import (
 from .encode.carry import encoding_from_arrays, encoding_to_arrays
 from .encode.encoder import EncodedCluster, encode_cluster
 from .harness.generate import GeneratorConfig, random_cluster, random_kano
+from .incremental import IncrementalVerifier
 from .models.core import (
     Cluster,
     Container,
@@ -71,6 +79,7 @@ __all__ = [
     "EncodedCluster",
     "Expr",
     "GeneratorConfig",
+    "IncrementalVerifier",
     "IpBlock",
     "KanoPolicy",
     "LabelRelation",

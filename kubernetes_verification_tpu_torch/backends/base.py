@@ -3,9 +3,10 @@
 The port's own copy of ``kubernetes_verification_tpu.backends.base``: the same
 ``VerifyConfig``, ``PortAtom`` and ``VerifyResult`` (so results of the two
 packages compare field by field), and a registry of its own — registering a
-backend here never touches the JAX package's registry. The built-in backend
-is ``torch``, the dense single-device solve (``backends/device.py``); it
-registers itself the first time a backend is looked up.
+backend here never touches the JAX package's registry. The built-in backends
+are ``torch``, the dense single-device solve (``backends/device.py``), and
+``cpu``, the object-level NumPy oracle (``backends/cpu.py``); they register
+themselves the first time a backend is looked up.
 """
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ class VerifyConfig:
       consults policyTypes.
 
     ``backend`` selects the execution engine (``torch``: the dense solve on a
-    CUDA device, or on the CPU with the backend option ``("device", "cpu")``).
+    CUDA device, or on the CPU with the backend option ``("device", "cpu")``;
+    ``cpu``: the object-level NumPy oracle on the host).
     ``closure`` adds the transitive closure of ``reach`` (``closure`` field of
     the result).
     """
@@ -182,14 +184,17 @@ def register_backend(name: str, factory: Callable[[], VerifierBackend]) -> None:
     _REGISTRY[name] = factory
 
 
-def available_backends() -> List[str]:
-    from . import device  # noqa: F401  registers the built-in "torch"
+def _register_builtins() -> None:
+    from . import cpu, device  # noqa: F401  register "cpu" and "torch"
 
+
+def available_backends() -> List[str]:
+    _register_builtins()
     return sorted(_REGISTRY)
 
 
 def get_backend(name: str) -> VerifierBackend:
-    from . import device  # noqa: F401  registers the built-in "torch"
+    _register_builtins()
 
     if name not in _REGISTRY:
         raise UnknownBackendError(

@@ -76,12 +76,17 @@ def _byte_popcounts(device) -> torch.Tensor:
     return bits.sum(dim=1).to(torch.uint8)
 
 
-def packed_row_counts(packed: torch.Tensor) -> torch.Tensor:
-    """int32 [R]: set bits per row of an int32 [R, W] packed matrix."""
+def packed_row_counts(
+    packed: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """int32 [R]: set bits per row of an int32 [R, W] packed matrix; with
+    ``mask`` (int32 [W]), of each row ANDed with the mask, a block of rows
+    at a time (no masked copy of the whole matrix)."""
     table = _byte_popcounts(packed.device)
     out = torch.empty(packed.shape[0], dtype=torch.int32, device=packed.device)
     for r0 in range(0, packed.shape[0], _ROWS_PER_BLOCK):
-        block = packed[r0 : r0 + _ROWS_PER_BLOCK].contiguous()
+        block = packed[r0 : r0 + _ROWS_PER_BLOCK]
+        block = block.contiguous() if mask is None else block & mask[None, :]
         idx = block.view(torch.uint8).to(torch.int32)
         out[r0 : r0 + _ROWS_PER_BLOCK] = table[idx].sum(dim=1, dtype=torch.int32)
     return out

@@ -1,12 +1,16 @@
 """Generation-keyed device residency for the serving query plane.
 
-The port of the packed half of ``kubernetes_verification_tpu.ops.
-device_state`` (the dense half waits for the dense engine, ROADMAP §1 item 7):
+The port of ``kubernetes_verification_tpu.ops.device_state``, both halves:
 
 * **Residency** — a ``DeviceQueryState`` snapshots the device operands the
-  packed query twins (``ops/batched.py``) read for one engine generation.
-  A packed state aliases the ``PackedIncrementalVerifier``'s resident maps
-  and transfers nothing host→device.
+  query twins (``ops/batched.py``) read for one engine generation. A
+  *dense* state (``dense_query_state``) aliases the ``IncrementalVerifier``'s
+  count matrices and owns freshly uploaded int32 isolation vectors (the
+  engine keeps those on the host: the one host→device transfer). A
+  *packed* state (``packed_query_state``) aliases the
+  ``PackedIncrementalVerifier``'s resident maps and transfers nothing.
+  Either may also own a packed copy of the generation's reach words for the
+  posture diffs (``with_reach_words``).
 
 * **Double-buffering** — ``DeviceStateCache`` keeps a *front* state (what
   query dispatches read) and one *retired* state (the previous front, kept
@@ -14,13 +18,14 @@ device_state`` (the dense half waits for the dense engine, ROADMAP §1 item 7):
   state in with one attribute assignment; only when a state ages out of the
   retired slot are its *owned* buffers released.
 
-The aliasing rule differs from the JAX package's. JAX donates the engine's
+The aliasing rule differs from the JAX package's. JAX donates the engines'
 buffers on every mutation, so a stale generation's aliases are deleted and
-raise when read. This engine updates its tensors IN PLACE, so an aliased
-packed state sees every later diff: it is valid only for its own
+raise when read. This package's engines update their tensors IN PLACE — the
+dense engine its count matrices, the packed engine its maps and words — so
+an aliased state sees every later diff: it is valid only for its own
 generation, and the serving layer must order mutations and query dispatches
-(one stream, one lock). The owned reach words (``with_reach_words``) are a
-copy and keep their generation's values.
+(one stream, one lock). The owned isolation vectors and reach words are
+copies and keep their generation's values.
 """
 from __future__ import annotations
 
@@ -28,9 +33,24 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
-from ..resilience.errors import ServeError
+import numpy as np
+import torch
+import torch.nn.functional as F
 
-__all__ = ["DeviceQueryState", "DeviceStateCache", "packed_query_state"]
+from ..resilience.errors import ServeError
+from .batched import _reach_rows_kernel
+from .bits import pack_bool_cols
+
+__all__ = [
+    "DeviceQueryState",
+    "DeviceStateCache",
+    "dense_query_state",
+    "packed_query_state",
+]
+
+#: source rows per block of the dense reach words (bounds the pack's int32
+#: temporaries: 2,048 rows × 32,768 pods is 268 MB)
+_WORD_ROWS = 2048
 
 
 @dataclass(frozen=True)
@@ -42,7 +62,7 @@ class DeviceQueryState:
     live engine state)."""
 
     generation: int
-    kind: str  # "packed"
+    kind: str  # "dense" | "packed"
     n: int  # real pod count (rows/cols beyond this are padding)
     arrays: Dict[str, Any]
     owned: Tuple[str, ...] = ()
@@ -103,6 +123,75 @@ class DeviceStateCache:
         for state in (retired, front):
             if state is not None:
                 state.release()
+
+
+def _upload_i32(vec, device) -> Tuple[torch.Tensor, int]:
+    """Host int vector → int32 tensor on ``device``; returns (tensor, h2d
+    bytes)."""
+    host = np.asarray(vec, dtype=np.int32)
+    return torch.as_tensor(host, device=device), host.nbytes
+
+
+def _dense_reach_words(engine, ing_iso, eg_iso) -> torch.Tensor:
+    """The dense engine's reach as int32 words ``[n, ceil32(n)]`` (the
+    reference's little bit order; bits past column n zero), derived from the
+    count matrices and the int32 isolation counts ``ing_iso``/``eg_iso`` on
+    the engine's device, a block of rows at a time, and packed there. The
+    JAX package derives the bool matrix, copies it to the host and packs it
+    there; the words are the same, and no [N, N] bool matrix crosses the
+    bus."""
+    counts = (engine._ing_count, engine._eg_count)
+    n = int(counts[0].shape[0])
+    width = max(1, -(-n // 32)) * 32
+    dev = counts[0].device
+    flags = dict(
+        self_traffic=engine.config.self_traffic,
+        default_allow_unselected=engine.config.default_allow_unselected,
+    )
+    out = torch.empty((n, width // 32), dtype=torch.int32, device=dev)
+    for r0 in range(0, n, _WORD_ROWS):
+        src = torch.arange(r0, min(n, r0 + _WORD_ROWS), device=dev)
+        rows = _reach_rows_kernel(*counts, ing_iso, eg_iso, src, **flags)
+        out[r0 : r0 + src.shape[0]] = pack_bool_cols(F.pad(rows, (0, width - n)))
+    return out
+
+
+def dense_query_state(
+    engine, generation: int, with_reach_words: bool = False
+) -> DeviceQueryState:
+    """Snapshot a dense ``IncrementalVerifier``'s query operands.
+
+    The count matrices already live on the device: the snapshot aliases
+    them, and they follow the engine's later in-place diffs, so the state is
+    valid for ``generation`` only. The isolation vectors are host state of
+    the dense engine: they are uploaded once here and owned.
+
+    With ``with_reach_words`` the state also owns the generation's reach as
+    packed words (``_dense_reach_words``), so the retired slot of the double
+    buffer holds the previous generation's exact posture."""
+    h2d = 0
+    ing_iso, nb = _upload_i32(engine._ing_iso, engine.device)
+    h2d += nb
+    eg_iso, nb = _upload_i32(engine._eg_iso, engine.device)
+    h2d += nb
+    arrays = {
+        "ing_count": engine._ing_count,
+        "eg_count": engine._eg_count,
+        "ing_iso": ing_iso,
+        "eg_iso": eg_iso,
+    }
+    owned = ["ing_iso", "eg_iso"]
+    if with_reach_words:
+        arrays["reach_words"] = _dense_reach_words(engine, ing_iso, eg_iso)
+        owned.append("reach_words")
+    return DeviceQueryState(
+        generation=generation,
+        kind="dense",
+        n=int(engine._ing_count.shape[0]),
+        arrays=arrays,
+        owned=tuple(owned),
+        meta={"h2d_bytes": h2d},
+    )
 
 
 def packed_query_state(

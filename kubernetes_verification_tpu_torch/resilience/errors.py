@@ -10,6 +10,9 @@ package catches the same failures here:
   of the system the port does not cover yet;
 * :class:`ServeError`    — a serving engine rejected an input (a query on a
   state it cannot answer);
+* :class:`IngestError`   — malformed manifests (``ingest/``);
+* :class:`PersistError`  — a checkpoint failed to load or verify
+  (``utils/persist.py``);
 * :class:`BackendError`  — a solve attempt failed (no CUDA device, a kernel
   that did not build or launch), with its ``kind`` subclasses
   :class:`BackendOOM`, :class:`BackendTimeout` and :class:`DeviceLost`.
@@ -28,6 +31,8 @@ __all__ = [
     "EncodeError",
     "ConfigError",
     "ServeError",
+    "IngestError",
+    "PersistError",
     "BackendError",
     "BackendOOM",
     "BackendTimeout",
@@ -63,6 +68,21 @@ class ServeError(KvTpuError, ValueError):
     ) -> None:
         super().__init__(message)
         self.event_index = event_index
+
+
+class IngestError(KvTpuError, ValueError):
+    """Malformed manifests: the parse layer raises typed instead of printing
+    and continuing."""
+
+
+class PersistError(KvTpuError, ValueError):
+    """A checkpoint/artifact failed to load or verify: truncated file,
+    corrupt array, sha256 mismatch, or semantic-config mismatch. ``path``
+    names the offending artifact."""
+
+    def __init__(self, message: str, *, path: Optional[str] = None) -> None:
+        super().__init__(message)
+        self.path = path
 
 
 class BackendError(KvTpuError, RuntimeError):

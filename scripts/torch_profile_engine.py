@@ -2,7 +2,7 @@
 """Where the port's serving engines spend their time on one NVIDIA GPU: host
 against device per op, and the state round trip's parts.
 
-    python3 scripts/torch_profile_engine.py [--pods 100000 --policies 10000] [--ports]
+    python3 scripts/torch_profile_engine.py [--pods 100000 --policies 10000] [--ports | --dense]
 
 Builds the any-port engine (``PackedIncrementalVerifier``), or with
 ``--ports`` the port-bitmap engine (``PackedPortsIncrementalVerifier``, on
@@ -22,6 +22,16 @@ cluster, then:
 3. ``state_dict``: the maps packed to the JAX layout, the words fetched;
 4. ``from_state``: the manifest copy, each map's upload and unpack, the
    words' upload, then the whole resume with its split.
+
+With ``--dense`` it builds the dense engine (``IncrementalVerifier``, on
+``chip_smoke.py``'s phase-18 cluster: 32,768 pods / 3,277 policies unless
+``--pods``/``--policies`` say otherwise) and splits its build phases, each
+op kind into the whole op and its host part (``_policy_vectors`` for a
+policy op; for a pod relabel, the device patch alone by CUDA events), the
+device steps alone (a policy's two rank-1 block updates, one row + column
+patch, the reach derivation) and the reach's device-to-host copy. The
+dense engine's checkpoints go through PyYAML (host-only), so the state
+round trip is not timed here.
 
 Prints the card's name and power limit first.
 """
@@ -71,7 +81,11 @@ def main() -> int:
     ap.add_argument("--policies", type=int, default=10_000)
     ap.add_argument("--ports", action="store_true",
                     help="profile the port-bitmap engine instead")
+    ap.add_argument("--dense", action="store_true",
+                    help="profile the dense engine instead (default size 32,768 / 3,277)")
     args = ap.parse_args()
+    if args.dense and (args.pods, args.policies) == (100_000, 10_000):
+        args.pods, args.policies = 32_768, 3_277
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -89,8 +103,78 @@ def main() -> int:
         return profile_ports(cluster, smi)
     donor = kvt.random_cluster(kvt.GeneratorConfig(**{**gen, "n_pods": 2_000,
                                                       "n_policies": 64, "seed": 1}))
+    if args.dense:
+        return profile_dense(cluster, donor, smi)
     return profile_any_port(cluster, donor, smi)
 
+
+def profile_dense(cluster, donor, smi: str) -> int:
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch import incremental as inc
+
+    t = host_s(lambda: kvt.IncrementalVerifier(cluster))
+    eng = kvt.IncrementalVerifier(cluster)
+    n = len(eng.pods)
+    print(f"build: {t:.2f} s, second build " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in eng.build_timings.items())
+        + f"; {n} pods, {len(eng.policies)} policies", flush=True)
+    rng = np.random.default_rng(5)
+
+    # 1. host against device, per op kind
+    parts = {}
+    for i, p in enumerate(donor.policies[:8]):
+        p = dataclasses.replace(p, name=f"prof-{i}")
+        parts.setdefault("add_policy host", []).append(host_s(lambda: eng._policy_vectors(p)))
+        parts.setdefault("add_policy", []).append(host_s(lambda: eng.add_policy(p)))
+    pols = list(eng.policies.values())
+    for j in rng.choice(len(pols) - 8, 8, replace=False):
+        q = dataclasses.replace(pols[j], ingress=pols[j + 1].ingress)
+        parts.setdefault("update_policy host", []).append(host_s(lambda: eng._policy_vectors(q)))
+        parts.setdefault("update_policy", []).append(host_s(lambda: eng.update_policy(q)))
+    for i in rng.choice(n, 8, replace=False):
+        parts.setdefault("update_pod_labels", []).append(
+            host_s(lambda: eng.update_pod_labels(int(i), {"prof": "x"})))
+    for name, xs in parts.items():
+        print(f"op {name}: {med(xs)}", flush=True)
+
+    # 2. the device steps alone; a patch is applied and undone in each run,
+    # so the state stays as it was, and each time is per application
+    vecs = list(eng._vectors.values())
+    cells = [int(v[2].sum()) * int(v[0].sum()) + int(v[1].sum()) * int(v[3].sum())
+             for v in vecs]
+    order = np.argsort(cells, kind="stable")
+
+    def policy_op(v):
+        for sign in (1, -1):
+            inc._rank1_add(eng._ing_count, v[2], v[0], sign)
+            inc._rank1_add(eng._eg_count, v[1], v[3], sign)
+
+    d_row = rng.integers(-1, 2, n)
+    d_col = d_row.copy()
+    d_col[7] = 0  # the corner rides the row
+
+    def relabel():
+        for sign in (1, -1):
+            for c in (eng._ing_count, eng._eg_count):
+                inc._row_col_patch(c, 7, sign * d_row, sign * d_col)
+
+    ing_iso, eg_iso = eng._iso_tensors()
+    flags = dict(self_traffic=eng.config.self_traffic,
+                 default_allow_unselected=eng.config.default_allow_unselected)
+    mid, top = int(order[len(order) // 2]), int(order[-1])
+    for name, fn, per in (
+        (f"policy op, median policy ({cells[mid]} cells)", lambda: policy_op(vecs[mid]), 2),
+        (f"policy op, largest policy ({cells[top]} cells)", lambda: policy_op(vecs[top]), 2),
+        ("pod relabel (row + column of both matrices)", relabel, 2),
+        ("_derive_reach", lambda: inc._derive_reach(
+            eng._ing_count, eng._eg_count, ing_iso, eg_iso, **flags), 1),
+    ):
+        fn()
+        print(f"device {name}: {cuda_ms(fn, reps=3) / per:.3f} ms; {smi}", flush=True)
+    reach = inc._derive_reach(eng._ing_count, eng._eg_count, ing_iso, eg_iso, **flags)
+    print(f"reach D2H copy ({reach.numel() / 1e9:.2f} GB): "
+          f"{host_s(lambda: reach.cpu()) * 1e3:.1f} ms; {smi}", flush=True)
+    return 0
 
 def profile_any_port(cluster, donor, smi: str) -> int:
     import kubernetes_verification_tpu_torch as kvt

@@ -1,7 +1,8 @@
-"""The packed query twins (``ops/batched.py``), the device query state
-(``ops/device_state.py``) and the tombstone-aware ``PackedReach`` of the
-port, on the CPU, against the JAX package's on the same engines' states
-(exact: every output is boolean or integer words)."""
+"""The query twins (``ops/batched.py``: packed, dense and stripe), the device
+query state (``ops/device_state.py``: packed and dense) and the
+tombstone-aware ``PackedReach`` of the port, on the CPU, against the JAX
+package's on the same engines' states (exact: every output is boolean or
+integer words)."""
 import dataclasses
 
 import numpy as np
@@ -16,10 +17,11 @@ from kubernetes_verification_tpu.packed_incremental import (
     PackedIncrementalVerifier as JaxEngine,
 )
 from kubernetes_verification_tpu_torch.ops import batched
-from kubernetes_verification_tpu_torch.ops.bits import to_host_words
+from kubernetes_verification_tpu_torch.ops.bits import to_host_words, unpack_cols
 from kubernetes_verification_tpu_torch.ops.device_state import (
     DeviceQueryState,
     DeviceStateCache,
+    dense_query_state,
     packed_query_state,
 )
 from kubernetes_verification_tpu_torch.resilience.errors import ConfigError, ServeError
@@ -158,3 +160,147 @@ def test_packed_reach_active_matches_jax(on_device):
                           ingress_isolated=want.ingress_isolated,
                           egress_isolated=want.egress_isolated, active=want.active)
     assert got.all_reachable() == hand.all_reachable()
+
+
+# ------------------------------------------------------- dense and stripe twins
+
+_DENSE_FLAGS = [
+    dict(self_traffic=True, default_allow_unselected=True),
+    dict(self_traffic=False, default_allow_unselected=True),
+    dict(self_traffic=True, default_allow_unselected=False),
+]
+
+
+def _dense_engines(n_pods, seed):
+    from kubernetes_verification_tpu.incremental import IncrementalVerifier as JaxDense
+
+    c = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=n_pods, n_policies=12, n_namespaces=4, seed=seed,
+        p_ipblock_peer=0.0, min_selector_labels=1))
+    port = kvt.IncrementalVerifier(c, kvt.VerifyConfig(**_CFG), device="cpu")
+    jax_ = JaxDense(to_jax(c), jkv.VerifyConfig(**_CFG))
+    return port, jax_
+
+
+def _dense_state(engine):
+    return engine._ing_count, engine._eg_count, engine._ing_iso, engine._eg_iso
+
+
+@pytest.mark.parametrize("flags", _DENSE_FLAGS, ids=lambda f: "-".join(
+    k for k, v in f.items() if v))
+def test_dense_twins_match_jax(flags):
+    port, jax_ = _dense_engines(53, 41)
+    rng = np.random.default_rng(41)
+    n = 53
+    # a ragged batch (not a power of two), with repeats in the probes
+    src = np.unique(rng.integers(0, n, 11))
+    dst = np.array([0, n // 2, n - 1, 5, 5, 17, 33])
+    q_row = rng.integers(0, len(src), 37)
+    q_dst = rng.integers(0, n, 37)
+    calls = (
+        ("batched_reach_rows", (src,)),
+        ("batched_reach_cols", (dst,)),
+        ("batched_any_port", (src, q_row, q_dst)),
+        ("batched_reach_rows", ([],)),
+        ("batched_reach_cols", ([],)),
+        ("batched_any_port", ([], [], [])),
+    )
+    for name, args in calls:
+        got = getattr(batched, name)(*_dense_state(port), *args, **flags)
+        want = getattr(jax_batched, name)(*_dense_state(jax_), *args, **flags)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, w in zip(got, want):
+            assert (g.shape, g.dtype) == (w.shape, w.dtype), name
+            np.testing.assert_array_equal(g, w, err_msg=name)
+    if flags["self_traffic"] and flags["default_allow_unselected"]:  # the engine's flags
+        rows = batched.batched_reach_rows(*_dense_state(port), src, **flags)
+        np.testing.assert_array_equal(rows, port.reach[src])
+        cols = batched.batched_reach_cols(*_dense_state(port), dst, **flags)
+        np.testing.assert_array_equal(cols, port.reach[:, dst])
+
+
+@pytest.mark.parametrize("flags", _DENSE_FLAGS, ids=lambda f: "-".join(
+    k for k, v in f.items() if v))
+def test_stripe_twins_match_jax_and_reassemble_the_dense_answers(flags):
+    port, jax_ = _dense_engines(53, 43)
+    rng = np.random.default_rng(43)
+    n = 53
+    bounds = [(0, 16), (16, 32), (32, 48), (48, 53)]  # the last stripe ragged
+    dst = np.array([0, 7, 52, 16, 16, 31])
+    ing, eg, ing_iso, eg_iso = _dense_state(port)
+    jing, jeg, jing_iso, jeg_iso = _dense_state(jax_)
+    frags = []
+    for lo, hi in bounds:
+        loc = np.unique(rng.integers(0, hi - lo, 5))
+        q_row = rng.integers(0, len(loc), 9)
+        q_dst = rng.integers(0, n, 9)
+        kw = dict(row_base=lo, **flags)
+        for name, args in (("stripe_reach_rows", (loc,)),
+                           ("stripe_reach_cols", (dst,)),
+                           ("stripe_any_port", (loc, q_row, q_dst)),
+                           ("stripe_reach_rows", ([],)),
+                           ("stripe_reach_cols", ([],)),
+                           ("stripe_any_port", ([], [], []))):
+            got = getattr(batched, name)(ing[lo:hi], eg[lo:hi], ing_iso, eg_iso[lo:hi],
+                                         *args, **kw)
+            want = getattr(jax_batched, name)(jing[lo:hi], jeg[lo:hi], jing_iso,
+                                              jeg_iso[lo:hi], *args, **kw)
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            for g, w in zip(got, want):
+                assert (g.shape, g.dtype) == (w.shape, w.dtype), (name, lo)
+                np.testing.assert_array_equal(g, w, err_msg=f"{name} stripe {lo}")
+        # each stripe's rows equal the dense twin's at the global rows
+        rows = batched.stripe_reach_rows(ing[lo:hi], eg[lo:hi], ing_iso, eg_iso[lo:hi],
+                                         loc, **kw)
+        np.testing.assert_array_equal(
+            rows, batched.batched_reach_rows(ing, eg, ing_iso, eg_iso, loc + lo, **flags))
+        frags.append(batched.stripe_reach_cols(ing[lo:hi], eg[lo:hi], ing_iso,
+                                               eg_iso[lo:hi], dst, **kw))
+    np.testing.assert_array_equal(
+        np.concatenate(frags),
+        batched.batched_reach_cols(ing, eg, ing_iso, eg_iso, dst, **flags))
+
+
+def test_dense_twins_take_device_iso_vectors_without_a_copy():
+    port, _ = _dense_engines(40, 45)
+    state = dense_query_state(port, 3)
+    ing_iso = state.arrays["ing_iso"]
+    assert batched._as_iso(ing_iso, ing_iso.device) is ing_iso
+    flags = dict(self_traffic=True, default_allow_unselected=True)
+    src = [0, 39, 12]
+    np.testing.assert_array_equal(
+        batched.batched_reach_rows(state.arrays["ing_count"], state.arrays["eg_count"],
+                                   ing_iso, state.arrays["eg_iso"], src, **flags),
+        port.reach[src])
+
+
+def test_dense_query_state_aliases_counts_and_owns_iso_and_words():
+    from kubernetes_verification_tpu.ops.device_state import (
+        _dense_reach_words as jax_dense_words,
+    )
+
+    for n_pods in (40, 64, 97):  # ragged and whole word widths
+        port, jax_ = _dense_engines(n_pods, n_pods)
+        state = dense_query_state(port, 5, with_reach_words=True)
+        assert state.kind == "dense" and state.n == n_pods and state.generation == 5
+        assert state.owned == ("ing_iso", "eg_iso", "reach_words")
+        assert state.arrays["ing_count"] is port._ing_count
+        assert state.arrays["eg_count"] is port._eg_count
+        assert state.arrays["ing_iso"].dtype == torch.int32
+        np.testing.assert_array_equal(state.arrays["eg_iso"].numpy(), port._eg_iso)
+        assert state.meta["h2d_bytes"] == 2 * 4 * n_pods
+        want, _ = jax_dense_words(jax_)
+        got = to_host_words(state.arrays["reach_words"])
+        assert got.shape == np.asarray(want).shape
+        assert got.tobytes() == np.asarray(want).tobytes()
+        # the words stay this generation's; the aliased counts follow the engine
+        before = got.copy()
+        pol = next(iter(port.policies.values()))
+        port.remove_policy(pol.namespace, pol.name)
+        assert to_host_words(state.arrays["reach_words"]).tobytes() == before.tobytes()
+        assert state.arrays["ing_count"] is port._ing_count
+        fresh = dense_query_state(port, 6, with_reach_words=True)
+        np.testing.assert_array_equal(
+            unpack_cols(to_host_words(fresh.arrays["reach_words"]), n_pods),
+            port.reach)
+        assert dense_query_state(port, 7).owned == ("ing_iso", "eg_iso")

@@ -449,3 +449,55 @@ def test_ports_engine_on_card_matches_cpu(cuda_device):
     for e in engines.values():
         e.closure_packed()
     _same_ports_state(engines["cpu"].state_dict(), card.state_dict(), "closure")
+
+
+def test_dense_engine_on_card_matches_cpu(cuda_device):
+    """The dense engine on the card against the dense engine on the CPU:
+    the count matrices, isolation counts and reach equal after the build
+    and after every op; the query twins and the posture ops on the card
+    equal the CPU's on the same state."""
+    import dataclasses
+
+    from kubernetes_verification_tpu_torch.ops import batched, posture
+    from kubernetes_verification_tpu_torch.ops.device_state import dense_query_state
+
+    c = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=300, n_policies=30, n_namespaces=4, seed=12, p_ipblock_peer=0.0))
+    donor = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=300, n_policies=30, n_namespaces=4, seed=13, p_ipblock_peer=0.0))
+    cfg = kvt.VerifyConfig(compute_ports=False)
+    engines = {d: kvt.IncrementalVerifier(c, cfg, device=d) for d in ("cuda", "cpu")}
+    ops = [("add_policy", dataclasses.replace(donor.policies[i], name=f"x{i}")) for i in range(4)]
+    ops += [("update_policy", dataclasses.replace(c.policies[3], ingress=())),
+            ("remove_policy", c.policies[7].namespace, c.policies[7].name),
+            ("update_pod_labels", 17, {"app": "unseen"}),
+            ("update_pod_labels", 200, dict(c.pods[4].labels)),
+            ("update_namespace_labels", "ns1", dict(c.namespaces[2].labels))]
+    for op, *args in [("build",)] + ops:
+        for e in engines.values():
+            if op != "build":
+                getattr(e, op)(*args)
+        g, w = engines["cuda"], engines["cpu"]
+        assert torch.equal(g._ing_count.cpu(), w._ing_count), op
+        assert torch.equal(g._eg_count.cpu(), w._eg_count), op
+        assert np.array_equal(g._ing_iso, w._ing_iso) and np.array_equal(g._eg_iso, w._eg_iso)
+        assert np.array_equal(g.reach, w.reach), op
+    flags = dict(self_traffic=True, default_allow_unselected=True)
+    src, dst = [0, 5, 299, 17], [3, 3, 150]
+    states = {d: dense_query_state(e, 1, with_reach_words=True) for d, e in engines.items()}
+    for d, s in states.items():
+        a = s.arrays
+        rows = batched.batched_reach_rows(a["ing_count"], a["eg_count"], a["ing_iso"],
+                                          a["eg_iso"], src, **flags)
+        cols = batched.batched_reach_cols(a["ing_count"], a["eg_count"], a["ing_iso"],
+                                          a["eg_iso"], dst, **flags)
+        assert np.array_equal(rows, engines["cpu"].reach[src]), d
+        assert np.array_equal(cols, engines["cpu"].reach[:, dst]), d
+    g, w = (states[d].arrays["reach_words"] for d in ("cuda", "cpu"))
+    assert torch.equal(g.cpu(), w)
+    for got, want in zip(posture.packed_xor_popcount(g, g.flip(0)),
+                         posture.packed_xor_popcount(w, w.flip(0))):
+        assert torch.equal(got.cpu(), want)
+    counts = posture.packed_row_popcount(g)
+    assert torch.equal(posture.topk_changed_rows(counts, 8)[1].cpu(),
+                       posture.topk_changed_rows(counts.cpu(), 8)[1])

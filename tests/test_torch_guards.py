@@ -109,3 +109,70 @@ def test_new_entry_points_refuse_the_cpu_without_a_gpu(monkeypatch):
         kvt.verify(cluster, kvt.VerifyConfig(compute_ports=False, closure=True))
     cpu = kvt.VerifyConfig(backend_options=(("device", "cpu"),), closure=True)
     assert kvt.verify_kano(containers, policies, cpu).closure.shape == (8, 8)
+
+
+def test_importing_the_port_loads_no_yaml():
+    """The card's machine has no PyYAML: importing the package and every
+    module of this slice (ingest and persist included, which import PyYAML
+    only inside the functions that read or write YAML) loads neither JAX
+    nor ``yaml``."""
+    code = (
+        "import sys, kubernetes_verification_tpu_torch as k; "
+        "import kubernetes_verification_tpu_torch.backends.cpu, "
+        "kubernetes_verification_tpu_torch.backends.device, "
+        "kubernetes_verification_tpu_torch.incremental, "
+        "kubernetes_verification_tpu_torch.ops.batched, "
+        "kubernetes_verification_tpu_torch.ops.device_state, "
+        "kubernetes_verification_tpu_torch.ops.posture, "
+        "kubernetes_verification_tpu_torch.models.fixtures, "
+        "kubernetes_verification_tpu_torch.ingest, "
+        "kubernetes_verification_tpu_torch.utils.persist; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('yaml', '_yaml', 'jax', 'jaxlib', 'kubernetes_verification_tpu')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=_ROOT, capture_output=True, text=True
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_dense_engine_posture_and_checkpoints_refuse_the_cpu_without_a_gpu(
+    monkeypatch, tmp_path
+):
+    """The dense engine, the checkpoint loaders and the posture ops on host
+    words default to ``cuda`` too: they raise without a GPU and run on the
+    CPU when asked (a ``device="cpu"`` or CPU tensors). The CPU oracle is
+    host NumPy and needs no device."""
+    import numpy as np
+
+    from kubernetes_verification_tpu_torch.ops import posture
+    from kubernetes_verification_tpu_torch.utils import persist
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(seed=4, n_pods=20, n_policies=4))
+    any_port = kvt.VerifyConfig(compute_ports=False)
+    persist.save_incremental(
+        kvt.IncrementalVerifier(cluster, any_port, device="cpu"), str(tmp_path / "d"))
+    persist.save_packed_incremental(
+        kvt.PackedIncrementalVerifier(cluster, any_port, device="cpu"), str(tmp_path / "p"))
+    persist.save_ports_incremental(
+        kvt.PackedPortsIncrementalVerifier(cluster, device="cpu"), str(tmp_path / "q"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    words = np.zeros((32, 1), np.uint32)
+    calls = [
+        lambda **d: kvt.IncrementalVerifier(cluster, **d),
+        lambda **d: persist.load_incremental(str(tmp_path / "d"), **d),
+        lambda **d: persist.load_packed_incremental(str(tmp_path / "p"), **d),
+        lambda **d: persist.load_ports_incremental(str(tmp_path / "q"), **d),
+    ]
+    for call in calls:
+        with pytest.raises(BackendError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+    for op in (lambda w: posture.packed_xor_popcount(w, w),
+               posture.packed_row_popcount,
+               lambda w: posture.ns_pair_counts(w, words[:1, :1].T, np.zeros(32, int), 1)):
+        with pytest.raises(BackendError, match="no CUDA device"):
+            op(words)
+        op(torch.zeros((32, 1), dtype=torch.int32))
+    assert kvt.verify(cluster, kvt.VerifyConfig(backend="cpu")).reach.shape == (20, 20)
