@@ -131,7 +131,46 @@ Phases; any failure exits non-zero before a result line is printed:
 21. the CPU oracle (``verify(backend="cpu")``, host NumPy) against
     ``verify(backend="torch")`` on the card at phase 8's size (any-port)
     and at 500 pods with port semantics, and the paper fixtures'
-    documented answers on both backends.
+    documented answers on both backends;
+22. (run right after phase 20) the serving plane at the flagship: a
+    ``VerificationService`` on ``PackedIncrementalVerifier(keep_matrix=
+    True)`` built on phase 4's cluster (counts set to 0 first:
+    ``packed_dir_allow`` exactly twice, its words == phase 4's), posture on,
+    4 allow/deny assertions; ``random_event_stream(n_events=256, seed=1)``
+    less the relabels of namespaces that hold pods (each costs ~265 s of
+    host evaluation at this size), written ahead to a ``WalWriter`` log and
+    fed in batches of 64 through ``start()`` / ``submit()`` / ``flush()``,
+    each under ``torch.profiler`` for the device busy time. After each
+    batch: the posture record == the host's diff of the words before and
+    after; ``can_reach_batch`` on 4,096 probes of ``bench.py --mode
+    query``'s mix, its any-port answers == the words unpacked on the host,
+    its first 64 == scalar ``can_reach``; ``who_can_reach`` /
+    ``blast_radius`` of 16 pods == a column / row of the words. After the
+    stream: the live words == a one-shot ``tiled_k8s_reach`` of
+    ``as_cluster()``; a ``CheckpointManager.checkpoint``, 64 more events,
+    and ``RecoveryManager.recover`` == the live words (no duplicates).
+    ``svc.reach()`` is never asked for (a 10 GB host matrix here);
+23. the dense ``VerificationService`` at phase 18's size: no hand-written
+    launch in its build; 128 events (the same cut) in batches of 64 through
+    the worker; after each, ``reach`` == a one-shot solve of
+    ``as_cluster()``, the assertions' verdicts (the batched row gather) ==
+    the host's on that solve, 4,096 probes == it; ``what_if`` with an add,
+    an update, a remove and a deny-all: its diff == a one-shot solve of the
+    cluster with the candidates applied, the assertion it breaks reported,
+    the engine's count matrices byte-equal before and after;
+24. the dense and packed services on the card against the same two on the
+    CPU at phase 8's size (posture and assertions on), over
+    ``random_event_stream(n_events=500, p_resync=0.01, seed=24)`` (every
+    event kind): after each batch of 50, ``reach``, the packed words,
+    ``can_reach_batch`` (512 probes), the posture records, the violations
+    and ``ServeStats`` equal; then three ``BackendError``s forced into the
+    card's dense engine: each reaches the caller (a service on the card
+    never answers from the host), the breaker opens and fails fast with
+    kind ``"breaker_open"`` without running the engine, and past the
+    cooldown one probe on the card closes it with ``reach`` == the CPU
+    engine's. In phases 22–24 ``kvtpu_fallbacks_total`` reads 0, no
+    ``"fallback"`` solve is counted and, outside the forced errors, the
+    breaker stays closed.
 
 Phases 9–13 launch neither hand-written kernel (their int8 products are
 ``torch._int_mm`` calls, as the JAX package leaves them to XLA): the counts
@@ -141,13 +180,16 @@ are set to 0 before each and must read 0 after; phases 14–15 launch
 ``torch._int_mm`` calls, as the JAX engines' are XLA dots). Phases 18–21
 launch neither in the dense engine, the posture ops or the oracle (no TPU
 kernel is on their path); phase 18's two one-shot checks launch
-``packed_dir_allow`` twice each. Each phase prints its seconds and its peak
-device memory.
+``packed_dir_allow`` twice each. Phase 22 launches ``packed_dir_allow`` in
+its service's build (exactly twice) and its one-shot check; phases 23–24
+launch ``fused_ports_reach`` never (the dense service's contraction is a
+``bool_dot``). Each phase prints its seconds and its peak device memory.
 
 The second-to-last line is the kernel table as JSON (each kernel's row
 carries its engine build's launches, phase 14's and phase 16's, as
 ``engine_build_launches``, and ``packed_dir_allow``'s its launches in phase
-18's checks as ``dense_check_launches``); the last is
+18's checks as ``dense_check_launches`` and in phase 22's service build as
+``serve_build_launches``); the last is
 ``{"ok": true, "device": {...}}``. Tolerance everywhere: exact (every output
 is boolean or integer words).
 """
@@ -1305,6 +1347,31 @@ def _diff_stream(eng, cluster, donor, rng, lat: dict) -> None:
         "smoke-ns", dict(cluster.namespaces[7].labels)))
 
 
+def live_vs_one_shot(eng, dev, tag: str) -> None:
+    """A packed engine's live rows x live columns against a one-shot
+    ``tiled_k8s_reach`` of its ``as_cluster()`` (2 ``packed_dir_allow``
+    launches), bit for bit, 4,096 rows at a time."""
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.ops.bits import unpack_words_i8
+
+    t0 = time.perf_counter()
+    live = eng.as_cluster()
+    enc = kvt.encode_cluster(live, compute_ports=False)
+    one = kvt.tiled_k8s_reach(enc, fetch=False, device=dev)
+    log(f"{tag}: one-shot re-solve of the mutated cluster ({enc.n_pods} pods, "
+        f"{enc.n_policies} policies) {time.perf_counter() - t0:.2f} s")
+    act = torch.as_tensor(eng.active_indices(), device=dev)
+    n_live = act.shape[0]
+    for r0 in range(0, n_live, 4096):
+        rows = act[r0 : r0 + 4096]
+        mine = unpack_words_i8(eng._packed[rows], eng._n_padded)[:, act]
+        theirs = unpack_words_i8(one.packed[r0 : r0 + 4096], one.packed.shape[1] * 32)
+        if not (torch.equal(mine, theirs[:, :n_live]) and not theirs[:, n_live:].any()):
+            fail(f"{tag}: live rows {r0}.. differ from the one-shot solve of as_cluster()")
+    log(f"{tag}: live rows x live columns ({n_live} x {n_live}) == the one-shot "
+        f"solve of as_cluster(), bit for bit")
+
+
 def engine_phase(cluster, main_words, dev, smi: str) -> tuple:
     """Phase 14: the serving engine at full width on phase 4's cluster.
     Returns the build's ``packed_dir_allow`` launches and the engine (phase
@@ -1315,7 +1382,7 @@ def engine_phase(cluster, main_words, dev, smi: str) -> tuple:
 
     import kubernetes_verification_tpu_torch as kvt
     from kubernetes_verification_tpu_torch.ops.batched import packed_any_port
-    from kubernetes_verification_tpu_torch.ops.bits import to_host_words, unpack_words_i8
+    from kubernetes_verification_tpu_torch.ops.bits import to_host_words
 
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
@@ -1359,23 +1426,7 @@ def engine_phase(cluster, main_words, dev, smi: str) -> tuple:
         f"{len(eng._vectorizer.dirty)} label-drifted pods")
 
     # an independent one-shot solve of the mutated cluster
-    t0 = time.perf_counter()
-    live = eng.as_cluster()
-    enc = kvt.encode_cluster(live, compute_ports=False)
-    one = kvt.tiled_k8s_reach(enc, fetch=False, device=dev)
-    log(f"engine: one-shot re-solve of the mutated cluster ({enc.n_pods} pods, "
-        f"{enc.n_policies} policies) {time.perf_counter() - t0:.2f} s")
-    act = torch.as_tensor(eng.active_indices(), device=dev)
-    n_live = act.shape[0]
-    for r0 in range(0, n_live, 4096):
-        rows = act[r0 : r0 + 4096]
-        mine = unpack_words_i8(eng._packed[rows], Np)[:, act]
-        theirs = unpack_words_i8(one.packed[r0 : r0 + 4096], one.packed.shape[1] * 32)
-        if not (torch.equal(mine, theirs[:, :n_live]) and not theirs[:, n_live:].any()):
-            fail(f"engine: live rows {r0}.. differ from the one-shot solve of as_cluster()")
-    log(f"engine: live rows x live columns ({n_live} x {n_live}) == the one-shot "
-        f"solve of as_cluster(), bit for bit")
-    del one, enc
+    live_vs_one_shot(eng, dev, "engine")
     sample = np.sort(rng.choice(eng.active_indices(), 1024, replace=False))
     t0 = time.perf_counter()
     got = eng.solve_rows(sample)
@@ -2323,6 +2374,677 @@ def cpu_oracle_phase(dev) -> None:
         "nginx -> db never) as documented, on the cpu backend and on the card")
 
 
+# ---------------------------------------------------------------------------
+# phases 22-24: the serving plane
+# ---------------------------------------------------------------------------
+
+#: events per batch of the served streams of phases 22 and 23
+SERVE_BATCH = 64
+#: events appended after phase 22's checkpoint, replayed by its recovery
+SERVE_TAIL = 64
+#: phases 22-24's key numbers, repeated on one line near the end of the
+#: output so that they stand in its last lines beside the kernel table
+SERVE_SUMMARY: list = []
+
+
+def fallbacks() -> float:
+    """The port's ``kvtpu_fallbacks_total``, summed over its labels: every
+    answer its serving plane took from the CPU fallback in this process."""
+    from kubernetes_verification_tpu_torch.observe.metrics import FALLBACKS_TOTAL
+
+    return sum(c.value for c in FALLBACKS_TOTAL.children().values())
+
+
+def no_fallback(svc, tag: str) -> None:
+    """Every answer came from the card: ``kvtpu_fallbacks_total`` reads 0,
+    no ``"fallback"`` solve was counted, the serving breaker is closed."""
+    if fallbacks() != 0 or "fallback" in svc.stats.solves:
+        fail(f"{tag}: an answer came from the CPU fallback (kvtpu_fallbacks_total "
+             f"{fallbacks()}, solves {svc.stats.solves})")
+    if svc._breaker is not None and svc._breaker.state != "closed":
+        fail(f"{tag}: the serving breaker is {svc._breaker.state}")
+
+
+def cut_populated_relabels(events, cluster) -> tuple:
+    """``events`` without the relabels of namespaces that hold pods (each
+    re-evaluates every pod of the namespace on the host, ~265 s at the
+    flagship); returns ``(kept, number cut)``. The stream's other events
+    stay valid: a namespace's labels name no pod or policy."""
+    from kubernetes_verification_tpu_torch.serve import UpdateNamespaceLabels
+
+    populated = {p.namespace for p in cluster.pods}
+    kept = [e for e in events
+            if not (isinstance(e, UpdateNamespaceLabels) and e.namespace in populated)]
+    return kept, len(events) - len(kept)
+
+
+def serve_assertions(cluster, rng, k: int = 4) -> list:
+    """``k`` allow/deny assertions over existing selectors: the namespace
+    and two labels of a sampled pod (tens of pods at the flagship) to every
+    pod of one namespace."""
+    from kubernetes_verification_tpu_torch.serve import Assertion, PodSelector
+
+    names = [ns.name for ns in cluster.namespaces]
+    out = []
+    for j, i in enumerate(rng.choice(len(cluster.pods), k, replace=False)):
+        p = cluster.pods[int(i)]
+        labels = tuple(sorted(p.labels.items()))[:2]
+        out.append(Assertion(f"smoke-{j}", "deny" if j % 2 else "allow",
+                             PodSelector(namespace=p.namespace, labels=labels),
+                             PodSelector(namespace=names[(7 * j + 3) % len(names)])))
+    return out
+
+
+def host_violations(assertions, reach, pods) -> list:
+    """The assertions' verdicts on a host reach matrix, evaluated here from
+    the model objects: ``(name, kind, pairs, witness src, witness dst)`` per
+    violated assertion, the witness the first violating pair in row-major
+    order, self pairs ignored."""
+    import numpy as np
+
+    def picks(sel):
+        return np.array([i for i, p in enumerate(pods)
+                         if (sel.namespace is None or p.namespace == sel.namespace)
+                         and (sel.name is None or p.name == sel.name)
+                         and all(p.labels.get(k) == v for k, v in sel.labels)], dtype=np.int64)
+
+    out = []
+    for a in assertions:
+        src, dst = picks(a.src), picks(a.dst)
+        if not (src.size and dst.size):
+            continue
+        sub = reach[np.ix_(src, dst)]
+        bad = ~sub if a.kind == "allow" else sub.copy()
+        if a.ignore_self:
+            bad &= src[:, None] != dst[None, :]
+        si, di = np.nonzero(bad)
+        if si.size:
+            ps, pd = pods[int(src[si[0]])], pods[int(dst[di[0]])]
+            out.append((a.name, a.kind, int(si.size), f"{ps.namespace}/{ps.name}",
+                        f"{pd.namespace}/{pd.name}"))
+    return out
+
+
+def violation_rows(violations) -> list:
+    return [(v.assertion, v.kind, v.pairs, v.witness_src, v.witness_dst) for v in violations]
+
+
+def query_mix(pods, batch: int, count: int = 4096) -> tuple:
+    """``bench.py --mode query``'s probe mix over ``pods``: 95 % any-port
+    probes whose sources follow an 80/20 hot-set skew (512 hot sources),
+    5 % port-refined probes on 16 hot (src, dst) pairs x 3 ports. Returns
+    ``(probes, src, dst, ported)``."""
+    import numpy as np
+
+    n = len(pods)
+    rng = np.random.default_rng(7)
+    hot = rng.integers(0, n, (16, 2))
+    hot_ports = (80, 443, 5432)
+    hot_src = rng.integers(0, n, min(512, n))
+    rs = np.random.default_rng(1000 + batch)
+    src = np.empty(count, np.int64)
+    dst = np.empty(count, np.int64)
+    ported = np.zeros(count, bool)
+    probes = []
+    ref = lambda i: f"{pods[i].namespace}/{pods[i].name}"
+    for k in range(count):
+        if rs.random() < 0.05:
+            s, d = (int(x) for x in hot[int(rs.integers(len(hot)))])
+            probes.append((ref(s), ref(d), int(rs.choice(hot_ports)), "TCP"))
+            ported[k] = True
+        else:
+            s = int(hot_src[int(rs.integers(hot_src.size))]) if rs.random() < 0.8 \
+                else int(rs.integers(n))
+            d = int(rs.integers(n))
+            probes.append((ref(s), ref(d)))
+        src[k], dst[k] = s, d
+    return probes, src, dst, ported
+
+
+def host_diff_counts(prev, cur) -> tuple:
+    """``(widened, narrowed, set)``: the bits set in ``cur`` and not in
+    ``prev``, the converse, and the bits set in ``cur``, of two host uint32
+    word planes, counted on the host 4,096 rows at a time by 8 threads
+    (numpy's ufuncs release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    table = None if hasattr(np, "bitwise_count") else np.array(
+        [bin(i).count("1") for i in range(256)], dtype=np.uint8)
+
+    def count(x) -> int:
+        return int((np.bitwise_count(x) if table is None
+                    else table[x.view(np.uint8)]).sum(dtype=np.int64))
+
+    def block(r0: int) -> tuple:
+        p, c = prev[r0 : r0 + 4096], cur[r0 : r0 + 4096]
+        x = p ^ c
+        return count(x & c), count(x & p), count(c)
+
+    with ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(block, range(0, cur.shape[0], 4096)))
+    return tuple(sum(col) for col in zip(*parts))
+
+
+def host_first_cells(mask, k: int) -> list:
+    """The first ``k`` set ``(row, col)`` cells of a host bool matrix in
+    row-major order, and their count: ``(cells, count)``."""
+    import numpy as np
+
+    cells = []
+    for r in np.flatnonzero(mask.any(axis=1)):
+        cells += [(int(r), int(c)) for c in np.flatnonzero(mask[r])[: k - len(cells)]]
+        if len(cells) >= k:
+            break
+    return cells, int(np.count_nonzero(mask))
+
+
+def device_profiler():
+    """A ``torch.profiler`` session that records device activity only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def device_busy_ms(prof):
+    """Milliseconds of device activity (kernels and copies; one stream, so
+    they do not overlap) a session recorded; None when it recorded none."""
+    from torch.autograd import DeviceType
+
+    try:
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+    except Exception as e:  # noqa: BLE001 — the profiler is untried on this card
+        log(f"  device profiler: no events ({type(e).__name__}: {e})")
+        return None
+    return sum(spans) / 1e3 if spans else None
+
+
+def idle_share(busy_ms, wall_s) -> str:
+    if any(b is None for b in busy_ms):
+        return "not measured (the profiler recorded no device activity)"
+    busy = sum(busy_ms) / 1e3
+    return f"{1 - busy / sum(wall_s):.3f} ({busy:.2f} s device-busy of {sum(wall_s):.2f} s)"
+
+
+def serve_packed_phase(cluster, main_words, dev, smi: str) -> int:
+    """Phase 22: the packed service on the flagship cluster. Returns the
+    build's ``packed_dir_allow`` launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.harness.generate import random_event_stream
+    from kubernetes_verification_tpu_torch.ops.bits import unpack_cols
+    from kubernetes_verification_tpu_torch.packed_incremental import _host_words
+    from kubernetes_verification_tpu_torch.serve import (
+        CheckpointManager,
+        QueryEngine,
+        RecoveryManager,
+        VerificationService,
+        WalWriter,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    svc = VerificationService(
+        engine=kvt.PackedIncrementalVerifier(cluster, device=dev, keep_matrix=True))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches = launch_counts()
+    eng = svc.engine
+    n = eng.n_pods
+    log(f"serve packed: build {build_s:.2f} s (" + ", ".join(
+        f"{k} {v:.2f} s" for k, v in eng.build_timings.items())
+        + f"), packed_dir_allow launches {launches[0]}, fused_ports_reach launches "
+        f"{launches[1]}; {smi}")
+    if launches != (2, 0):
+        fail(f"serve packed: the build launched {launches}, not (2, 0)")
+    w = -(-n // 32)
+    if not torch.equal(eng._packed[:n, :w], main_words[:, :w]):
+        fail("serve packed: the build's words differ from phase 4's")
+    t0 = time.perf_counter()
+    svc.enable_posture()
+    torch.cuda.synchronize()
+    posture_s = time.perf_counter() - t0
+    rng = np.random.default_rng(22)
+    svc.assertions = serve_assertions(cluster, rng)
+    q = QueryEngine(svc)
+    events = random_event_stream(cluster, n_events=256 + 2 * SERVE_TAIL, seed=1)
+    stream, cut = cut_populated_relabels(events[:256], cluster)
+    tail = cut_populated_relabels(events[256:], cluster)[0][:SERVE_TAIL]
+    refs = [f"{p.namespace}/{p.name}" for p in eng.pods]
+    host_prev = _host_words(eng._packed)
+    if svc.posture.records[-1].reachable_pairs != host_diff_counts(host_prev, host_prev)[2]:
+        fail("serve packed: the posture baseline differs from the host's popcount")
+    log(f"serve packed: enable_posture {posture_s:.2f} s (baseline "
+        f"{svc.posture.records[-1].reachable_pairs} pairs); {len(svc.assertions)} "
+        f"assertions; stream of {len(stream)} events ({cut} relabels of populated "
+        f"namespaces cut from random_event_stream(n_events=256, seed=1))")
+
+    tmp = tempfile.TemporaryDirectory(prefix="kvt-serve-")
+    log_path = os.path.join(tmp.name, "events.jsonl")
+    writer = WalWriter(log_path)
+    apply_s, busy, q_s, rec_s, check_s, split_s = [], [], [], [], [], []
+    svc.start()
+    try:
+        for b, i in enumerate(range(0, len(stream), SERVE_BATCH)):
+            batch = stream[i : i + SERVE_BATCH]
+            writer.append(batch)
+            r0 = len(svc.posture.records)
+            with device_profiler() as prof:
+                t0 = time.perf_counter()
+                svc.submit(batch)
+                svc.flush()
+                torch.cuda.synchronize()
+                apply_s.append(time.perf_counter() - t0)
+            busy.append(device_busy_ms(prof))
+            recs = list(svc.posture.records)[r0:]
+            rec = recs[-1]
+            rec_s.append(sum(r.delta_s for r in recs))
+            t0 = time.perf_counter()
+            host = _host_words(eng._packed)
+            widened, narrowed, total = host_diff_counts(host_prev, host)
+            if len(recs) == 1:  # the worker applied the submission as one batch
+                got = (rec.seq, rec.widened, rec.narrowed, rec.reachable_pairs)
+                want = (svc.generation, widened, narrowed, total)
+            else:  # drained in parts: the records' movement telescopes
+                got = (rec.seq, sum(r.widened - r.narrowed for r in recs), rec.reachable_pairs)
+                want = (svc.generation, widened - narrowed, total)
+            if got != want:
+                fail(f"serve packed: batch {b} posture records {got} != the host's diff {want}")
+            t_diff = time.perf_counter()
+            probes, s_idx, d_idx, ported = query_mix(eng.pods, b)
+            t1 = time.perf_counter()
+            ans = q.can_reach_batch(probes)
+            q_s.append(time.perf_counter() - t1)
+            bits = ((host[s_idx, d_idx // 32] >> (d_idx % 32).astype(np.uint32)) & 1) > 0
+            if not np.array_equal(ans[~ported], bits[~ported]):
+                fail(f"serve packed: batch {b} any-port answers differ from the words")
+            # 16 port-refined answers a batch (64 in the stream), and 16
+            # any-port ones, against scalar can_reach
+            picks = list(np.flatnonzero(ported)[:16]) + list(np.flatnonzero(~ported)[:16])
+            if [q.can_reach(*probes[k]) for k in picks] != [bool(ans[k]) for k in picks]:
+                fail(f"serve packed: batch {b} scalar can_reach differs from the batch")
+            t_probes = time.perf_counter()
+            for k in rng.choice(n, 16, replace=False):
+                k = int(k)
+                row = unpack_cols(host[k : k + 1], n)[0]
+                col = ((host[:n, k // 32] >> np.uint32(k % 32)) & 1) > 0
+                row[k] = col[k] = False
+                if q.blast_radius(refs[k]) != [refs[j] for j in np.flatnonzero(row)]:
+                    fail(f"serve packed: blast_radius({refs[k]}) differs from its word row")
+                if q.who_can_reach(refs[k]) != [refs[j] for j in np.flatnonzero(col)]:
+                    fail(f"serve packed: who_can_reach({refs[k]}) differs from its column")
+            check_s.append(time.perf_counter() - t0)
+            split_s.append((t_diff - t0, t_probes - t_diff - q_s[-1],
+                            t0 + check_s[-1] - t_probes))
+            log(f"serve packed: batch {b}: apply {apply_s[-1]:.2f} s in {len(recs)} "
+                f"worker batch(es) (device busy "
+                + ("not measured" if busy[-1] is None else f"{busy[-1]:.1f} ms")
+                + f", posture record {rec_s[-1] * 1e3:.1f} ms: "
+                f"+{sum(r.widened for r in recs)} -{sum(r.narrowed for r in recs)} of "
+                f"{rec.reachable_pairs} pairs), checks {check_s[-1]:.2f} s (host words and "
+                f"diff {split_s[-1][0]:.2f} s, probe mix, answer checks and scalar can_reach "
+                f"{split_s[-1][1]:.2f} s, "
+                f"16 rows and columns {split_s[-1][2]:.2f} s), can_reach_batch "
+                f"4,096 probes ({int(ported.sum())} ported) {q_s[-1] * 1e3:.1f} ms; the "
+                f"record, the any-port answers and 16 rows and columns == the words, "
+                f"16 ported and 16 any-port answers == scalar can_reach")
+            host_prev = host
+    finally:
+        svc.close()
+    del host_prev, host
+    st = svc.stats
+    n_ev = st.events_seen
+    split = ("device not measured" if None in busy else
+             "host " + ", ".join(f"{a - d / 1e3:.2f}" for a, d in zip(apply_s, busy))
+             + " s, device " + ", ".join(f"{d / 1e3:.3f}" for d in busy) + " s")
+    log(f"serve packed: {n_ev} events in {st.batches} batches ({st.events_applied} applied, "
+        f"{st.events_coalesced} coalesced), {sum(apply_s):.2f} s of apply = "
+        f"{n_ev / sum(apply_s):.1f} events/s; apply per batch "
+        + ", ".join(f"{a:.2f}" for a in apply_s) + f" s ({split}); "
+        f"solves {st.solves} ({n_ev / max(st.total_solves, 1):.1f} events per solve), "
+        f"query batch median {statistics.median(q_s) * 1e3:.1f} ms, posture record median "
+        f"{statistics.median(rec_s) * 1e3:.1f} ms; device idle share of the stream "
+        f"{idle_share(busy, apply_s)}; {smi}")
+    no_fallback(svc, "serve packed")
+
+    reset_counts()
+    live_vs_one_shot(eng, dev, "serve packed")
+    cm = CheckpointManager(os.path.join(tmp.name, "ck"))
+    t0 = time.perf_counter()
+    info = cm.checkpoint(eng, log_path=log_path, log_offset=writer.offset,
+                         last_seq=writer.next_seq - 1)
+    ck_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(info.snapshot_dir) for f in fs)
+    writer.append(tail)
+    writer.close()
+    svc.apply(tail)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = RecoveryManager(os.path.join(tmp.name, "ck")).recover(log_path=log_path, device=dev)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    if (res.outcome, res.replayed, res.duplicates_skipped) != ("newest", len(tail), 0):
+        fail(f"serve packed: recovery {res.outcome}, replayed {res.replayed}, "
+             f"{res.duplicates_skipped} duplicates")
+    if not (torch.equal(res.service.engine._packed, eng._packed)
+            and np.array_equal(res.service.engine.pod_active, eng.pod_active)):
+        fail("serve packed: the recovered words differ from the live service's")
+    no_fallback(res.service, "serve packed recovery")
+    log(f"serve packed: checkpoint {ck_s:.2f} s ({size / 2**30:.2f} GiB on disk), "
+        f"{len(tail)} more events, recover {recover_s:.2f} s (outcome newest, "
+        f"{res.replayed} replayed, 0 duplicates): words == the live service's; "
+        f"the one-shot check launched packed_dir_allow {launch_counts()[0]} times")
+    del res
+    tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"serve packed: {phase_s:.2f} s, peak device memory {peak:.2f} GiB; {smi}")
+    SERVE_SUMMARY.append(
+        f"phase 22 packed service at {n} pods: build {build_s:.2f} s ({launches[0]} "
+        f"packed_dir_allow launches), {n_ev / sum(apply_s):.1f} events/s, apply per batch "
+        + ", ".join(f"{a:.2f}" for a in apply_s) + f" s, idle share {idle_share(busy, apply_s)}, "
+        f"query batch median {statistics.median(q_s) * 1e3:.1f} ms, posture record median "
+        f"{statistics.median(rec_s) * 1e3:.1f} ms, checks per batch "
+        + ", ".join(f"{c:.2f}" for c in check_s) + f" s, checkpoint {ck_s:.2f} s "
+        f"({size / 2**30:.2f} GiB), recover {recover_s:.2f} s, {phase_s:.2f} s, peak {peak:.2f} GiB")
+    return launches[0]
+
+
+def serve_dense_phase(dev, smi: str) -> None:
+    """Phase 23: the dense service at phase 18's size."""
+    import dataclasses
+
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.harness.generate import random_event_stream
+    from kubernetes_verification_tpu_torch.serve import (
+        AddPolicy,
+        Assertion,
+        PodSelector,
+        QueryEngine,
+        RemovePolicy,
+        UpdatePolicy,
+        VerificationService,
+        check_assertions,
+    )
+
+    t_phase = time.perf_counter()
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(**DENSE))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    svc = VerificationService(cluster, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if launch_counts() != (0, 0):
+        fail(f"serve dense: the build launched a hand-written kernel: {launch_counts()}")
+    eng = svc.engine
+    pods = eng.pods
+    rng = np.random.default_rng(23)
+    svc.assertions = serve_assertions(cluster, rng)
+    q = QueryEngine(svc)
+    stream, cut = cut_populated_relabels(random_event_stream(cluster, n_events=128, seed=2),
+                                         cluster)
+    log(f"serve dense: build {build_s:.2f} s, no hand-written kernel launched; stream of "
+        f"{len(stream)} events ({cut} relabels of populated namespaces cut)")
+    lat = {"apply": [], "reach": [], "query": []}
+    svc.start()
+    try:
+        for b, i in enumerate(range(0, len(stream), SERVE_BATCH)):
+            t0 = time.perf_counter()
+            svc.submit(stream[i : i + SERVE_BATCH])
+            svc.flush()
+            torch.cuda.synchronize()
+            lat["apply"].append(time.perf_counter() - t0)
+            found = check_assertions(svc, svc.assertions)  # the batched row gather
+            t0 = time.perf_counter()
+            reach = svc.reach()
+            lat["reach"].append(time.perf_counter() - t0)
+            one, one_s = _dense_one_shot(eng.as_cluster(), dev)
+            if not np.array_equal(reach, one):
+                fail(f"serve dense: batch {b} reach differs from a one-shot solve")
+            if violation_rows(found) != host_violations(svc.assertions, one, pods):
+                fail(f"serve dense: batch {b} assertion verdicts differ from the host's")
+            probes, s_idx, d_idx, ported = query_mix(pods, b)
+            t0 = time.perf_counter()
+            ans = q.can_reach_batch(probes)
+            lat["query"].append(time.perf_counter() - t0)
+            if not np.array_equal(ans[~ported], one[s_idx, d_idx][~ported]):
+                fail(f"serve dense: batch {b} any-port answers differ from the one-shot solve")
+            log(f"serve dense: batch {b}: apply {lat['apply'][-1]:.2f} s, reach "
+                f"{lat['reach'][-1]:.2f} s, can_reach_batch 4,096 probes "
+                f"{lat['query'][-1] * 1e3:.1f} ms; reach == one-shot ({one_s:.2f} s), "
+                f"{len(found)} violated assertions == the host's verdicts")
+    finally:
+        svc.close()
+    no_fallback(svc, "serve dense")
+
+    # what-if: an add, an update, a remove, and a deny-all that breaks an
+    # assertion which holds now
+    pols = list(eng.policies.values())
+    donor = kvt.random_cluster(kvt.GeneratorConfig(**{**DENSE, "n_pods": 2_000,
+                                                      "n_policies": 64, "seed": 3}))
+    victim = pods[int(rng.integers(len(pods)))].namespace
+    cands = [
+        AddPolicy(policy=dataclasses.replace(donor.policies[0], name="wi-add",
+                                             namespace=pols[5].namespace)),
+        UpdatePolicy(policy=dataclasses.replace(pols[1], ingress=pols[2].ingress,
+                                                egress=pols[2].egress)),
+        RemovePolicy(namespace=pols[0].namespace, name=pols[0].name),
+        AddPolicy(policy=kvt.NetworkPolicy("wi-deny-all", namespace=victim,
+                                           pod_selector=kvt.Selector(), ingress=(),
+                                           policy_types=("Ingress",))),
+    ]
+    by_key = {f"{p.namespace}/{p.name}": p for p in eng.as_cluster().policies}
+    for ev in cands:
+        if isinstance(ev, RemovePolicy):
+            del by_key[f"{ev.namespace}/{ev.name}"]
+        else:
+            by_key[f"{ev.policy.namespace}/{ev.policy.name}"] = ev.policy
+    after, _ = _dense_one_shot(dataclasses.replace(eng.as_cluster(),
+                                                   policies=list(by_key.values())), dev)
+    before = svc.reach()
+    lost = before & ~after
+    np.fill_diagonal(lost, False)
+    first = host_first_cells(lost, 1)[0]
+    if not first:
+        fail("serve dense: the what-if candidates remove no pair")
+    del lost
+    s, d = (pods[x] for x in first[0])
+    keep = Assertion("keep", "allow", PodSelector(namespace=s.namespace, name=s.name),
+                     PodSelector(namespace=d.namespace, name=d.name))
+    counts = (eng._ing_count.clone(), eng._eg_count.clone())
+    iso = (eng._ing_iso.copy(), eng._eg_iso.copy(), eng.update_count, svc.generation)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = q.what_if(cands, assertions=[keep])
+    torch.cuda.synchronize()
+    wi_s = time.perf_counter() - t0
+    wi_peak = torch.cuda.max_memory_allocated() / 2**30
+    if not (torch.equal(counts[0], eng._ing_count) and torch.equal(counts[1], eng._eg_count)):
+        fail("serve dense: what_if changed the engine's count matrices")
+    if not (np.array_equal(iso[0], eng._ing_iso) and np.array_equal(iso[1], eng._eg_iso)
+            and iso[2:] == (eng.update_count, svc.generation)):
+        fail("serve dense: what_if changed the engine's state")
+    del counts
+    name = lambda i: f"{pods[i].namespace}/{pods[i].name}"
+    added, n_added = host_first_cells(after & ~before, 20)
+    removed, n_removed = host_first_cells(before & ~after, 20)
+    want = (n_added, n_removed, [(name(a), name(b)) for a, b in added],
+            [(name(a), name(b)) for a, b in removed])
+    if (res.n_added, res.n_removed, res.added, res.removed) != want:
+        fail("serve dense: what_if's diff differs from the one-shot solve of the "
+             "cluster with the candidates applied")
+    if res.ok or [v.assertion for v in res.violations] != ["keep"]:
+        fail("serve dense: what_if did not report the broken assertion")
+    log(f"serve dense: what_if (add, update, remove, deny-all into {victim}) "
+        f"{wi_s:.2f} s, peak device memory {wi_peak:.2f} GiB: +{res.n_added} "
+        f"-{res.n_removed} pairs == the one-shot solve of the candidates applied, the "
+        f"broken assertion reported, the engine's counts byte-equal before and after")
+    phase_s = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"serve dense: apply median {statistics.median(lat['apply']):.2f} s, reach "
+        f"median {statistics.median(lat['reach']):.2f} s, query median "
+        f"{statistics.median(lat['query']) * 1e3:.1f} ms; {phase_s:.2f} s, "
+        f"peak device memory {peak:.2f} GiB; {smi}")
+    SERVE_SUMMARY.append(
+        f"phase 23 dense service: apply median {statistics.median(lat['apply']):.2f} s, reach "
+        f"median {statistics.median(lat['reach']):.2f} s, query median "
+        f"{statistics.median(lat['query']) * 1e3:.1f} ms, what_if {wi_s:.2f} s, {phase_s:.2f} s, "
+        f"peak {peak:.2f} GiB")
+    if launch_counts()[1] != 0:
+        fail(f"serve dense: fused_ports_reach ran: {launch_counts()}")
+
+
+def serve_card_vs_cpu_phase(dev) -> None:
+    """Phase 24: the dense and packed services on the card against the same
+    services on the CPU at phase 8's size, then three forced
+    ``BackendError``s in the card's dense engine."""
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.harness.generate import random_event_stream
+    from kubernetes_verification_tpu_torch.observe.events import Clock, get_clock, set_clock
+    from kubernetes_verification_tpu_torch.resilience.errors import BackendError, DeviceLost
+    from kubernetes_verification_tpu_torch.serve import QueryEngine, VerificationService
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(**VERIFY))
+    events = random_event_stream(cluster, n_events=560, seed=24, p_resync=0.01)
+    stream, extra = events[:500], events[500:]
+    kinds = {e.kind for e in stream}
+
+    def build(kind, d):
+        if kind == "dense":
+            svc = VerificationService(cluster, device=d)
+        else:
+            svc = VerificationService(engine=kvt.PackedIncrementalVerifier(
+                cluster, device=d, keep_matrix=True))
+        svc.assertions = serve_assertions(cluster, np.random.default_rng(24))
+        svc.enable_posture()
+        return svc, QueryEngine(svc)
+
+    svcs = {(k, d): build(k, dev if d == "card" else d)
+            for k in ("dense", "packed") for d in ("card", "cpu")}
+
+    def record(svc):
+        r = svc.posture.records[-1].to_dict()
+        r.pop("ts"), r.pop("delta_s")
+        return r
+
+    for b, i in enumerate(range(0, len(stream), 50)):
+        for svc, _ in svcs.values():
+            svc.apply(stream[i : i + 50])
+        probes = query_mix(cluster.pods, b, count=512)[0]
+        reach = {}
+        for kind in ("dense", "packed"):
+            (g, gq), (c, cq) = svcs[(kind, "card")], svcs[(kind, "cpu")]
+            reach[kind] = g.reach()
+            if not np.array_equal(reach[kind], c.reach()):
+                fail(f"serve card vs cpu: {kind} reach differs after batch {b}")
+            if kind == "packed" and not torch.equal(g.engine._packed.cpu(), c.engine._packed):
+                fail(f"serve card vs cpu: packed words differ after batch {b}")
+            if not np.array_equal(gq.can_reach_batch(probes), cq.can_reach_batch(probes)):
+                fail(f"serve card vs cpu: {kind} can_reach_batch differs after batch {b}")
+            if record(g) != record(c):
+                fail(f"serve card vs cpu: {kind} posture record differs after batch {b}")
+            if violation_rows(g.violations) != violation_rows(c.violations):
+                fail(f"serve card vs cpu: {kind} violations differ after batch {b}")
+            if g.stats.to_dict() != c.stats.to_dict():
+                fail(f"serve card vs cpu: {kind} ServeStats differ after batch {b}: "
+                     f"{g.stats.to_dict()} != {c.stats.to_dict()}")
+        if not np.array_equal(reach["dense"], reach["packed"]):
+            fail(f"serve card vs cpu: the dense and packed services differ after batch {b}")
+    for (kind, d), (svc, _) in svcs.items():
+        no_fallback(svc, f"serve card vs cpu ({kind}, {d})")
+    log(f"serve card vs cpu: {len(stream)} events ({', '.join(sorted(kinds))}) in 10 "
+        f"batches: reach, packed words, 512 probes, posture records, violations and "
+        f"ServeStats equal cuda == cpu for both engines after every batch, and dense == "
+        f"packed; {time.perf_counter() - t_phase:.2f} s")
+
+    # three forced BackendErrors in the card's dense engine: each reaches the
+    # caller, the breaker opens, an open breaker fails fast without touching
+    # the engine, and past the cooldown one probe on the card closes it; no
+    # answer is ever taken from the host
+    (g, _), (c, _) = svcs[("dense", "card")], svcs[("dense", "cpu")]
+    engine_calls = [0]
+
+    def lost():
+        engine_calls[0] += 1
+        raise DeviceLost("forced device loss", backend="dense")
+
+    for k in range(3):
+        batch = extra[20 * k : 20 * (k + 1)]
+        g.apply(batch)
+        c.apply(batch)
+        g.engine._iso_tensors = lost  # after the apply: a resync replaces the engine
+        try:
+            g.reach()
+        except BackendError as e:
+            if e.kind != "device_loss":
+                fail(f"serve card vs cpu: forced BackendError {k} came back as {e.kind}")
+        else:
+            fail(f"serve card vs cpu: forced BackendError {k} did not reach the caller")
+    if g._breaker.state != "open" or g._breaker.transitions != ["open"]:
+        fail(f"serve card vs cpu: the breaker went {g._breaker.transitions}, not to open")
+    try:
+        g.reach()
+    except BackendError as e:
+        if e.kind != "breaker_open":
+            fail(f"serve card vs cpu: the open breaker raised {e.kind}, not breaker_open")
+    else:
+        fail("serve card vs cpu: the open breaker answered")
+    if engine_calls[0] != 3:
+        fail(f"serve card vs cpu: the engine ran {engine_calls[0]} times, not 3")
+    del g.engine._iso_tensors
+    prev_clock = get_clock()
+
+    class AfterCooldown(Clock):
+        def perf(self) -> float:
+            return super().perf() + g.serve_config.breaker_cooldown
+
+    set_clock(AfterCooldown())
+    try:
+        probe_reach = g.reach()
+    finally:
+        set_clock(prev_clock)
+    if not np.array_equal(probe_reach, c.reach()):
+        fail("serve card vs cpu: the half-open probe's reach differs from the CPU engine's")
+    if g._breaker.transitions != ["open", "half_open", "closed"]:
+        fail(f"serve card vs cpu: the breaker went {g._breaker.transitions} after the probe")
+    if fallbacks() != 0 or "fallback" in g.stats.solves:
+        fail(f"serve card vs cpu: an answer came from the host ({fallbacks()} fallbacks, "
+             f"solves {g.stats.solves})")
+    phase_s = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"serve card vs cpu: 3 forced BackendErrors in the card's dense engine each reached "
+        f"the caller, the breaker opened and then failed fast (kind breaker_open) without "
+        f"running the engine, a probe after the cooldown closed it with reach == the CPU "
+        f"engine's, kvtpu_fallbacks_total 0; {phase_s:.2f} s, peak device memory {peak:.2f} GiB")
+    SERVE_SUMMARY.append(
+        f"phase 24 card vs cpu: equal after every batch, 3 forced BackendErrors raised, "
+        f"breaker open then closed by a probe, 0 fallbacks, {phase_s:.2f} s, peak {peak:.2f} GiB")
+    if launch_counts()[1] != 0:
+        fail(f"serve card vs cpu: fused_ports_reach ran: {launch_counts()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -2363,9 +3085,11 @@ def main() -> int:
     kano_phase(dev, smi)
     card_vs_cpu_phase(dev)
     engine_launches, eng = engine_phase(cluster, main_words, dev, smi)
-    del main_words
     posture_phase(eng, dev, smi)
     del eng
+    torch.cuda.empty_cache()
+    serve_launches = serve_packed_phase(cluster, main_words, dev, smi)
+    del main_words
     torch.cuda.empty_cache()
     engine_card_vs_cpu_phase(dev)
     torch.cuda.empty_cache()
@@ -2378,6 +3102,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense_card_vs_cpu_phase(dev)
     cpu_oracle_phase(dev)
+    torch.cuda.empty_cache()
+    serve_dense_phase(dev, smi)
+    torch.cuda.empty_cache()
+    serve_card_vs_cpu_phase(dev)
     worst = max([worst] + [r["err"] for r in rows])
     worst_fused = max(worst_fused, fused_row["err"])
 
@@ -2393,6 +3121,7 @@ def main() -> int:
         "launches": launches,
         "engine_build_launches": engine_launches,
         "dense_check_launches": dense_launches,
+        "serve_build_launches": serve_launches,
         "max_abs_err": worst,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
@@ -2410,6 +3139,7 @@ def main() -> int:
         **{k: fused_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
     }]}
+    log("serve summary: " + "; ".join(SERVE_SUMMARY) + f"; {smi}")
     log(f"total: {time.perf_counter() - t0:.1f} s; packed_dir_allow: per-launch "
         f"means of the two directions; {smi}")
     print(json.dumps(table), flush=True)

@@ -27,8 +27,11 @@ Entry points run on ``cuda`` unless the caller passes a CPU device::
 
 The query twins (``ops/batched.py``), the device query state
 (``ops/device_state.py``) and the posture ops (``ops/posture.py``) are
-imported from their modules. ``ingest`` and ``utils.persist`` are host-only,
-need PyYAML, and are not imported here.
+imported from their modules. ``ingest`` and ``utils.persist`` are host-only
+(PyYAML for YAML manifests) and are not imported here; neither is the
+serving plane, ``serve`` (``VerificationService``, ``QueryEngine``,
+``CheckpointManager``, ``RecoveryManager``, ``PostureTracker``), which
+imports this package's ``verify``.
 """
 from .backends.base import (
     PortAtom,

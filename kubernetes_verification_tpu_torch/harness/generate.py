@@ -12,7 +12,7 @@ ranges, and empty/absent rule edge cases — the full semantic surface.
 
 Deterministic per seed: the PyTorch port's copy of
 ``kubernetes_verification_tpu.harness.generate`` (``random_cluster`` and
-``random_kano``; not ``random_event_stream``), drawing the same
+``random_kano`` and ``random_event_stream``), drawing the same
 ``random.Random`` sequence, so one seed gives the same scenario in both
 packages.
 """
@@ -41,6 +41,7 @@ __all__ = [
     "GeneratorConfig",
     "random_kano",
     "random_cluster",
+    "random_event_stream",
 ]
 
 _KEYS = ["app", "role", "tier", "env", "team", "zone", "ver", "owner"]
@@ -291,3 +292,162 @@ def random_cluster(cfg: Optional[GeneratorConfig] = None, **kw) -> Cluster:
             )
         )
     return Cluster(pods=pods, namespaces=namespaces, policies=policies)
+
+
+def _random_churn_policy(
+    rng: random.Random,
+    name: str,
+    namespace: str,
+    label_pool: List[dict],
+    ns_pool: List[dict],
+    cfg: GeneratorConfig,
+) -> NetworkPolicy:
+    """A fresh any-port-friendly policy for churn streams (no ports — the
+    serving engine is any-port; ports would be dead weight per event)."""
+
+    def peer() -> Peer:
+        use_ns = rng.random() < cfg.p_namespace_selector
+        use_pod = rng.random() < 0.8 or not use_ns
+        return Peer(
+            pod_selector=_rand_selector(rng, label_pool, cfg) if use_pod else None,
+            namespace_selector=_rand_selector(rng, ns_pool, cfg) if use_ns else None,
+        )
+
+    rule = lambda: Rule(
+        peers=tuple(peer() for _ in range(rng.randint(1, cfg.max_peers_per_rule)))
+    )
+    ingress = tuple(rule() for _ in range(rng.randint(1, cfg.max_rules_per_policy)))
+    egress = (
+        tuple(rule() for _ in range(rng.randint(1, cfg.max_rules_per_policy)))
+        if rng.random() < cfg.p_egress_section
+        else None
+    )
+    return NetworkPolicy(
+        name=name,
+        namespace=namespace,
+        pod_selector=_rand_selector(rng, label_pool, cfg),
+        ingress=ingress,
+        egress=egress,
+    )
+
+
+def random_event_stream(
+    cluster: Cluster,
+    n_events: int = 500,
+    seed: int = 0,
+    p_resync: float = 0.0,
+    cfg: Optional[GeneratorConfig] = None,
+):
+    """A deterministic churn stream of ``n_events`` mutation events that is
+    *valid* against ``cluster``: every relabel names a resident pod, every
+    policy remove/update names a policy resident at that point in the
+    stream, and namespace removals only target emptied extra namespaces.
+    The mix intentionally includes back-to-back relabels of one pod and
+    add→remove policy pairs so write-coalescing has work to do.
+
+    Returns a list of :class:`~..serve.events.Event` (serialize with
+    :func:`~..serve.events.write_events`); ``p_resync`` injects occasional
+    :class:`FullResync` relists carrying the tracked current state."""
+    from ..serve.events import (
+        AddPolicy,
+        FullResync,
+        RemoveNamespace,
+        RemovePolicy,
+        UpdateNamespaceLabels,
+        UpdatePodLabels,
+        UpdatePolicy,
+    )
+
+    cfg = cfg or GeneratorConfig()
+    rng = random.Random(seed)
+    # tracked evolving state (so FullResync can carry a faithful snapshot)
+    pods = [
+        Pod(p.name, p.namespace, dict(p.labels), p.ip, dict(p.container_ports))
+        for p in cluster.pods
+    ]
+    namespaces = {ns.name: dict(ns.labels) for ns in cluster.namespaces}
+    for p in pods:
+        namespaces.setdefault(p.namespace, {})
+    resident = {f"{p.namespace}/{p.name}": p for p in cluster.policies}
+    label_pool = [p.labels for p in pods] or [{"app": "alpha"}]
+    ns_pool = list(namespaces.values()) or [{}]
+    extra_ns: List[str] = []
+    churn_seq = 0
+
+    events = []
+    while len(events) < n_events:
+        r = rng.random()
+        if p_resync > 0 and r < p_resync:
+            events.append(
+                FullResync(
+                    cluster=Cluster(
+                        pods=[
+                            Pod(p.name, p.namespace, dict(p.labels), p.ip,
+                                dict(p.container_ports))
+                            for p in pods
+                        ],
+                        namespaces=[
+                            Namespace(n, dict(l)) for n, l in namespaces.items()
+                        ],
+                        policies=list(resident.values()),
+                    )
+                )
+            )
+            continue
+        r = rng.random()
+        if r < 0.40:  # pod relabel (sometimes twice — coalescing fodder)
+            pod = rng.choice(pods)
+            for _ in range(2 if rng.random() < 0.25 else 1):
+                pod.labels = _rand_labels(rng, cfg.max_labels_per_pod)
+                events.append(
+                    UpdatePodLabels(
+                        namespace=pod.namespace, pod=pod.name,
+                        labels=dict(pod.labels),
+                    )
+                )
+        elif r < 0.55:  # policy add (sometimes immediately removed again)
+            ns = rng.choice(sorted(namespaces))
+            name = f"churn{churn_seq}"
+            churn_seq += 1
+            pol = _random_churn_policy(rng, name, ns, label_pool, ns_pool, cfg)
+            events.append(AddPolicy(policy=pol))
+            if rng.random() < 0.2:
+                events.append(RemovePolicy(namespace=ns, name=name))
+            else:
+                resident[f"{ns}/{name}"] = pol
+        elif r < 0.70 and resident:  # policy update in place
+            key = rng.choice(sorted(resident))
+            ns, name = key.split("/", 1)
+            pol = _random_churn_policy(rng, name, ns, label_pool, ns_pool, cfg)
+            resident[key] = pol
+            events.append(UpdatePolicy(policy=pol))
+        elif r < 0.80 and resident:  # policy remove
+            key = rng.choice(sorted(resident))
+            ns, name = key.split("/", 1)
+            del resident[key]
+            events.append(RemovePolicy(namespace=ns, name=name))
+        elif r < 0.92:  # namespace relabel (occasionally a brand-new ns)
+            if rng.random() < 0.15:
+                name = f"extra{len(extra_ns)}"
+                extra_ns.append(name)
+            else:
+                name = rng.choice(sorted(namespaces))
+            labels = _rand_labels(rng, 2)
+            namespaces[name] = labels
+            events.append(
+                UpdateNamespaceLabels(namespace=name, labels=dict(labels))
+            )
+        else:  # remove an emptied extra namespace when one exists
+            removable = [
+                n for n in extra_ns
+                if n in namespaces
+                and not any(k.startswith(n + "/") for k in resident)
+                and not any(p.namespace == n for p in pods)
+            ]
+            if not removable:
+                continue
+            name = rng.choice(removable)
+            del namespaces[name]
+            extra_ns.remove(name)
+            events.append(RemoveNamespace(namespace=name))
+    return events[:n_events]

@@ -121,6 +121,9 @@ class IncrementalVerifier:
     ``device=None`` means ``"cuda"`` (``BackendError`` without a GPU); the
     CPU runs only when the caller passes ``device="cpu"``."""
 
+    #: engine kind the serving plane keys on (``serve/service.py``)
+    metrics_engine = "dense"
+
     #: transient-failure budget around the reach derivation; assign a tuned
     #: RetryPolicy on the instance to change it
     retry_policy = RetryPolicy()

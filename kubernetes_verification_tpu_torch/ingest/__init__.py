@@ -2,8 +2,9 @@
 
 The reference needed a loadable ``~/.kube/config`` just to *parse* YAML
 (``kubesv/kubesv/parser.py:10``); here ingestion is self-contained. The port's own copy of
-``kubernetes_verification_tpu.ingest``: host-only, it needs PyYAML, and the
-package's ``__init__`` does not import it.
+``kubernetes_verification_tpu.ingest``: host-only, it needs PyYAML for YAML
+manifests (JSON ones need nothing), and the package's ``__init__`` does not
+import it.
 """
 from .yaml_io import (
     IngestError,

@@ -30,14 +30,19 @@ kinds are skipped with a warning list returned by ``load_cluster`` (strict
 mode raises).
 
 The port's own copy of ``kubernetes_verification_tpu.ingest.yaml_io``. It is
-host-only and needs PyYAML, which is imported inside the functions that read
-or write YAML (``_iter_docs``, ``dump_cluster``), so importing the package
-works on a machine without it.
+host-only. PyYAML is imported inside the functions that read or write YAML
+(``_iter_docs``, ``dump_cluster``), so importing the package works on a
+machine without it. ``*.json`` manifests are read with the standard
+library (JSON is YAML, so the JAX package reads them too), and the
+private ``_dump_cluster_json`` writes one JSON ``kind: List`` document per
+object kind: the checkpoints of ``utils/persist.py`` use it, since PyYAML's
+emitter takes about a minute for a 100,000-pod cluster.
 """
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 from ..models.core import (
     Cluster,
@@ -72,9 +77,12 @@ __all__ = [
 
 def _yaml():
     """PyYAML and its loader: libyaml's, as the reference uses
-    (``kano_py/kano/parser.py:6-9``), else the pure-Python one."""
-    import yaml
-
+    (``kano_py/kano/parser.py:6-9``), else the pure-Python one; ``(None,
+    None)`` on a machine without PyYAML."""
+    try:
+        import yaml
+    except ImportError:
+        return None, None
     loader = getattr(yaml, "CSafeLoader", yaml.SafeLoader)
     return yaml, loader
 
@@ -264,10 +272,21 @@ def _iter_docs(path: str) -> Iterable[Tuple[str, int, dict]]:
     except OSError as e:
         raise IngestError(f"{path}: cannot read manifests: {e}") from e
     with fh:
-        try:
-            docs = list(yaml.load_all(fh, Loader=loader))
-        except yaml.YAMLError as e:
-            raise IngestError(f"{path}: {e}") from e
+        if path.endswith(".json"):
+            try:
+                docs = [json.load(fh)]
+            except ValueError as e:
+                raise IngestError(f"{path}: {e}") from e
+        elif yaml is not None:
+            try:
+                docs = list(yaml.load_all(fh, Loader=loader))
+            except yaml.YAMLError as e:
+                raise IngestError(f"{path}: {e}") from e
+        else:
+            raise IngestError(
+                f"{path}: reading YAML manifests needs PyYAML, which is not "
+                "installed (JSON manifests need nothing)"
+            )
     idx = 0
     for doc in docs:
         if doc is None:
@@ -495,27 +514,49 @@ def network_policy_to_dict(pol: NetworkPolicy) -> dict:
     }
 
 
+def _cluster_docs(cluster: Cluster) -> List[Tuple[str, List[dict]]]:
+    """``(file stem, manifest dicts)`` per object kind, empty kinds left
+    out, in the order ``dump_cluster`` writes them."""
+    kinds = [
+        ("namespaces", [namespace_to_dict(ns) for ns in cluster.namespaces]),
+        ("pods", [pod_to_dict(p) for p in cluster.pods]),
+        (
+            "networkpolicies",
+            [network_policy_to_dict(pol) for pol in cluster.policies],
+        ),
+    ]
+    return [(stem, docs) for stem, docs in kinds if docs]
+
+
 def dump_cluster(cluster: Cluster, directory: Union[str, os.PathLike]) -> List[str]:
     """Write the cluster as one multi-doc manifest per object kind under
     ``directory``; returns the written paths. ``load_cluster`` of the
     directory round-trips to an equivalent cluster (asserted in tests)."""
     yaml, _ = _yaml()
+    if yaml is None:
+        raise IngestError("writing YAML manifests needs PyYAML, which is not installed")
     directory = os.fspath(directory)
     os.makedirs(directory, exist_ok=True)
     written = []
-
-    def emit(fname: str, docs: Sequence[dict]) -> None:
-        if not docs:
-            return
-        p = os.path.join(directory, fname)
+    for stem, docs in _cluster_docs(cluster):
+        p = os.path.join(directory, f"{stem}.yaml")
         with open(p, "w") as fh:  # a fresh directory, not durable state
-            yaml.safe_dump_all(list(docs), fh, sort_keys=False)
+            yaml.safe_dump_all(docs, fh, sort_keys=False)
         written.append(p)
+    return written
 
-    emit("namespaces.yaml", [namespace_to_dict(ns) for ns in cluster.namespaces])
-    emit("pods.yaml", [pod_to_dict(p) for p in cluster.pods])
-    emit(
-        "networkpolicies.yaml",
-        [network_policy_to_dict(pol) for pol in cluster.policies],
-    )
+
+def _dump_cluster_json(cluster: Cluster, directory: Union[str, os.PathLike]) -> List[str]:
+    """``dump_cluster`` as one JSON ``kind: List`` document per object kind
+    (``<kind>.json``), no PyYAML needed; the engine checkpoints of
+    ``utils/persist.py`` write their manifests with it."""
+    directory = os.fspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    written = []
+    for stem, docs in _cluster_docs(cluster):
+        p = os.path.join(directory, f"{stem}.json")
+        with open(p, "w") as fh:  # a fresh directory, not durable state
+            # one dumps: json.dump streams through the pure-Python encoder
+            fh.write(json.dumps({"apiVersion": "v1", "kind": "List", "items": docs}))
+        written.append(p)
     return written

@@ -35,6 +35,7 @@ Kubernetes API docs):
 """
 from __future__ import annotations
 
+import functools
 import ipaddress
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -144,6 +145,18 @@ class Selector:
         return all(e.matches(labels) for e in self.match_expressions)
 
 
+# parsed addresses and networks are immutable: a policy re-encode matches
+# every pod against every ipBlock peer, and parsing dominated it
+@functools.lru_cache(maxsize=1 << 18)
+def _ip_address(ip: str):
+    return ipaddress.ip_address(ip)
+
+
+@functools.lru_cache(maxsize=1 << 12)
+def _ip_network(cidr: str):
+    return ipaddress.ip_network(cidr)
+
+
 @dataclass(frozen=True)
 class IpBlock:
     """An ``ipBlock`` peer. Parsed and validated (as the reference does,
@@ -163,11 +176,10 @@ class IpBlock:
     def matches_ip(self, ip: Optional[str]) -> bool:
         if ip is None:
             return False
-        addr = ipaddress.ip_address(ip)
-        net = ipaddress.ip_network(self.cidr)
-        if addr not in net:
+        addr = _ip_address(ip)
+        if addr not in _ip_network(self.cidr):
             return False
-        return all(addr not in ipaddress.ip_network(e) for e in self.excepts)
+        return all(addr not in _ip_network(e) for e in self.excepts)
 
 
 @dataclass(frozen=True)

@@ -18,8 +18,9 @@ the total is summed in int64, exact at 100k² pairs.
 
 Entry points compute on the device of the tensor they are given; host
 (numpy) words go to ``device`` (default ``"cuda"``; raises without one).
-The JAX package's progress ticker, metrics and checkpoint/resume knobs of
-``packed_closure`` are not part of the port.
+``packed_closure``'s checkpoint/resume knobs commit and read closure pass
+checkpoints through ``serve/durability.py``; the JAX package's progress
+ticker and closure metrics are not part of the port yet.
 """
 from __future__ import annotations
 
@@ -237,6 +238,9 @@ def packed_closure(
     dst_tile: int = 14336,
     device=None,
     on_pass: Optional[Callable[[int, torch.Tensor, int], None]] = None,
+    checkpoint_dir=None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
 ) -> torch.Tensor:
     """Transitive closure of a bit-packed reachability matrix (int32
     ``[Np, Np/32]``, Np a multiple of 32, pad bits zero: every one of the Np
@@ -248,20 +252,49 @@ def packed_closure(
     ``tile`` caps the row tile, ``dst_tile`` the dst stripe; both snap down
     to the largest 32-multiple divisor of Np, as in the JAX package, so the
     port runs the same schedule. ``on_pass(pass, packed, pairs)`` is called
-    after each pass, once its pair count has been read."""
+    after each pass, once its pair count has been read.
+
+    With ``checkpoint_dir`` set and ``checkpoint_every`` > 0, every
+    ``checkpoint_every``-th pass commits an atomic closure checkpoint (the
+    words as the reference's uint32, the pass counter and the pair count)
+    through ``CheckpointManager.checkpoint_closure``; ``resume=True``
+    restarts from the newest valid one, at its pass count (from the given
+    ``packed`` at pass 0 when the ladder is empty or damaged), so a killed
+    closure re-runs only the passes after its last checkpoint. A closure
+    checkpoint of either package resumes in the other."""
     packed = _words(packed, device)
     N, W = packed.shape
     _check_square(N, W)
     if N == 0:
         return packed
+    start_pass = 0
+    cm = None
+    if checkpoint_dir:
+        from ..resilience.errors import PersistError
+        from ..serve.durability import CheckpointManager, load_closure_checkpoint
+
+        cm = CheckpointManager(checkpoint_dir)
+        if resume:
+            try:
+                arr, start_pass, _manifest = load_closure_checkpoint(checkpoint_dir)
+                if tuple(arr.shape) != (N, W):
+                    raise ConfigError(
+                        f"closure checkpoint shape {tuple(arr.shape)} != "
+                        f"input shape {(N, W)}"
+                    )
+                packed = _words(arr, packed.device)
+            except PersistError:
+                start_pass = 0
     t = _fit_tile(N, tile)
     dt = _fit_tile(N, dst_tile)
     total = packed_pair_total(packed)
-    for i in range(max_iter):
+    for done in range(start_pass + 1, max_iter + 1):
         packed = _packed_square_step(packed, row_tile=t, dst_tile=dt)
         new_total = packed_pair_total(packed)
         if on_pass is not None:
-            on_pass(i + 1, packed, new_total)
+            on_pass(done, packed, new_total)
+        if cm is not None and checkpoint_every > 0 and done % checkpoint_every == 0:
+            cm.checkpoint_closure(packed, done, pairs=new_total)
         if new_total == total:
             break
         total = new_total

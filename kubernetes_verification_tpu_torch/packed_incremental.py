@@ -701,6 +701,10 @@ class PackedIncrementalVerifier:
     CPU runs only when the caller passes ``device="cpu"``.
     """
 
+    #: engine kind the serving plane keys on (``serve/service.py``: a
+    #: ``"packed"`` engine answers queries from its word state)
+    metrics_engine = "packed"
+
     #: transient-failure budget around the stripe and row re-solves; assign
     #: a tuned RetryPolicy on the instance to change it
     retry_policy = RetryPolicy()

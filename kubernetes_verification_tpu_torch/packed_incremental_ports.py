@@ -372,6 +372,9 @@ class PackedPortsIncrementalVerifier:
     CPU runs only when the caller passes ``device="cpu"``.
     """
 
+    #: engine kind the serving plane keys on (``serve/service.py``)
+    metrics_engine = "packed-ports"
+
     #: transient-failure budget around the pod steps; assign a tuned
     #: RetryPolicy on the instance to change it
     retry_policy = RetryPolicy()

@@ -8,14 +8,19 @@ package catches the same failures here:
 * :class:`EncodeError`   — model objects the tensorizer cannot encode;
 * :class:`ConfigError`   — invalid flag / option combinations, and the parts
   of the system the port does not cover yet;
-* :class:`ServeError`    — a serving engine rejected an input (a query on a
-  state it cannot answer);
+* :class:`ServeError`    — the serving plane or a serving engine rejected an
+  input (an event naming an unknown pod, a query on a state it cannot
+  answer), with the serve subclasses :class:`StaleReadError`,
+  :class:`FencedError`, :class:`ReplicationError`,
+  :class:`AdmissionRejectedError`, :class:`StripeRouteError` and
+  :class:`StripeCoverageError`;
 * :class:`IngestError`   — malformed manifests (``ingest/``);
 * :class:`PersistError`  — a checkpoint failed to load or verify
   (``utils/persist.py``);
 * :class:`BackendError`  — a solve attempt failed (no CUDA device, a kernel
   that did not build or launch), with its ``kind`` subclasses
-  :class:`BackendOOM`, :class:`BackendTimeout` and :class:`DeviceLost`.
+  :class:`BackendOOM`, :class:`BackendTimeout` and :class:`DeviceLost`, and
+  :class:`BackendChainExhausted` when every backend of a chain failed.
 
 ``classify_exception`` maps a raw runtime error onto the taxonomy by message
 markers: the JAX package's XLA status names, and what PyTorch raises on a
@@ -24,13 +29,19 @@ error").
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 __all__ = [
     "KvTpuError",
     "EncodeError",
     "ConfigError",
     "ServeError",
+    "StaleReadError",
+    "FencedError",
+    "ReplicationError",
+    "AdmissionRejectedError",
+    "StripeRouteError",
+    "StripeCoverageError",
     "IngestError",
     "PersistError",
     "BackendError",
@@ -38,6 +49,7 @@ __all__ = [
     "BackendTimeout",
     "DeviceLost",
     "UnknownBackendError",
+    "BackendChainExhausted",
     "classify_exception",
 ]
 
@@ -68,6 +80,143 @@ class ServeError(KvTpuError, ValueError):
     ) -> None:
         super().__init__(message)
         self.event_index = event_index
+
+
+class StaleReadError(ServeError):
+    """A follower read exceeded its staleness bound: the replica's applied
+    state lags the leader's WAL by more than ``max_lag_seconds`` /
+    ``max_lag_seq``, and the caller asked for a bounded read rather than a
+    possibly-stale verdict. Carries the *measured* lag alongside the bound
+    that was violated, so callers can retry, widen the bound, or route to
+    the leader. Exit-code contract: input error (2), like every
+    :class:`ServeError` — the replica is healthy, the bound is just unmet.
+    """
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        lag_seconds: Optional[float] = None,
+        lag_seq: Optional[int] = None,
+        bound_seconds: Optional[float] = None,
+        bound_seq: Optional[int] = None,
+    ) -> None:
+        super().__init__(message)
+        self.lag_seconds = lag_seconds
+        self.lag_seq = lag_seq
+        self.bound_seconds = bound_seconds
+        self.bound_seq = bound_seq
+
+
+class FencedError(ServeError):
+    """A writer holding a superseded epoch tried to append to the WAL (or
+    renew the lease) after a follower promoted past it. ``epoch`` is the
+    writer's stale reign, ``lease_epoch`` the current one in
+    ``leader.lease``. The only correct reaction is to stop writing — the
+    cluster has moved on."""
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        epoch: Optional[int] = None,
+        lease_epoch: Optional[int] = None,
+    ) -> None:
+        super().__init__(message)
+        self.epoch = epoch
+        self.lease_epoch = lease_epoch
+
+
+class ReplicationError(ServeError):
+    """A replication-transport operation failed: the connection was refused
+    or reset, a request timed out, a chunk arrived checksum-mismatched, or
+    an injected network fault (``net-drop`` / ``net-partition``) fired at
+    the transport seam. ``op`` names the wire operation (``tip`` / ``wal``
+    / ``manifest`` / ``file``) and ``url`` the endpoint. Transient by
+    construction — callers retry with capped jittered backoff and feed
+    per-replica breakers; a follower that cannot reach its leader keeps
+    serving (increasingly stale) reads from its local mirror."""
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        op: Optional[str] = None,
+        url: Optional[str] = None,
+    ) -> None:
+        super().__init__(message)
+        self.op = op
+        self.url = url
+
+
+class AdmissionRejectedError(ServeError):
+    """The ingress admission controller refused a request at the front
+    door. ``reason`` is one of the stable rejection classes —
+    ``over-quota`` (the tenant's token bucket is empty; HTTP 429),
+    ``concurrency`` (the global in-flight limit is reached; HTTP 503),
+    ``queue-full`` (the bounded continuous-batching queue has no slot;
+    HTTP 503), ``brownout`` (the overload ladder is shedding this
+    tenant's priority class or the whole door; HTTP 503), ``deadline``
+    (the request's budget cannot survive the current queue + service
+    estimate, so admitting it would only manufacture a deadline
+    violation; HTTP 503). ``retry_after_s`` is always finite and
+    computed, never a guess: for ``over-quota`` it is the bucket's
+    refill horizon, for the capacity reasons an escalating backoff hint
+    — the HTTP seam renders it as a ``Retry-After`` header so clients
+    back off instead of hammering. ``tenant`` names who was refused."""
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        retry_after_s: float = 1.0,
+        tenant: Optional[str] = None,
+        reason: str = "over-quota",
+    ) -> None:
+        super().__init__(message)
+        self.retry_after_s = float(retry_after_s)
+        self.tenant = tenant
+        self.reason = reason
+
+
+class StripeRouteError(ServeError):
+    """A query landed on a stripe owner that does not own the source rows
+    it needs: the routing layer (or a direct caller) asked stripe ``k``
+    for a row outside its ``[lo, hi)`` range. ``pod`` is the offending
+    global row index, ``stripe`` the ``(index, count)`` pair that refused
+    it. Always a routing bug or a direct misuse, never data loss — the
+    row exists on its owning stripe."""
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        pod: Optional[int] = None,
+        stripe: Optional[tuple] = None,
+    ) -> None:
+        super().__init__(message)
+        self.pod = pod
+        self.stripe = stripe
+
+
+class StripeCoverageError(ServeError):
+    """A scatter-gather query needed a stripe that has **no live owner**:
+    every registered owner for that pod range failed or none was ever
+    registered. The coordinator raises this instead of returning a
+    silently-truncated answer — a coverage gap is an outage, not a
+    smaller result set. ``stripe`` is the dead ``(index, count)`` pair,
+    ``rows`` its ``(lo, hi)`` pod range."""
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        stripe: Optional[tuple] = None,
+        rows: Optional[tuple] = None,
+    ) -> None:
+        super().__init__(message)
+        self.stripe = stripe
+        self.rows = rows
 
 
 class IngestError(KvTpuError, ValueError):
@@ -147,6 +296,26 @@ class DeviceLost(BackendError):
 
     def __init__(self, message: str, *, backend: Optional[str] = None) -> None:
         super().__init__(message, backend=backend, transient=False)
+
+
+class BackendChainExhausted(BackendError):
+    """Every backend in the fallback chain failed. ``failures`` lists
+    ``(backend, BackendError)`` in attempt order — the post-mortem."""
+
+    kind = "chain_exhausted"
+
+    def __init__(
+        self, chain: Tuple[str, ...], failures: List[Tuple[str, "BackendError"]]
+    ) -> None:
+        detail = "; ".join(
+            f"{b}: [{e.kind}] {e}" for b, e in failures
+        )
+        super().__init__(
+            f"all backends in chain {list(chain)} failed: {detail}",
+            transient=False,
+        )
+        self.chain = tuple(chain)
+        self.failures = list(failures)
 
 
 #: substring → taxonomy class, checked in order: the JAX package's table

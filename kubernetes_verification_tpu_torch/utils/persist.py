@@ -20,15 +20,18 @@ persistence is first-class:
   tensor-era analogue of the reference's ``get_datalog`` "explain the model"
   dump (``kubesv/kubesv/constraint.py:127-128``).
 
-The port's own copy of ``kubernetes_verification_tpu.utils.persist``, file
-for file: every artifact has the same members, dtypes and checksum envelope,
-so a checkpoint written by either package loads in the other. Device state
-is copied to the host on save (packed words as the reference's uint32) and
-to the engine's device on load (``device=None`` means ``cuda``). Every
-checkpoint carries its semantic flags, and a resume under other flags is
-refused (``_check_saved_config``). Host-only: the cluster manifests go
-through ``ingest`` and need PyYAML. The stripe engine's checkpoints wait for
-the serving plane (ROADMAP §1 item 11).
+The port's own copy of ``kubernetes_verification_tpu.utils.persist``: every
+artifact has the same members, dtypes and checksum envelope, so a
+checkpoint written by either package loads in the other. Two differences
+of form, both read by the JAX package: the ``.npz`` members are stored,
+not deflated, and an engine checkpoint's cluster manifests are JSON
+(``ingest.yaml_io._dump_cluster_json``, no PyYAML needed) — at the flagship
+the deflate and PyYAML's emitter took minutes. Device state is copied to
+the host on save (packed words as the reference's uint32) and to the
+engine's device on load (``device=None`` means ``cuda``). Every checkpoint
+carries its semantic flags, and a resume under other flags is refused
+(``_check_saved_config``). Host-only. The stripe engine's checkpoints wait
+for the stripe fleet (ROADMAP §1 item 11).
 """
 from __future__ import annotations
 
@@ -126,12 +129,14 @@ def _digest(arr: np.ndarray) -> str:
 
 
 def _savez(path: str, **arrays: np.ndarray) -> None:
-    """``np.savez_compressed`` with a ``__checksums__`` JSON envelope:
-    ``{array name: sha256}`` for every member, so a truncated write or
-    bit-rotted artifact is caught at load instead of surfacing as a shape
-    error three layers later."""
+    """``np.savez`` with a ``__checksums__`` JSON envelope: ``{array name:
+    sha256}`` for every member, so a truncated write or bit-rotted artifact
+    is caught at load instead of surfacing as a shape error three layers
+    later. The members are stored, not deflated as the JAX package's are
+    (``np.load`` reads both): packed reach words barely compress, and
+    deflating a flagship engine's ~1.8 GB of state took minutes."""
     sums = {k: _digest(np.asarray(v)) for k, v in arrays.items()}
-    np.savez_compressed(
+    np.savez(
         path,
         **arrays,
         **{
@@ -303,10 +308,10 @@ def load_packed(path: str):
 def save_incremental(inc, directory: str) -> None:
     """Checkpoint an :class:`~..incremental.IncrementalVerifier` — including
     its semantic config, so a resume can't silently flip flags."""
-    from ..ingest import dump_cluster
+    from ..ingest.yaml_io import _dump_cluster_json
 
     os.makedirs(directory, exist_ok=True)
-    dump_cluster(inc.as_cluster(), os.path.join(directory, "cluster"))
+    _dump_cluster_json(inc.as_cluster(), os.path.join(directory, "cluster"))
     keys = list(inc.policies)
     vec = {
         f"vec_{i}": np.stack(inc._vectors[k]) for i, k in enumerate(keys)
@@ -379,13 +384,13 @@ def save_packed_incremental(inc, directory: str) -> None:
     maps + isolation counts + (when kept) the packed matrix + slot layout +
     dirty bookkeeping. ~8× smaller than the device state thanks to the
     bit-packing."""
-    from ..ingest import dump_cluster
+    from ..ingest.yaml_io import _dump_cluster_json
 
     os.makedirs(directory, exist_ok=True)
     # include_inactive: the manifest's pod list position IS the slot index,
     # so tombstoned pod slots must keep their place (state["pod_active"]
     # marks them on resume)
-    dump_cluster(
+    _dump_cluster_json(
         inc.as_cluster(include_inactive=True), os.path.join(directory, "cluster")
     )
     state = inc.state_dict()
@@ -432,12 +437,12 @@ def save_ports_incremental(inc, directory: str) -> None:
     """Checkpoint a :class:`~..packed_incremental_ports.
     PackedPortsIncrementalVerifier`: cluster manifest + bit-packed VP
     operands + counts + packed matrix + frozen layout/universe metadata."""
-    from ..ingest import dump_cluster
+    from ..ingest.yaml_io import _dump_cluster_json
 
     os.makedirs(directory, exist_ok=True)
     # slot-ordered manifest: tombstoned pods stay in place so list position
     # == slot index on resume (paired with the saved pod_active map)
-    dump_cluster(
+    _dump_cluster_json(
         inc.as_cluster(include_inactive=True), os.path.join(directory, "cluster")
     )
     arrays, meta = inc.state_dict()

@@ -2,7 +2,7 @@
 """Where the port's serving engines spend their time on one NVIDIA GPU: host
 against device per op, and the state round trip's parts.
 
-    python3 scripts/torch_profile_engine.py [--pods 100000 --policies 10000] [--ports | --dense]
+    python3 scripts/torch_profile_engine.py [--pods 100000 --policies 10000] [--ports | --dense | --serve]
 
 Builds the any-port engine (``PackedIncrementalVerifier``), or with
 ``--ports`` the port-bitmap engine (``PackedPortsIncrementalVerifier``, on
@@ -30,8 +30,21 @@ op kind into the whole op and its host part (``_policy_vectors`` for a
 policy op; for a pod relabel, the device patch alone by CUDA events), the
 device steps alone (a policy's two rank-1 block updates, one row + column
 patch, the reach derivation) and the reach's device-to-host copy. The
-dense engine's checkpoints go through PyYAML (host-only), so the state
-round trip is not timed here.
+dense engine's state round trip is not timed here (``chip_smoke.py`` phase
+22 times a packed service's checkpoint and recovery).
+
+With ``--serve`` it serves ``chip_smoke.py`` phase 22's stream (the
+flagship cluster, ``random_event_stream(n_events=256, seed=1)`` less the
+relabels of namespaces that hold pods, the same four assertions, posture
+on) through a packed ``VerificationService`` in batches of 64, each
+``apply`` under ``torch.profiler`` (device activity). Each batch splits into
+coalesce, host evaluation (``PolicyVectorizer.vectors`` and ``_pod_cols``),
+device patches (the engine ops less their host evaluation, synced), the
+device-state refresh, the posture record and the assertion check (each
+synced after it ends, which the served stream itself does not do), and
+the rest; then the device busy time and the stream's device idle share.
+The applies run on the calling thread; phase 22 feeds the same batches
+through the worker thread.
 
 Prints the card's name and power limit first.
 """
@@ -83,6 +96,8 @@ def main() -> int:
                     help="profile the port-bitmap engine instead")
     ap.add_argument("--dense", action="store_true",
                     help="profile the dense engine instead (default size 32,768 / 3,277)")
+    ap.add_argument("--serve", action="store_true",
+                    help="profile chip_smoke.py phase 22's served stream instead")
     args = ap.parse_args()
     if args.dense and (args.pods, args.policies) == (100_000, 10_000):
         args.pods, args.policies = 32_768, 3_277
@@ -101,6 +116,8 @@ def main() -> int:
     cluster = kvt.random_cluster(kvt.GeneratorConfig(seed=0, **gen))
     if args.ports:
         return profile_ports(cluster, smi)
+    if args.serve:
+        return profile_serve(cluster, smi)
     donor = kvt.random_cluster(kvt.GeneratorConfig(**{**gen, "n_pods": 2_000,
                                                       "n_policies": 64, "seed": 1}))
     if args.dense:
@@ -360,6 +377,78 @@ def profile_ports(cluster, smi: str) -> int:
     back = kvt.PackedPortsIncrementalVerifier.from_state(manifest, arrays, meta)
     print(f"from_state whole: {t:.2f} s (" + ", ".join(
         f"{k} {v:.2f} s" for k, v in back.build_timings.items()) + f"); {smi}", flush=True)
+    return 0
+
+
+def profile_serve(cluster, smi: str) -> int:
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.harness.generate import random_event_stream
+    from kubernetes_verification_tpu_torch.serve import VerificationService
+    from kubernetes_verification_tpu_torch.serve import service as service_mod
+
+    svc = VerificationService(engine=kvt.PackedIncrementalVerifier(cluster, keep_matrix=True))
+    svc.enable_posture()
+    svc.assertions = chip_smoke.serve_assertions(cluster, np.random.default_rng(22))
+    eng = svc.engine
+    stream, cut = chip_smoke.cut_populated_relabels(
+        random_event_stream(cluster, n_events=256, seed=1), cluster)
+    print(f"stream: {len(stream)} events ({cut} relabels of populated namespaces cut)",
+          flush=True)
+    parts = defaultdict(float)
+
+    def timed(name, fn, sync=False):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                parts[name] += time.perf_counter() - t0
+        return wrapper
+
+    real_coalesce = service_mod.coalesce
+    service_mod.coalesce = timed("coalesce", real_coalesce)
+    eng._vectorizer.vectors = timed("host evaluation", eng._vectorizer.vectors)
+    eng._pod_cols = timed("host evaluation", eng._pod_cols)
+    svc._apply_one = timed("engine ops", svc._apply_one, sync=True)
+    svc._refresh_device_state = timed("device state", svc._refresh_device_state, sync=True)
+    svc._posture.record = timed("posture record", svc._posture.record, sync=True)
+    svc.check_assertions = timed("assertions", svc.check_assertions, sync=True)
+    walls, busy = [], []
+    try:
+        for b, i in enumerate(range(0, len(stream), chip_smoke.SERVE_BATCH)):
+            parts.clear()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                svc.apply(stream[i:i + chip_smoke.SERVE_BATCH])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            spans = [e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            busy.append(sum(spans) / 1e6 if spans else None)
+            split = dict(parts)
+            split["device patches"] = split.pop("engine ops", 0.0) - split.get(
+                "host evaluation", 0.0)
+            split["rest"] = walls[-1] - sum(split.values())
+            print(f"batch {b}: {walls[-1]:.3f} s = " + ", ".join(
+                f"{k} {v:.3f}" for k, v in split.items()) + " s; device busy "
+                + ("not measured" if busy[-1] is None else f"{busy[-1]:.3f} s")
+                + f" ({len(spans)} device activities); {smi}", flush=True)
+    finally:
+        service_mod.coalesce = real_coalesce
+    if None in busy:
+        print("stream: device idle share not measured (the profiler recorded no "
+              "device activity)", flush=True)
+    else:
+        print(f"stream: {sum(walls):.3f} s of apply, device busy {sum(busy):.3f} s, "
+              f"device idle share {1 - sum(busy) / sum(walls):.3f}; {smi}", flush=True)
     return 0
 
 

@@ -501,3 +501,111 @@ def test_dense_engine_on_card_matches_cpu(cuda_device):
     counts = posture.packed_row_popcount(g)
     assert torch.equal(posture.topk_changed_rows(counts, 8)[1].cpu(),
                        posture.topk_changed_rows(counts.cpu(), 8)[1])
+
+
+@pytest.mark.parametrize("kind", ["dense", "packed"])
+def test_service_on_card_matches_cpu(cuda_device, kind):
+    """The serving plane on the card against the same service on the CPU:
+    after every batch of a stream with resyncs, ``reach``, the packed
+    words, ``can_reach_batch``, the posture record, the violations and
+    ``ServeStats`` are equal, and no answer came from the CPU fallback."""
+    from kubernetes_verification_tpu_torch.harness.generate import random_event_stream
+    from kubernetes_verification_tpu_torch.serve import (
+        PodSelector,
+        QueryEngine,
+        VerificationService,
+    )
+    from kubernetes_verification_tpu_torch.serve.queries import Assertion
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=300, n_policies=30, n_namespaces=5, seed=8))
+    events = random_event_stream(cluster, n_events=300, seed=3, p_resync=0.01)
+    cfg = kvt.VerifyConfig(compute_ports=False)
+
+    def build(dev):
+        if kind == "dense":
+            svc = VerificationService(cluster, cfg, device=dev)
+        else:
+            svc = VerificationService(engine=kvt.PackedIncrementalVerifier(
+                cluster, cfg, device=dev, keep_matrix=True))
+        svc.assertions = [
+            Assertion("a", "allow", PodSelector(namespace="ns0"), PodSelector(namespace="ns0")),
+            Assertion("d", "deny", PodSelector(namespace="ns1"), PodSelector(namespace="ns2")),
+        ]
+        svc.enable_posture()
+        return svc, QueryEngine(svc)
+
+    (card, q_card), (host, q_host) = build(cuda_device), build("cpu")
+    refs = [f"{p.namespace}/{p.name}" for p in cluster.pods]
+    rng = np.random.default_rng(1)
+    for i in range(0, len(events), 50):
+        for svc in (card, host):
+            svc.apply(events[i:i + 50])
+        assert np.array_equal(card.reach(), host.reach()), i
+        if kind == "packed":
+            assert torch.equal(card.engine._packed.cpu(), host.engine._packed), i
+        probes = [(refs[a], refs[b]) for a, b in rng.integers(0, len(refs), (256, 2))]
+        assert np.array_equal(q_card.can_reach_batch(probes), q_host.can_reach_batch(probes))
+        rc, rh = card.posture.records[-1].to_dict(), host.posture.records[-1].to_dict()
+        for d in (rc, rh):
+            d.pop("ts"), d.pop("delta_s")
+        assert rc == rh, i
+        assert [v.describe() for v in card.violations] == [v.describe() for v in host.violations]
+        assert card.stats.to_dict() == host.stats.to_dict(), i
+    assert "fallback" not in card.stats.solves
+    assert card._breaker.state == "closed"
+    # the threaded worker on the card gives the same reach
+    (card, _), (host, _) = build(cuda_device), build("cpu")
+    card.start()
+    try:
+        card.submit(events[:100])
+        card.flush(timeout=300)
+    finally:
+        card.close()
+    host.apply(events[:100])
+    assert np.array_equal(card.reach(), host.reach())
+
+
+def test_card_service_failure_reaches_the_caller(cuda_device):
+    """A failed derivation of a dense service on the card reaches the
+    caller: no answer is taken from the host, the breaker opens after three
+    failures and fails fast, and past the cooldown a probe on the card
+    closes it with ``reach`` equal to the same service on the CPU."""
+    from kubernetes_verification_tpu_torch.observe.events import Clock, get_clock, set_clock
+    from kubernetes_verification_tpu_torch.resilience.errors import BackendError, DeviceLost
+    from kubernetes_verification_tpu_torch.serve import VerificationService
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=200, n_policies=20, n_namespaces=4, seed=5))
+    card = VerificationService(cluster, device=cuda_device)
+    host = VerificationService(cluster, device="cpu")
+    assert not card._host_fallback and host._host_fallback
+    calls = [0]
+
+    def lost():
+        calls[0] += 1
+        raise DeviceLost("forced device loss", backend="dense")
+
+    for k in range(3):
+        card.engine._reach_dirty = True
+        card.engine._iso_tensors = lost
+        with pytest.raises(DeviceLost):
+            card.reach()
+    with pytest.raises(BackendError) as e:
+        card.reach()
+    assert e.value.kind == "breaker_open" and calls[0] == 3
+    assert card._fallback_reach is None and "fallback" not in card.stats.solves
+    del card.engine._iso_tensors
+    prev = get_clock()
+
+    class AfterCooldown(Clock):
+        def perf(self) -> float:
+            return super().perf() + card.serve_config.breaker_cooldown
+
+    set_clock(AfterCooldown())
+    try:
+        got = card.reach()
+    finally:
+        set_clock(prev)
+    assert np.array_equal(got, host.reach())
+    assert card._breaker.transitions == ["open", "half_open", "closed"]

@@ -176,3 +176,47 @@ def test_dense_engine_posture_and_checkpoints_refuse_the_cpu_without_a_gpu(
             op(words)
         op(torch.zeros((32, 1), dtype=torch.int32))
     assert kvt.verify(cluster, kvt.VerifyConfig(backend="cpu")).reach.shape == (20, 20)
+
+
+def test_serving_plane_refuses_the_cpu_without_a_gpu(monkeypatch, tmp_path):
+    """``VerificationService(cluster)``, ``VerificationService.from_snapshot``
+    and ``RecoveryManager.recover`` default to ``cuda`` too: they raise
+    without a GPU and run on the CPU when asked."""
+    from kubernetes_verification_tpu_torch.serve import (
+        CheckpointManager,
+        RecoveryManager,
+        VerificationService,
+    )
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(seed=5, n_pods=20, n_policies=4))
+    svc = VerificationService(cluster, device="cpu")
+    svc.snapshot(str(tmp_path / "snap"))
+    CheckpointManager(str(tmp_path / "ck"), fsync=False).checkpoint(svc.engine)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda **d: VerificationService(cluster, **d),
+        lambda **d: VerificationService.from_snapshot(str(tmp_path / "snap"), **d),
+        lambda **d: RecoveryManager(str(tmp_path / "ck")).recover(**d),
+        lambda **d: RecoveryManager(str(tmp_path / "empty")).recover(
+            initial_cluster=cluster, **d),
+    ]
+    for call in calls:
+        with pytest.raises(BackendError, match="no CUDA device"):
+            call()
+        call(device="cpu")
+
+
+def test_importing_the_serving_plane_loads_no_yaml_and_no_jax():
+    code = (
+        "import sys, kubernetes_verification_tpu_torch.serve, "
+        "kubernetes_verification_tpu_torch.observe, "
+        "kubernetes_verification_tpu_torch.resilience.faults, "
+        "kubernetes_verification_tpu_torch.resilience.breaker; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('yaml', '_yaml', 'jax', 'jaxlib', 'kubernetes_verification_tpu')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=_ROOT, capture_output=True, text=True
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -246,3 +246,24 @@ def test_ingest_kano_walk_strict_mode_and_malformed_yaml(tmp_path):
     (tmp_path / "bad.yaml").write_text("kind: Pod\nmetadata: [unclosed\n")
     with pytest.raises(IngestError):
         ingest.load_cluster(str(tmp_path / "bad.yaml"))
+
+
+def test_json_manifests_round_trip_across_the_packages(tmp_path, monkeypatch):
+    """``yaml_io._dump_cluster_json`` (what the port's checkpoints write)
+    needs no PyYAML; the port reads it back without PyYAML and the JAX
+    package reads it with its YAML loader, to the same cluster."""
+    from kubernetes_verification_tpu_torch.ingest import yaml_io
+
+    c = _cluster(seed=77, p_ports=0.8, p_named_port=0.3, p_container_ports=0.5,
+                 p_ipblock_peer=0.2)
+    monkeypatch.setattr(yaml_io, "_yaml", lambda: (None, None))
+    paths = yaml_io._dump_cluster_json(c, str(tmp_path / "m"))
+    assert [os.path.basename(p) for p in paths] == [
+        "namespaces.json", "pods.json", "networkpolicies.json"]
+    back, skipped = ingest.load_cluster(str(tmp_path / "m"))
+    with pytest.raises(IngestError, match="needs PyYAML"):
+        ingest.dump_cluster(c, str(tmp_path / "y"))
+    monkeypatch.undo()
+    jback, jskipped = jax_ingest.load_cluster(str(tmp_path / "m"))
+    assert skipped == jskipped == []
+    assert to_jax(back) == jback == to_jax(c)
