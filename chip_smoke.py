@@ -140,9 +140,10 @@ Phases; any failure exits non-zero before a result line is printed:
     less the relabels of namespaces that hold pods (each costs ~265 s of
     host evaluation at this size), written ahead to a ``WalWriter`` log and
     fed in batches of 64 through ``start()`` / ``submit()`` / ``flush()``,
-    each under ``torch.profiler`` for the device busy time. After each
-    batch: the posture record == the host's diff of the words before and
-    after; ``can_reach_batch`` on 4,096 probes of ``bench.py --mode
+    each under ``torch.profiler`` for the device busy time. After the first
+    and the last batch (a cut for time; the batches between are applied
+    and timed unchecked): the posture record == the host's diff of the
+    words before and after; ``can_reach_batch`` on 4,096 probes of ``bench.py --mode
     query``'s mix, its any-port answers == the words unpacked on the host,
     its first 64 == scalar ``can_reach``; ``who_can_reach`` /
     ``blast_radius`` of 16 pods == a column / row of the words. After the
@@ -170,7 +171,43 @@ Phases; any failure exits non-zero before a result line is printed:
     cooldown one probe on the card closes it with ``reach`` == the CPU
     engine's. In phases 22–24 ``kvtpu_fallbacks_total`` reads 0, no
     ``"fallback"`` solve is counted and, outside the forced errors, the
-    breaker stays closed.
+    breaker stays closed;
+25. (run right after phase 22, on its kept checkpoint directory, WAL and
+    live service as the leader) replication at the flagship: a
+    ``LeaseFile`` on the leader, a ``FollowerService`` on the card
+    bootstrapped through the recovery ladder (the 64 post-checkpoint
+    events replayed), 32 more events the leader writes under its lease
+    tailed; the follower's words and ``pod_active`` == the leader's at the
+    same ``last_seq``, caught up, and a 4,096-probe batch of phase 22's mix
+    == the leader's answers. The lease expires through an injected clock:
+    the follower promotes to epoch 2 after two failed heartbeats, the
+    deposed leader's ``WalWriter.append`` raises ``FencedError``, and one
+    event written by the new leader is applied (words == the old leader's
+    after it);
+26. (run right after phase 23, on its service and stream) the stripe fleet
+    at phase 18's size, K = 4 on the card: the stream written to a WAL and
+    tailed by four ``StripeFollower``s, each owner's ``state_bytes()`` <=
+    the dense service's counts / K + 64 N; ``can_reach_batch`` (4,096
+    any-port probes of the mix), ``who_can_reach_batch`` and
+    ``blast_radius_batch`` of 64 pods and ``hops`` (at most 2) of 8 pairs
+    through a ``StripeCoordinator`` == phase 23's dense service; every event
+    applied on every owner (fan-out counted); stripe 2 round-tripped through
+    ``checkpoint_stripe`` / ``recover_stripe`` (counts byte-equal); build
+    per stripe, apply per batch, the full-scatter ``who_can_reach`` p50 and
+    p99 and 4-thread queries/s printed;
+27. (run last) the card against the CPU at phase 8's size: a packed leader
+    service on the card (2 ``packed_dir_allow`` launches) behind a
+    ``ReplicationServer`` on ``127.0.0.1:0``; followers on the card and on
+    the CPU bootstrap through ``bootstrap_from_leader`` and tail through
+    ``RemoteEventSource``: words and 512 answers == the leader's after each
+    batch; K = 3 stripes (667/667/666 rows) on the card == on the CPU; a
+    ``QueryLoadBalancer`` over both followers behind their own servers and
+    ingress, the CPU one's server stopped: every answer == the leader's and
+    its breaker opens; an ``Ingress`` past its quota sheds with a typed
+    ``AdmissionRejectedError``; ``resilient_verify`` on the card == the CPU
+    oracle, a forced device loss with chain ``("faulty:torch",)`` reaches
+    the caller as ``BackendChainExhausted``, the chain ``("torch", "cpu")``
+    is refused with ``ConfigError``, and ``kvtpu_fallbacks_total`` reads 0.
 
 Phases 9–13 launch neither hand-written kernel (their int8 products are
 ``torch._int_mm`` calls, as the JAX package leaves them to XLA): the counts
@@ -183,13 +220,18 @@ kernel is on their path); phase 18's two one-shot checks launch
 ``packed_dir_allow`` twice each. Phase 22 launches ``packed_dir_allow`` in
 its service's build (exactly twice) and its one-shot check; phases 23–24
 launch ``fused_ports_reach`` never (the dense service's contraction is a
-``bool_dot``). Each phase prints its seconds and its peak device memory.
+``bool_dot``). Phases 25–27 launch ``packed_dir_allow`` in phase 27's
+leader build (exactly twice; a follower bootstrapped from a checkpoint
+launches none, a stripe's contraction is a ``bool_dot``) and
+``fused_ports_reach`` never. Each phase prints its seconds and its peak
+device memory.
 
 The second-to-last line is the kernel table as JSON (each kernel's row
 carries its engine build's launches, phase 14's and phase 16's, as
 ``engine_build_launches``, and ``packed_dir_allow``'s its launches in phase
 18's checks as ``dense_check_launches`` and in phase 22's service build as
-``serve_build_launches``); the last is
+``serve_build_launches``, and its launches in phases 25–27, counted from
+0 at their start, as ``replica_launches``); the last is
 ``{"ok": true, "device": {...}}``. Tolerance everywhere: exact (every output
 is boolean or integer words).
 """
@@ -2568,9 +2610,13 @@ def idle_share(busy_ms, wall_s) -> str:
     return f"{1 - busy / sum(wall_s):.3f} ({busy:.2f} s device-busy of {sum(wall_s):.2f} s)"
 
 
-def serve_packed_phase(cluster, main_words, dev, smi: str) -> int:
-    """Phase 22: the packed service on the flagship cluster. Returns the
-    build's ``packed_dir_allow`` launches."""
+def serve_packed_phase(cluster, main_words, dev, smi: str) -> tuple:
+    """Phase 22: the packed service on the flagship cluster. Its own checks
+    (posture record against the host's diff, the query mix, rows and
+    columns) run after the first and the last batch. Returns the build's
+    ``packed_dir_allow`` launches and what phase 25 replicates: the
+    checkpoint directory (kept), its WAL, the live service and the stream's
+    unused events."""
     import os
     import tempfile
 
@@ -2619,7 +2665,8 @@ def serve_packed_phase(cluster, main_words, dev, smi: str) -> int:
     q = QueryEngine(svc)
     events = random_event_stream(cluster, n_events=256 + 2 * SERVE_TAIL, seed=1)
     stream, cut = cut_populated_relabels(events[:256], cluster)
-    tail = cut_populated_relabels(events[256:], cluster)[0][:SERVE_TAIL]
+    after = cut_populated_relabels(events[256:], cluster)[0]
+    tail, more = after[:SERVE_TAIL], after[SERVE_TAIL:]
     refs = [f"{p.namespace}/{p.name}" for p in eng.pods]
     host_prev = _host_words(eng._packed)
     if svc.posture.records[-1].reachable_pairs != host_diff_counts(host_prev, host_prev)[2]:
@@ -2633,10 +2680,15 @@ def serve_packed_phase(cluster, main_words, dev, smi: str) -> int:
     log_path = os.path.join(tmp.name, "events.jsonl")
     writer = WalWriter(log_path)
     apply_s, busy, q_s, rec_s, check_s, split_s = [], [], [], [], [], []
+    n_batches = -(-len(stream) // SERVE_BATCH)
+    checked = {0, n_batches - 1}
+    prev_fresh = True
     svc.start()
     try:
         for b, i in enumerate(range(0, len(stream), SERVE_BATCH)):
             batch = stream[i : i + SERVE_BATCH]
+            if b in checked and not prev_fresh:
+                host_prev = _host_words(eng._packed)
             writer.append(batch)
             r0 = len(svc.posture.records)
             with device_profiler() as prof:
@@ -2649,6 +2701,14 @@ def serve_packed_phase(cluster, main_words, dev, smi: str) -> int:
             recs = list(svc.posture.records)[r0:]
             rec = recs[-1]
             rec_s.append(sum(r.delta_s for r in recs))
+            if b not in checked:
+                prev_fresh = False
+                log(f"serve packed: batch {b}: apply {apply_s[-1]:.2f} s in {len(recs)} "
+                    f"worker batch(es) (device busy "
+                    + ("not measured" if busy[-1] is None else f"{busy[-1]:.1f} ms")
+                    + f", posture record {rec_s[-1] * 1e3:.1f} ms); checks skipped "
+                    f"(they run after the first and the last batch)")
+                continue
             t0 = time.perf_counter()
             host = _host_words(eng._packed)
             widened, narrowed, total = host_diff_counts(host_prev, host)
@@ -2698,7 +2758,7 @@ def serve_packed_phase(cluster, main_words, dev, smi: str) -> int:
                 f"4,096 probes ({int(ported.sum())} ported) {q_s[-1] * 1e3:.1f} ms; the "
                 f"record, the any-port answers and 16 rows and columns == the words, "
                 f"16 ported and 16 any-port answers == scalar can_reach")
-            host_prev = host
+            host_prev, prev_fresh = host, True
     finally:
         svc.close()
     del host_prev, host
@@ -2746,7 +2806,6 @@ def serve_packed_phase(cluster, main_words, dev, smi: str) -> int:
         f"{res.replayed} replayed, 0 duplicates): words == the live service's; "
         f"the one-shot check launched packed_dir_allow {launch_counts()[0]} times")
     del res
-    tmp.cleanup()
     phase_s = time.perf_counter() - t_phase
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"serve packed: {phase_s:.2f} s, peak device memory {peak:.2f} GiB; {smi}")
@@ -2756,13 +2815,16 @@ def serve_packed_phase(cluster, main_words, dev, smi: str) -> int:
         + ", ".join(f"{a:.2f}" for a in apply_s) + f" s, idle share {idle_share(busy, apply_s)}, "
         f"query batch median {statistics.median(q_s) * 1e3:.1f} ms, posture record median "
         f"{statistics.median(rec_s) * 1e3:.1f} ms, checks per batch "
-        + ", ".join(f"{c:.2f}" for c in check_s) + f" s, checkpoint {ck_s:.2f} s "
-        f"({size / 2**30:.2f} GiB), recover {recover_s:.2f} s, {phase_s:.2f} s, peak {peak:.2f} GiB")
-    return launches[0]
+        + ", ".join(f"{c:.2f}" for c in check_s) + f" s (batches {sorted(checked)}), "
+        f"checkpoint {ck_s:.2f} s ({size / 2**30:.2f} GiB), recover {recover_s:.2f} s, "
+        f"{phase_s:.2f} s, peak {peak:.2f} GiB")
+    return launches[0], dict(tmp=tmp, ck=os.path.join(tmp.name, "ck"), log=log_path,
+                             svc=svc, more=more)
 
 
-def serve_dense_phase(dev, smi: str) -> None:
-    """Phase 23: the dense service at phase 18's size."""
+def serve_dense_phase(dev, smi: str) -> tuple:
+    """Phase 23: the dense service at phase 18's size. Returns the service
+    and its stream: phase 26's stripe fleet is held against them."""
     import dataclasses
 
     import numpy as np
@@ -2908,6 +2970,7 @@ def serve_dense_phase(dev, smi: str) -> None:
         f"peak {peak:.2f} GiB")
     if launch_counts()[1] != 0:
         fail(f"serve dense: fused_ports_reach ran: {launch_counts()}")
+    return cluster, svc, stream
 
 
 def serve_card_vs_cpu_phase(dev) -> None:
@@ -3045,6 +3108,531 @@ def serve_card_vs_cpu_phase(dev) -> None:
         fail(f"serve card vs cpu: fused_ports_reach ran: {launch_counts()}")
 
 
+# ---------------------------------------------------------------------------
+# phases 25-27: replication, the stripe fleet, the transport and the front door
+# ---------------------------------------------------------------------------
+
+#: events the phase-25 leader appends while its follower tails
+REPLICA_TAIL = 32
+#: stripes of phase 26's fleet
+STRIPES = 4
+#: pods of phase 26 whose full-scatter columns and rows are asked for
+STRIPE_SCATTER = 64
+
+
+class WallClock:
+    """A wall clock that starts at the real time and moves only when told
+    to: the leases of phases 25 and 27 expire through it, not by sleeping."""
+
+    def __init__(self) -> None:
+        self.t = time.time()
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+def replicated_phase(ctx: dict, dev, smi: str) -> None:
+    """Phase 25 (run right after phase 22, on its checkpoint directory, WAL
+    and live service, the leader): a lease on the leader; a
+    ``FollowerService`` on the card bootstraps from the checkpoint through
+    the recovery ladder (replaying the 64 post-checkpoint events) and tails
+    ``REPLICA_TAIL`` more events the leader writes under its lease; its
+    words and ``pod_active`` equal the leader's at the same ``last_seq``,
+    it is caught up, and a 4,096-probe query batch equals the leader's
+    answers. The lease expires through the clock: the follower promotes to
+    epoch 2 once its probe breaker opens, the deposed leader's
+    ``WalWriter.append`` raises ``FencedError``, and one event the new
+    leader writes is applied (its words equal the old leader's after the
+    same event)."""
+    import numpy as np
+
+    from kubernetes_verification_tpu_torch.resilience.errors import FencedError
+    from kubernetes_verification_tpu_torch.serve import (
+        FollowerService,
+        LeaseFile,
+        QueryEngine,
+        WalWriter,
+        scan_wal,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    leader, ck, log_path, more = ctx["svc"], ctx["ck"], ctx["log"], ctx["more"]
+    if len(more) < REPLICA_TAIL + 1:
+        fail(f"replicated: only {len(more)} unused events for the tail")
+    clock = WallClock()
+    lease = LeaseFile(ck, clock=clock)
+    lease.acquire("leader-0", ttl=5.0)
+    writer = WalWriter(log_path, epoch=1, lease=lease)
+    t0 = time.perf_counter()
+    f = FollowerService(ck, log_path=log_path, replica="card-follower", device=dev,
+                        lease_ttl=5.0, breaker_threshold=2, clock=clock)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    rec = f.recovery
+    if (rec.outcome, rec.replayed, rec.duplicates_skipped) != ("newest", SERVE_TAIL, 0):
+        fail(f"replicated: bootstrap {rec.outcome}, replayed {rec.replayed}, "
+             f"{rec.duplicates_skipped} duplicates")
+    if not (f.service.packed and f.service.engine._packed.device.type == dev.type):
+        fail("replicated: the follower's engine is not the packed engine on the card")
+    log(f"replicated: follower bootstrap {boot_s:.2f} s through the recovery ladder "
+        f"(outcome newest, {rec.replayed} post-checkpoint events replayed, 0 "
+        f"duplicates); {smi}")
+
+    tail = more[:REPLICA_TAIL]
+    writer.append(tail)
+    leader.apply(tail)
+    if f.lag().seq != REPLICA_TAIL:
+        fail(f"replicated: the follower's lag is {f.lag()}, not {REPLICA_TAIL} records")
+    t0 = time.perf_counter()
+    got = f.poll()
+    torch.cuda.synchronize()
+    tail_s = time.perf_counter() - t0
+    if got != REPLICA_TAIL or not f.lag().caught_up:
+        fail(f"replicated: the tail applied {got} events, lag {f.lag()}")
+
+    def same_state(tag: str) -> None:
+        if not (torch.equal(f.service.engine._packed, leader.engine._packed)
+                and np.array_equal(f.service.engine.pod_active, leader.engine.pod_active)):
+            fail(f"replicated: {tag}: the follower's words differ from the leader's")
+
+    same_state("after the tail")
+    if f.source.last_seq != writer.next_seq - 1:
+        fail(f"replicated: follower at seq {f.source.last_seq}, leader at "
+             f"{writer.next_seq - 1}")
+    probes = query_mix(leader.engine.pods, 25)[0]
+    t0 = time.perf_counter()
+    ans = f.can_reach_batch(probes)
+    q_s = time.perf_counter() - t0
+    if not np.array_equal(ans, QueryEngine(leader).can_reach_batch(probes)):
+        fail("replicated: the follower's 4,096 answers differ from the leader's")
+    log(f"replicated: tail of {got} events {tail_s:.2f} s = {got / tail_s:.1f} events/s; "
+        f"words and pod_active == the leader's at seq {f.source.last_seq}, caught up; "
+        f"can_reach_batch 4,096 probes {q_s * 1e3:.1f} ms == the leader's answers")
+
+    if not f.heartbeat() or f.maybe_promote():
+        fail("replicated: a follower promoted under a live lease")
+    clock.advance(6.0)
+    for _ in range(2):
+        f.heartbeat()
+    t0 = time.perf_counter()
+    won = f.maybe_promote()
+    promote_s = time.perf_counter() - t0
+    if not (won and f.epoch == 2 and lease.read().holder == "card-follower"):
+        fail(f"replicated: promotion failed (won {won}, epoch {f.epoch})")
+    ev = more[REPLICA_TAIL : REPLICA_TAIL + 1]
+    try:
+        writer.append(ev)
+    except FencedError:
+        pass
+    else:
+        fail("replicated: the deposed leader's WalWriter appended after the promotion")
+    f.writer.append(ev)
+    if f.catch_up() != 1:
+        fail("replicated: the new leader's event was not applied")
+    leader.apply(ev)
+    same_state("after the new leader's event")
+    if scan_wal(log_path).last_epoch != 2:
+        fail("replicated: the WAL's last epoch is not the new reign's")
+    no_fallback(f.service, "replicated")
+    phase_s = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"replicated: promote {promote_s * 1e3:.1f} ms (epoch 2, after 2 failed "
+        f"heartbeats), the deposed leader fenced, the new leader's event applied; "
+        f"{phase_s:.2f} s, peak device memory {peak:.2f} GiB; {smi}")
+    SERVE_SUMMARY.append(
+        f"phase 25 replicated flagship: bootstrap {boot_s:.2f} s, tail "
+        f"{got / tail_s:.1f} events/s, follower query batch {q_s * 1e3:.1f} ms, promote "
+        f"{promote_s * 1e3:.1f} ms, {phase_s:.2f} s, peak {peak:.2f} GiB")
+    f.writer.close()
+    writer.close()
+
+
+def stripe_phase(cluster, dense_svc, stream, dev, smi: str) -> None:
+    """Phase 26: a striped dense fleet at phase 23's size (K = 4, on the
+    card): phase 23's event stream written to a WAL, four
+    ``StripeFollower``s tailing it behind a ``StripeCoordinator``, each
+    owner under the 1/K + ε state bound; ``can_reach_batch`` of 4,096
+    probes, ``who_can_reach_batch`` and ``blast_radius_batch`` of 64 pods
+    and ``hops`` (at most 2) of 8 pairs == phase 23's dense service after the same
+    events; one stripe round-tripped through ``checkpoint_stripe`` /
+    ``recover_stripe``."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from kubernetes_verification_tpu_torch.serve import (
+        CheckpointManager,
+        QueryEngine,
+        RecoveryManager,
+        StripeCoordinator,
+        StripeFollower,
+        WalWriter,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.TemporaryDirectory(prefix="kvt-stripes-")
+    log_path = os.path.join(tmp.name, "events.jsonl")
+    with WalWriter(log_path) as w:
+        w.append(stream)
+    owners, build_s = [], []
+    for k in range(STRIPES):
+        t0 = time.perf_counter()
+        owners.append(StripeFollower(cluster, dense_svc.engine.config, stripe=(k, STRIPES),
+                                     device=dev, replica=f"stripe-{k + 1}",
+                                     log_path=log_path))
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+    n = len(cluster.pods)
+    whole = sum(t.numel() * t.element_size()
+                for t in (dense_svc.engine._ing_count, dense_svc.engine._eg_count))
+    bound = whole / STRIPES + 64 * n
+    for o in owners:
+        if o.engine.state_bytes() > bound:
+            fail(f"stripes: owner {o.replica} holds {o.engine.state_bytes()} bytes, over "
+                 f"the 1/K + eps bound {bound:.0f}")
+    log(f"stripes: {STRIPES} stripes of {n} pods built in "
+        + ", ".join(f"{b:.2f}" for b in build_s) + " s; state per owner "
+        + ", ".join(f"{o.engine.state_bytes() / 2**30:.2f}" for o in owners)
+        + f" GiB <= whole/K + 64 N = {bound / 2**30:.2f} GiB (whole {whole / 2**30:.2f} GiB)")
+    apply_s = []
+    batches = list(owners[0].source.batches(SERVE_BATCH))
+    for o in owners[1:]:
+        if [len(b) for b in o.source.batches(SERVE_BATCH)] != [len(b) for b in batches]:
+            fail("stripes: the owners read different batches from the WAL")
+    for b, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        for o in owners:
+            o.apply(batch)
+        torch.cuda.synchronize()
+        apply_s.append(time.perf_counter() - t0)
+    applied = {o.applied_total for o in owners}
+    fanout = [o.fanout_total for o in owners]
+    if len(applied) != 1 or min(fanout) == 0:
+        fail(f"stripes: applied {applied}, fan-out {fanout}")
+    coord = StripeCoordinator(owners, pods=cluster.pods)
+    q = QueryEngine(dense_svc)
+    names = [f"{p.namespace}/{p.name}" for p in cluster.pods]
+    probes, _, _, ported = query_mix(cluster.pods, 26, count=4608)
+    anyport = [p for p, x in zip(probes, ported) if not x][:4096]
+    if len(anyport) != 4096:
+        fail(f"stripes: the probe mix gave {len(anyport)} any-port probes")
+    t0 = time.perf_counter()
+    got = coord.can_reach_batch(anyport)
+    probe_s = time.perf_counter() - t0
+    if not np.array_equal(got, q.can_reach_batch(anyport)):
+        fail("stripes: the coordinator's probes differ from the dense service's")
+    rng = np.random.default_rng(26)
+    some = [names[int(i)] for i in rng.choice(n, STRIPE_SCATTER, replace=False)]
+    if coord.who_can_reach_batch(some) != q.who_can_reach_batch(some):
+        fail("stripes: who_can_reach_batch differs from the dense service's")
+    if coord.blast_radius_batch(some) != q.blast_radius_batch(some):
+        fail("stripes: blast_radius_batch differs from the dense service's")
+    # two levels: the second gathers its frontier's rows from every stripe
+    # (up to all N rows a pair), which is what a deeper bound repeats
+    pairs = [(some[i], some[-1 - i]) for i in range(8)]
+    t0 = time.perf_counter()
+    hops = [coord.hops(a, b, 2) for a, b in pairs]
+    hops_s = time.perf_counter() - t0
+    if hops != [q.hops(a, b, 2) for a, b in pairs]:
+        fail("stripes: hops differ from the dense service's")
+    scatter = []
+    for name in some:
+        t0 = time.perf_counter()
+        coord.who_can_reach(name)
+        scatter.append(time.perf_counter() - t0)
+    scatter.sort()
+    p50 = scatter[len(scatter) // 2]
+    p99 = scatter[min(len(scatter) - 1, int(0.99 * len(scatter)))]
+    chunks = [anyport[i::16] for i in range(16)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        outs = list(pool.map(coord.can_reach_batch, chunks))
+    threaded_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, got[i::16]) for i, a in enumerate(outs)):
+        fail("stripes: threaded answers differ from the single batch")
+    qps = len(anyport) / threaded_s
+    log(f"stripes: apply per batch (all {STRIPES} owners) "
+        + ", ".join(f"{a:.2f}" for a in apply_s) + f" s, fan-out {fanout}; "
+        f"can_reach_batch {len(anyport)} any-port probes {probe_s * 1e3:.1f} ms, "
+        f"who_can_reach_batch / blast_radius_batch of {STRIPE_SCATTER} pods and hops "
+        f"(<= 2) of 8 pairs {hops} ({hops_s:.2f} s) == the dense service's; full-scatter "
+        f"who_can_reach p50 "
+        f"{p50 * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms; 4 threads {qps:.0f} queries/s")
+
+    k = 1
+    cm = CheckpointManager(os.path.join(tmp.name, "ck"))
+    t0 = time.perf_counter()
+    owners[k].checkpoint(cm)
+    ck_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = RecoveryManager(os.path.join(tmp.name, "ck")).recover_stripe(
+        (k, STRIPES), device=dev)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    eng, back = owners[k].engine, res.service.engine
+    if (res.outcome, res.replayed) != ("newest", 0) or not (
+            torch.equal(eng._ing_count, back._ing_count)
+            and torch.equal(eng._eg_count, back._eg_count)
+            and np.array_equal(eng._ing_iso, back._ing_iso)
+            and np.array_equal(eng._eg_iso, back._eg_iso)):
+        fail(f"stripes: stripe {k + 1} did not round-trip ({res.outcome}, {res.replayed})")
+    del res, back
+    phase_s = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"stripes: stripe {k + 1}/{STRIPES} checkpoint_stripe {ck_s:.2f} s, "
+        f"recover_stripe {rec_s:.2f} s, counts byte-equal; {phase_s:.2f} s, peak device "
+        f"memory {peak:.2f} GiB; {smi}")
+    SERVE_SUMMARY.append(
+        f"phase 26 {STRIPES} stripes at {n} pods: builds "
+        + ", ".join(f"{b:.2f}" for b in build_s) + " s, apply per batch "
+        + ", ".join(f"{a:.2f}" for a in apply_s) + f" s, probes {probe_s * 1e3:.1f} ms, "
+        f"who_can_reach p50 {p50 * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms, 4 threads {qps:.0f} "
+        f"queries/s, checkpoint/recover stripe {ck_s:.2f}/{rec_s:.2f} s, {phase_s:.2f} s, "
+        f"peak {peak:.2f} GiB")
+    tmp.cleanup()
+
+
+class RemoteReplica:
+    """A follower behind its ``ReplicationServer`` and front-door
+    ``Ingress``, as a load balancer sees it: ``can_reach_batch`` over
+    ``POST /v1/query``; ``lag()`` is the follower's own measurement."""
+
+    def __init__(self, client, follower) -> None:
+        self.client = client
+        self.replica = follower.replica
+        self.lag = follower.lag
+
+    def can_reach_batch(self, probes):
+        import numpy as np
+
+        return np.asarray(self.client.query(probes), dtype=bool)
+
+
+def transport_phase(dev, smi: str) -> int:
+    """Phase 27: the card against the CPU at phase 8's size. A packed leader
+    service on the card (2 ``packed_dir_allow`` launches) serves its
+    checkpoint and WAL over HTTP on ``127.0.0.1:0``; a follower on the card
+    and one on the CPU bootstrap through ``bootstrap_from_leader`` and tail
+    through ``RemoteEventSource``: equal words and answers after every
+    batch. K = 3 stripes (ragged bounds) on the card == on the CPU. A
+    ``QueryLoadBalancer`` over both followers behind their own servers, the
+    CPU one stopped: the answers stay the leader's and its breaker opens.
+    An ``Ingress`` sheds with a typed ``AdmissionRejectedError``.
+    ``resilient_verify`` on the card == the CPU oracle with no fallback; a
+    forced device loss with chain ``("faulty:torch",)`` reaches the caller
+    as ``BackendChainExhausted``; ``("torch", "cpu")`` is refused with
+    ``ConfigError``. Returns the leader build's ``packed_dir_allow``
+    launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.harness.generate import random_event_stream
+    from kubernetes_verification_tpu_torch.resilience import faults
+    from kubernetes_verification_tpu_torch.resilience.errors import (
+        AdmissionRejectedError,
+        BackendChainExhausted,
+        ConfigError,
+        DeviceLost,
+    )
+    from kubernetes_verification_tpu_torch.resilience.retry import RetryPolicy
+    from kubernetes_verification_tpu_torch.resilience.wrapper import (
+        ResilienceConfig,
+        resilient_verify,
+    )
+    from kubernetes_verification_tpu_torch.serve import (
+        AdmissionController,
+        CheckpointManager,
+        EventSource,
+        FollowerService,
+        Ingress,
+        LeaseFile,
+        QueryEngine,
+        QueryLoadBalancer,
+        ReplicationClient,
+        ReplicationServer,
+        StripeCoordinator,
+        StripeFollower,
+        TenantQuota,
+        VerificationService,
+        WalWriter,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.TemporaryDirectory(prefix="kvt-transport-")
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(**VERIFY))
+    cfg = kvt.VerifyConfig(compute_ports=False)
+    events = random_event_stream(cluster, n_events=160, seed=27)
+    reset_counts()
+    leader = VerificationService(engine=kvt.PackedIncrementalVerifier(
+        cluster, cfg, device=dev, keep_matrix=True))
+    build = launch_counts()
+    if build != (2, 0):
+        fail(f"transport: the leader's build launched {build}, not (2, 0)")
+    ck, log_path = os.path.join(tmp.name, "ck"), os.path.join(tmp.name, "events.jsonl")
+    os.makedirs(ck)
+    lease = LeaseFile(ck)
+    lease.acquire("leader-0", ttl=60.0)
+    writer = WalWriter(log_path, epoch=1, lease=lease)
+    src = EventSource(log_path)
+    writer.append(events[:80])
+    for b in src.batches(64):
+        leader.apply(b)
+    CheckpointManager(ck).checkpoint(leader.engine, log_path=log_path,
+                                     log_offset=src.offset, last_seq=src.last_seq)
+    fast = RetryPolicy(max_retries=0, backoff_base=0.001)
+    servers = []
+    try:
+        server = ReplicationServer(ck, log_path, port=0)
+        servers.append(server)
+        server.start()
+        t0 = time.perf_counter()
+        card = FollowerService(os.path.join(tmp.name, "card"), leader_url=server.url,
+                               replica="card", device=dev, transport_timeout=10.0)
+        boot_s = time.perf_counter() - t0
+        host = FollowerService(os.path.join(tmp.name, "host"), leader_url=server.url,
+                               replica="host", device="cpu", transport_timeout=10.0)
+        lq = QueryEngine(leader)
+        stripes = {d: [StripeFollower(cluster, cfg, stripe=(k, 3), device=d,
+                                      replica=f"{d}-{k}") for k in range(3)]
+                   for d in (dev, "cpu")}
+        bounds = [o.engine.stripe_rows for o in stripes[dev]]
+        for o in stripes[dev] + stripes["cpu"]:
+            o.apply(events[:80])
+        for b, i in enumerate(range(80, len(events), 40)):
+            batch = events[i : i + 40]
+            writer.append(batch)
+            leader.apply(batch)
+            for o in stripes[dev] + stripes["cpu"]:
+                o.apply(batch)
+            if card.catch_up() != host.catch_up():
+                fail(f"transport: the followers applied different tails at batch {b}")
+            probes = query_mix(cluster.pods, b, count=512)[0]
+            want = lq.can_reach_batch(probes)
+            for f in (card, host):
+                if not (torch.equal(f.service.engine._packed.cpu(),
+                                    leader.engine._packed.cpu())
+                        and f.lag().caught_up and f.generation == card.generation):
+                    fail(f"transport: follower {f.replica} differs from the leader at batch {b}")
+                if not np.array_equal(f.can_reach_batch(probes), want):
+                    fail(f"transport: follower {f.replica}'s answers differ at batch {b}")
+            for a, c in zip(stripes[dev], stripes["cpu"]):
+                if not (torch.equal(a.engine._ing_count.cpu(), c.engine._ing_count)
+                        and torch.equal(a.engine._eg_count.cpu(), c.engine._eg_count)):
+                    fail(f"transport: stripe {a.replica} differs from the CPU's at batch {b}")
+        names = [f"{p.namespace}/{p.name}" for p in cluster.pods]
+        anyport = [(names[a], names[c]) for a, c in
+                   np.random.default_rng(27).integers(0, len(names), (512, 2))]
+        cc = StripeCoordinator(stripes[dev], pods=cluster.pods)
+        hc = StripeCoordinator(stripes["cpu"], pods=cluster.pods)
+        if not (np.array_equal(cc.can_reach_batch(anyport), hc.can_reach_batch(anyport))
+                and np.array_equal(cc.can_reach_batch(anyport), lq.can_reach_batch(anyport))
+                and cc.who_can_reach_batch(names[:16]) == hc.who_can_reach_batch(names[:16])):
+            fail("transport: the stripes on the card answer differently from the CPU's")
+        log(f"transport: leader on the card behind {server.url}; followers on the card "
+            f"(bootstrap {boot_s:.2f} s) and the CPU tailed {card.applied} events over "
+            f"HTTP: words and 512 answers == the leader's after every batch; 3 stripes "
+            f"{bounds} on the card == on the CPU")
+
+        fronts = {}
+        for f in (card, host):
+            ing = Ingress(f).start()
+            srv = ReplicationServer(f.directory, f.log_path, port=0, ingress=ing,
+                                    health_source=f.health)
+            servers.append(srv)
+            srv.start()
+            fronts[f.replica] = (srv, ing, RemoteReplica(
+                ReplicationClient(srv.url, timeout=10.0, policy=fast), f))
+        lb = QueryLoadBalancer([r for _, _, r in fronts.values()], seed=27,
+                               breaker_threshold=2)
+        probes = [(names[a], names[c]) for a, c in
+                  np.random.default_rng(100).integers(0, len(names), (64, 2))]
+        want = lq.can_reach_batch(probes)
+        for _ in range(4):  # both serve while both run
+            ans, who = lb.can_reach_batch(probes)
+            if not np.array_equal(ans, want):
+                fail(f"transport: the load balancer's answer from {who} differs")
+        fronts["host"][0].close()  # the CPU follower's server stops
+        for b in range(24):
+            ans, who = lb.can_reach_batch(probes)
+            if who != "card" or not np.array_equal(ans, want):
+                fail(f"transport: the load balancer answered from {who} or differently")
+            if lb.breakers["host"].state == "open":
+                break
+        if lb.breakers["host"].state != "open" or lb.breakers["card"].state != "closed":
+            fail(f"transport: breakers {({k: b.state for k, b in lb.breakers.items()})}")
+        clock = WallClock()
+        gate = AdmissionController([TenantQuota("t", rate=1.0, burst=64.0)], clock=clock)
+        with Ingress(card, admission=gate) as ing:
+            ing.submit(anyport[:64], tenant="t")
+            try:
+                ing.submit(anyport[:8], tenant="t")
+            except AdmissionRejectedError as e:
+                shed = (e.reason, e.retry_after_s)
+            else:
+                fail("transport: the ingress admitted past its quota")
+        if shed[0] != "over-quota":
+            fail(f"transport: the ingress shed with {shed}")
+        log(f"transport: load balancer over both followers, host stopped: {lb.routed}, "
+            f"the host's breaker open, answers == the leader's; ingress shed "
+            f"over-quota (retry after {shed[1]:.1f} s)")
+    finally:
+        for srv in servers:
+            srv.close()
+        for front in locals().get("fronts", {}).values():
+            front[1].close()
+        writer.close()
+
+    card_cfg = kvt.VerifyConfig(compute_ports=False, backend_options=(("device", str(dev)),))
+    res = resilient_verify(cluster, card_cfg)
+    oracle = kvt.verify(cluster, kvt.VerifyConfig(backend="cpu", compute_ports=False))
+    if res.backend != "torch" or not np.array_equal(res.reach, oracle.reach):
+        fail(f"transport: resilient_verify on the card ({res.backend}) != the CPU oracle")
+    name = faults.register_faulty("torch", faults.parse_fault_spec("device_loss"))
+    try:
+        resilient_verify(cluster, card_cfg, ResilienceConfig(fallback_chain=(name,)))
+    except BackendChainExhausted as e:
+        if not isinstance(e.failures[0][1], DeviceLost):
+            fail(f"transport: the forced fault reached the caller as {e.failures}")
+    else:
+        fail("transport: a forced device loss did not reach the caller")
+    try:  # the default device is the card
+        resilient_verify(cluster, cfg, ResilienceConfig(fallback_chain=("torch", "cpu")))
+    except ConfigError:
+        pass
+    else:
+        fail("transport: a chain from the card to the host was not refused")
+    if fallbacks() != 0:
+        fail(f"transport: kvtpu_fallbacks_total reads {fallbacks()}")
+    tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"transport: resilient_verify on the card == the CPU oracle, a forced device loss "
+        f"typed (BackendChainExhausted), the card-to-cpu chain refused (ConfigError), "
+        f"kvtpu_fallbacks_total 0; {phase_s:.2f} s, peak device memory {peak:.2f} GiB; {smi}")
+    SERVE_SUMMARY.append(
+        f"phase 27 transport at {VERIFY['n_pods']} pods: card follower bootstrap over HTTP "
+        f"{boot_s:.2f} s, card == cpu (followers, 3 stripes), lb ejects the stopped "
+        f"follower, ingress sheds typed, wrapper 0 fallbacks, {phase_s:.2f} s")
+    return build[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -3088,8 +3676,14 @@ def main() -> int:
     posture_phase(eng, dev, smi)
     del eng
     torch.cuda.empty_cache()
-    serve_launches = serve_packed_phase(cluster, main_words, dev, smi)
+    serve_launches, replica_ctx = serve_packed_phase(cluster, main_words, dev, smi)
     del main_words
+    # phases 25-27 (this slice's path) count their launches from here
+    reset_counts()
+    replicated_phase(replica_ctx, dev, smi)
+    replica_launches = launch_counts()
+    replica_ctx["tmp"].cleanup()
+    del replica_ctx
     torch.cuda.empty_cache()
     engine_card_vs_cpu_phase(dev)
     torch.cuda.empty_cache()
@@ -3103,9 +3697,20 @@ def main() -> int:
     dense_card_vs_cpu_phase(dev)
     cpu_oracle_phase(dev)
     torch.cuda.empty_cache()
-    serve_dense_phase(dev, smi)
+    dense_cluster, dense_svc, dense_stream = serve_dense_phase(dev, smi)
+    reset_counts()
+    stripe_phase(dense_cluster, dense_svc, dense_stream, dev, smi)
+    replica_launches = tuple(a + b for a, b in zip(replica_launches, launch_counts()))
+    del dense_cluster, dense_svc, dense_stream
     torch.cuda.empty_cache()
     serve_card_vs_cpu_phase(dev)
+    torch.cuda.empty_cache()
+    reset_counts()
+    transport_build = transport_phase(dev, smi)
+    replica_launches = tuple(a + b for a, b in zip(replica_launches, launch_counts()))
+    if replica_launches[0] < transport_build or replica_launches[1] != 0:
+        fail(f"phases 25-27 launched {replica_launches}: packed_dir_allow fewer than the "
+             f"transport leader's {transport_build} build launches, or fused_ports_reach")
     worst = max([worst] + [r["err"] for r in rows])
     worst_fused = max(worst_fused, fused_row["err"])
 
@@ -3122,6 +3727,7 @@ def main() -> int:
         "engine_build_launches": engine_launches,
         "dense_check_launches": dense_launches,
         "serve_build_launches": serve_launches,
+        "replica_launches": replica_launches[0],
         "max_abs_err": worst,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
@@ -3135,6 +3741,7 @@ def main() -> int:
         "replaces": "kubernetes_verification_tpu/ops/pallas_kernels.py:348",
         "launches": fused_launches,
         "engine_build_launches": ports_engine_launches,
+        "replica_launches": replica_launches[1],
         "max_abs_err": worst_fused,
         **{k: fused_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},

@@ -15,16 +15,22 @@ The port's copy of the framework-free core of
   ``trace_context`` — distributed-trace context over the wire (``spans``).
 * ``FlightRecorder`` / ``trigger_dump`` — the crash flight recorder
   (``flight``).
+* ``ProgressTicker`` / ``active_jobs`` / ``render_jobs`` — pass-boundary
+  progress of long host loops (``progress``).
+* ``to_prometheus`` / ``parse_prometheus`` / ``dump_registry`` — the
+  exporters (``export``).
+* ``scrape_replica`` / ``SloMonitor`` / ``render_fleet`` — fleet scraping
+  and SLO burn rates (``fleet``).
 
 This package's registry is its own: a process that imports both packages
 holds two registries, and each package's counters count only its own work.
 The rest of the JAX package's ``observe`` (AOT packs, sentinels, cost
-introspection, dispatch tracking, progress tickers, bench history, fleet
-scraping, telemetry and exporters) is not part of the port yet.
+introspection, dispatch tracking, bench history and telemetry) is not part
+of the port yet.
 """
 from __future__ import annotations
 
-from . import flight, metrics
+from . import fleet, flight, metrics, progress
 from .events import (
     Clock,
     configure_logging,
@@ -33,6 +39,21 @@ from .events import (
     logger,
     set_clock,
 )
+from .export import (
+    dump_registry,
+    parse_exemplars,
+    parse_prometheus,
+    to_prometheus,
+    write_metrics,
+)
+from .fleet import (
+    ReplicaScrape,
+    SloMonitor,
+    SloObjective,
+    parse_slo_spec,
+    render_fleet,
+    scrape_replica,
+)
 from .flight import (
     FlightRecorder,
     load_dump,
@@ -40,6 +61,7 @@ from .flight import (
     trigger_dump,
 )
 from .flight import install_from_env as install_flight_recorder_from_env
+from .progress import ProgressTicker, active_jobs, eta_bar, render_jobs
 from .registry import (
     DEFAULT_BUCKETS,
     METRIC_NAME_RE,
@@ -113,4 +135,21 @@ __all__ = [
     "install_profile_signal",
     "uninstall_profile_signal",
     "install_profile_from_env",
+    "fleet",
+    "progress",
+    "dump_registry",
+    "to_prometheus",
+    "write_metrics",
+    "parse_prometheus",
+    "parse_exemplars",
+    "ReplicaScrape",
+    "scrape_replica",
+    "render_fleet",
+    "SloObjective",
+    "SloMonitor",
+    "parse_slo_spec",
+    "ProgressTicker",
+    "active_jobs",
+    "render_jobs",
+    "eta_bar",
 ]

@@ -19,8 +19,11 @@ the total is summed in int64, exact at 100k² pairs.
 Entry points compute on the device of the tensor they are given; host
 (numpy) words go to ``device`` (default ``"cuda"``; raises without one).
 ``packed_closure``'s checkpoint/resume knobs commit and read closure pass
-checkpoints through ``serve/durability.py``; the JAX package's progress
-ticker and closure metrics are not part of the port yet.
+checkpoints through ``serve/durability.py``. Every loop drives a
+``ProgressTicker`` (``observe/progress.py``) at its pass, round or level
+boundaries and counts them in ``kvtpu_closure_iterations_total``,
+``kvtpu_delta_closure_rounds_total`` and
+``kvtpu_closure_bounded_levels_total``, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -31,6 +34,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..observe.metrics import (
+    CLOSURE_BOUNDED_LEVELS,
+    CLOSURE_ITERATIONS,
+    DELTA_CLOSURE_ROUNDS,
+)
+from ..observe.progress import ProgressTicker
 from ..resilience.errors import ConfigError
 from ..runtime import resolve_device
 from .bits import (
@@ -261,7 +270,12 @@ def packed_closure(
     restarts from the newest valid one, at its pass count (from the given
     ``packed`` at pass 0 when the ladder is empty or damaged), so a killed
     closure re-runs only the passes after its last checkpoint. A closure
-    checkpoint of either package resumes in the other."""
+    checkpoint of either package resumes in the other.
+
+    The loop drives a ``ProgressTicker`` (job ``packed_closure``, total =
+    the ⌈log₂N⌉ pass bound, so an early fixpoint finishes ``converged``
+    below fraction 1.0); its pass-boundary callback is the one that commits
+    the checkpoints and calls ``on_pass``."""
     packed = _words(packed, device)
     N, W = packed.shape
     _check_square(N, W)
@@ -288,16 +302,38 @@ def packed_closure(
     t = _fit_tile(N, tile)
     dt = _fit_tile(N, dst_tile)
     total = packed_pair_total(packed)
-    for done in range(start_pass + 1, max_iter + 1):
-        packed = _packed_square_step(packed, row_tile=t, dst_tile=dt)
-        new_total = packed_pair_total(packed)
+    state = {"packed": packed, "pairs": total}
+
+    def pass_done(done: int) -> None:
         if on_pass is not None:
-            on_pass(done, packed, new_total)
+            on_pass(done, state["packed"], state["pairs"])
         if cm is not None and checkpoint_every > 0 and done % checkpoint_every == 0:
-            cm.checkpoint_closure(packed, done, pairs=new_total)
-        if new_total == total:
-            break
-        total = new_total
+            cm.checkpoint_closure(state["packed"], done, pairs=state["pairs"])
+
+    bound = max(1, math.ceil(math.log2(max(N, 2))))
+    ticker = ProgressTicker(
+        "packed_closure",
+        total=min(bound, max_iter) if max_iter else bound,
+        unit="pass",
+        initial=start_pass,
+        on_pass=pass_done,
+    )
+    converged = False
+    try:
+        for _ in range(start_pass, max_iter):
+            CLOSURE_ITERATIONS.inc()
+            packed = _packed_square_step(packed, row_tile=t, dst_tile=dt)
+            new_total = packed_pair_total(packed)
+            state["packed"], state["pairs"] = packed, new_total
+            ticker.tick(pairs=new_total)
+            if new_total == total:
+                converged = True
+                break
+            total = new_total
+    except BaseException:
+        ticker.finish("error")
+        raise
+    ticker.finish("converged" if converged else "done", pairs=total)
     return packed
 
 
@@ -442,14 +478,17 @@ def packed_closure_delta(
         if not len(rows_np):
             return C
         total = packed_pair_total(C)
-        for _ in range(max_iter):
-            for i in range(0, len(rows_np), kg):
-                idx = _padded_group(rows_np[i : i + kg], kg, dev)
-                C = _add_edges_round(C, added, idx, tile=dstt_add)
-            new_total = packed_pair_total(C)
-            if new_total == total:
-                break
-            total = new_total
+        with ProgressTicker("packed_closure_delta", unit="round") as ticker:
+            for _ in range(max_iter):
+                DELTA_CLOSURE_ROUNDS.inc()
+                for i in range(0, len(rows_np), kg):
+                    idx = _padded_group(rows_np[i : i + kg], kg, dev)
+                    C = _add_edges_round(C, added, idx, tile=dstt_add)
+                new_total = packed_pair_total(C)
+                ticker.tick(pairs=new_total)
+                if new_total == total:
+                    break
+                total = new_total
         return C
     # removals present: rows whose old paths may route through a touched
     # node restart from the base (suspect analysis)
@@ -461,19 +500,24 @@ def packed_closure_delta(
         return packed_closure(seed, tile=t, max_iter=max_iter)
     changed = _rows_differ(seed, prev).cpu().numpy()
     packed = seed
-    for _ in range(max_iter):
-        if not changed.any():
-            break
-        frontier = _rows_touching(packed, pack_mask(changed)).cpu().numpy() | changed
-        rows = np.nonzero(frontier)[0]
-        nxt = np.zeros(N, dtype=bool)
-        for i in range(0, len(rows), kg):
-            g = rows[i : i + kg]
-            packed, ch = _closure_rows_step(
-                packed, _padded_group(g, kg, dev), tile=dstt
+    with ProgressTicker("packed_closure_delta", unit="round") as ticker:
+        for _ in range(max_iter):
+            if not changed.any():
+                break
+            DELTA_CLOSURE_ROUNDS.inc()
+            frontier = (
+                _rows_touching(packed, pack_mask(changed)).cpu().numpy() | changed
             )
-            nxt[g] |= ch.cpu().numpy()[: len(g)]
-        changed = nxt
+            rows = np.nonzero(frontier)[0]
+            nxt = np.zeros(N, dtype=bool)
+            for i in range(0, len(rows), kg):
+                g = rows[i : i + kg]
+                packed, ch = _closure_rows_step(
+                    packed, _padded_group(g, kg, dev), tile=dstt
+                )
+                nxt[g] |= ch.cpu().numpy()[: len(g)]
+            changed = nxt
+            ticker.tick(frontier_rows=int(len(rows)))
     return packed
 
 
@@ -535,18 +579,26 @@ def bounded_packed_closure(
         any_fresh = bool((frontier != 0).any())
     level = 1
     limit = int(hops) if hops is not None else N
-    while any_fresh and level < limit:
-        nxt = _bounded_frontier_step(packed, frontier, tile=t)
-        fresh = nxt & ~acc
-        acc = acc | fresh
-        frontier = fresh
-        level += 1
-        if want_hops:
-            fresh_np = unpack_cols(to_host_words(fresh), N)
-            hop[fresh_np] = level
-            any_fresh = bool(fresh_np.any())
-        else:
-            any_fresh = bool((fresh != 0).any())
+    with ProgressTicker(
+        "bounded_closure",
+        total=limit if hops is not None else None,
+        unit="level",
+        initial=1,
+    ) as ticker:
+        while any_fresh and level < limit:
+            CLOSURE_BOUNDED_LEVELS.inc()
+            nxt = _bounded_frontier_step(packed, frontier, tile=t)
+            fresh = nxt & ~acc
+            acc = acc | fresh
+            frontier = fresh
+            level += 1
+            if want_hops:
+                fresh_np = unpack_cols(to_host_words(fresh), N)
+                hop[fresh_np] = level
+                any_fresh = bool(fresh_np.any())
+            else:
+                any_fresh = bool((fresh != 0).any())
+            ticker.tick(level)
     return acc, hop
 
 
@@ -588,22 +640,30 @@ def bounded_closure_rows(
     frontier = acc
     level = 1
     limit = int(hops) if hops is not None else n
-    while level < limit and bool(frontier.any()):
-        # nodes on any seed's frontier; their rows are fetched once and
-        # OR-combined per seed by a [K, c] × [c, n] int8 product, chunked so
-        # the oracle transient stays bounded
-        U = np.nonzero(frontier.any(dim=0).cpu().numpy())[0]
-        nxt = torch.zeros((K, n), dtype=torch.bool, device=dev)
-        for i in range(0, len(U), chunk):
-            u = U[i : i + chunk]
-            rt = rows(u).to(_I8).t().contiguous()  # [n, c]: K-contiguous
-            memb = frontier[:, torch.as_tensor(u, device=dev)].to(_I8)  # [K, c]
-            nxt |= bool_dot(memb, rt) > 0
-        fresh = nxt & ~acc
-        acc = acc | fresh
-        hop[fresh] = level + 1
-        frontier = fresh
-        level += 1
+    with ProgressTicker(
+        "bounded_closure_rows",
+        total=limit if hops is not None else None,
+        unit="level",
+        initial=1,
+    ) as ticker:
+        while bool(frontier.any()) and level < limit:
+            CLOSURE_BOUNDED_LEVELS.inc()
+            # nodes on any seed's frontier; their rows are fetched once and
+            # OR-combined per seed by a [K, c] × [c, n] int8 product, chunked
+            # so the oracle transient stays bounded
+            U = np.nonzero(frontier.any(dim=0).cpu().numpy())[0]
+            nxt = torch.zeros((K, n), dtype=torch.bool, device=dev)
+            for i in range(0, len(U), chunk):
+                u = U[i : i + chunk]
+                rt = rows(u).to(_I8).t().contiguous()  # [n, c]: K-contiguous
+                memb = frontier[:, torch.as_tensor(u, device=dev)].to(_I8)  # [K, c]
+                nxt |= bool_dot(memb, rt) > 0
+            fresh = nxt & ~acc
+            acc = acc | fresh
+            hop[fresh] = level + 1
+            frontier = fresh
+            level += 1
+            ticker.tick(level)
     return acc.cpu().numpy(), hop.cpu().numpy()
 
 

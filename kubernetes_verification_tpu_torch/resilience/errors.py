@@ -51,7 +51,17 @@ __all__ = [
     "UnknownBackendError",
     "BackendChainExhausted",
     "classify_exception",
+    "exit_code_for",
+    "EXIT_OK",
+    "EXIT_VIOLATIONS",
+    "EXIT_INPUT_ERROR",
+    "EXIT_BACKEND_FAILED",
 ]
+
+EXIT_OK = 0  #: verified, no requested invariant violated
+EXIT_VIOLATIONS = 1  #: verified, but a check found violations
+EXIT_INPUT_ERROR = 2  #: bad manifests / checkpoint / flags (IngestError, ...)
+EXIT_BACKEND_FAILED = 3  #: every backend in the fallback chain failed
 
 
 class KvTpuError(Exception):
@@ -366,3 +376,12 @@ def classify_exception(
     )
     err.__cause__ = exc
     return err
+
+
+def exit_code_for(exc: BaseException) -> int:
+    """The exit-code contract for an exception that escaped a command."""
+    if isinstance(exc, BackendError):
+        return EXIT_BACKEND_FAILED
+    if isinstance(exc, KvTpuError):
+        return EXIT_INPUT_ERROR
+    raise TypeError(f"not a KvTpuError: {type(exc).__name__}")

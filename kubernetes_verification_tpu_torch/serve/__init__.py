@@ -21,13 +21,29 @@ The PyTorch port of the core of ``kubernetes_verification_tpu.serve``:
 * ``posture`` — :class:`PostureTracker`: an exact reach-delta record per
   generation, a crc'd journal and declarative drift alerts;
 * ``durability`` — crash-safe checkpoints: :class:`CheckpointManager`
-  (atomic snapshot + manifest generations, closure pass checkpoints) and
-  :class:`RecoveryManager` (ladder recovery + WAL replay with
-  duplicate-application skipping).
+  (atomic snapshot + manifest generations, closure pass checkpoints,
+  stripe-sliced generations) and :class:`RecoveryManager` (ladder recovery
+  + WAL replay with duplicate-application skipping, ``recover_stripe``);
+* ``replication`` — :class:`FollowerService` (checkpoint bootstrap onto
+  its own engine, exactly-once WAL tailing, staleness-bounded reads) and
+  :class:`LeaseFile` (the epoch-fenced heartbeat of breaker-gated
+  promotion);
+* ``transport`` — the same replication over stdlib HTTP
+  (:class:`ReplicationServer`, :class:`ReplicationClient`,
+  :class:`RemoteEventSource`, :func:`bootstrap_from_leader`), byte for
+  byte the JAX package's wire format;
+* ``lb`` — :class:`QueryLoadBalancer`: staleness-weighted routing across
+  replicas with per-replica breakers;
+* ``ingress`` / ``admission`` / ``autoscale`` — the front door
+  (:class:`Ingress`), per-tenant quotas and the brown-out ladder
+  (:class:`AdmissionController`), and :class:`FleetAutoscaler`;
+* ``stripes`` — the stripe fleet: :class:`StripeEngine` (the dense
+  engine cut to rows ``[lo, hi)``), :class:`StripeFollower`,
+  :class:`StripeCoordinator` and :class:`RemoteStripeOwner`.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-Replication, the network transport, the load balancer, ingress, admission,
-autoscaling and the stripe fleet are not ported yet.
+Entry points that hold device state run on ``cuda`` unless the caller
+passes ``device="cpu"``; no answer of an engine on the card comes from
+the host.
 """
 from .durability import (
     CheckpointInfo,
@@ -37,6 +53,14 @@ from .durability import (
     load_closure_checkpoint,
     load_manifest,
 )
+from .admission import (
+    AdmissionConfig,
+    AdmissionController,
+    BrownoutController,
+    TenantQuota,
+    TokenBucket,
+)
+from .autoscale import AutoscaleConfig, FleetAutoscaler
 from .events import (
     AddPolicy,
     Event,
@@ -57,6 +81,8 @@ from .events import (
     scan_wal,
     write_events,
 )
+from .ingress import Ingress, IngressConfig
+from .lb import QueryLoadBalancer
 from .posture import (
     PostureAlertError,
     PostureRecord,
@@ -76,7 +102,26 @@ from .queries import (
     check_assertions,
     load_assertions,
 )
+from .replication import (
+    FollowerService,
+    Lease,
+    LeaseFile,
+    ReplicaLag,
+    lease_path,
+)
 from .service import ServeConfig, ServeStats, VerificationService
+from .stripes import (
+    RemoteStripeOwner,
+    StripeCoordinator,
+    StripeEngine,
+    StripeFollower,
+)
+from .transport import (
+    RemoteEventSource,
+    ReplicationClient,
+    ReplicationServer,
+    bootstrap_from_leader,
+)
 
 __all__ = [
     "Event",
@@ -121,4 +166,27 @@ __all__ = [
     "parse_posture_rule",
     "posture_diff",
     "scan_posture",
+    "FollowerService",
+    "Lease",
+    "LeaseFile",
+    "ReplicaLag",
+    "lease_path",
+    "ReplicationServer",
+    "ReplicationClient",
+    "RemoteEventSource",
+    "bootstrap_from_leader",
+    "QueryLoadBalancer",
+    "Ingress",
+    "IngressConfig",
+    "AdmissionConfig",
+    "AdmissionController",
+    "BrownoutController",
+    "TenantQuota",
+    "TokenBucket",
+    "AutoscaleConfig",
+    "FleetAutoscaler",
+    "StripeEngine",
+    "StripeFollower",
+    "StripeCoordinator",
+    "RemoteStripeOwner",
 ]

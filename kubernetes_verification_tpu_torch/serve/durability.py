@@ -5,14 +5,10 @@ checkpoint written by either package is recovered by the other: the
 snapshot trees are ``utils/persist``'s (file for file the JAX package's),
 the manifests and the WAL are byte-compatible.
 
-Two parts of the JAX module are not here yet. There is no warm executable
-pack to ship beside a checkpoint or to load before recovery: the port's
-warm start is the build cache of ``ops/cuda_build.py``, so ``inspect``
-reports ``aot_pack`` as absent. There is no lease triage either: it comes
-with replication; until then ``inspect`` on a directory that holds a
-``leader.lease`` says so in its report and goes on. Stripe-sliced
-checkpoints (``checkpoint_stripe`` / ``recover_stripe``) come with the
-stripe fleet.
+One part of the JAX module is not here: there is no warm executable pack
+to ship beside a checkpoint or to load before recovery. The port's warm
+start is the build cache of ``ops/cuda_build.py``, so ``inspect`` (and a
+replica's ``/healthz``) reports the pack as absent, with that reason.
 
 The serving loop's contract is: kill the process at any instant and a
 restart recovers to exactly the state a from-scratch verification of the
@@ -82,9 +78,16 @@ MANIFEST_FORMAT = 1
 CLOSURE_FORMAT = "closure-v1"
 _GEN_RE = re.compile(r"^gen-(\d{8})$")
 _MANIFEST_RE = re.compile(r"^manifest-(\d{8})\.json$")
-#: the replication lease a leader renews in its serving directory (the
-#: JAX package's ``serve/replication.py::LEASE_FILENAME``)
-LEASE_FILENAME = "leader.lease"
+
+
+def aot_pack_status() -> dict:
+    """What ``inspect`` and a replica's ``/healthz`` report for the warm
+    executable pack: absent, with the reason (the port ships none)."""
+    return {
+        "present": False,
+        "reason": "no AOT pack: the warm start is the kernel build cache "
+        "of ops/cuda_build.py",
+    }
 
 
 def _fsync_file(path: str) -> None:
@@ -384,6 +387,77 @@ class CheckpointManager:
             last_seq=-1,
         )
 
+    def checkpoint_stripe(
+        self,
+        engine,
+        *,
+        log_path: Optional[str] = None,
+        log_offset: int = 0,
+        last_seq: int = -1,
+    ) -> CheckpointInfo:
+        """Commit one atomic generation of a
+        :class:`~.stripes.StripeEngine`: the stripe-sliced snapshot
+        (``utils/persist.save_stripe_incremental`` — ``[S, N]`` counts,
+        never the whole matrix) bound to the WAL position, manifest
+        tagged ``kind: stripe`` with the geometry block so recovery can
+        refuse a generation written under a different stripe layout.
+        Same write discipline (and kill-points) as :meth:`checkpoint`."""
+        from ..utils.persist import save_stripe_incremental
+
+        gen = self._next_generation()
+        snap_dir = self.snapshot_dir(gen)
+        tmp_dir = os.path.join(self.directory, f".tmp-gen-{gen:08d}")
+        if os.path.exists(tmp_dir):
+            shutil.rmtree(tmp_dir)
+        save_stripe_incremental(engine, tmp_dir)
+        digest = _tree_digest(tmp_dir)
+        kill_point("after-tmp-write")
+        if self.fsync:
+            _fsync_tree(tmp_dir)
+        kill_point("before-rename")
+        os.replace(tmp_dir, snap_dir)
+        if self.fsync:
+            _fsync_dir(self.directory)
+        lo, hi = engine.stripe_rows
+        manifest = {
+            "format": MANIFEST_FORMAT,
+            "kind": "stripe",
+            "generation": gen,
+            "snapshot": os.path.basename(snap_dir),
+            "snapshot_digest": digest,
+            "event_log": os.path.abspath(log_path) if log_path else None,
+            "log_offset": int(log_offset),
+            "last_seq": int(last_seq),
+            "stripe": {
+                "index": int(engine.stripe_index),
+                "count": int(engine.stripe_count),
+                "lo": int(lo),
+                "hi": int(hi),
+                "n": len(engine.pods),
+            },
+        }
+        manifest["checksum"] = _manifest_checksum(manifest)
+        _atomic_write_json(
+            self.manifest_path(gen), manifest, fsync=self.fsync
+        )
+        kill_point("after-manifest")
+        CHECKPOINTS_TOTAL.inc()
+        log_event(
+            "stripe_checkpoint", generation=gen, directory=self.directory,
+            stripe=f"{engine.stripe_index + 1}/{engine.stripe_count}",
+            log_offset=int(log_offset), last_seq=int(last_seq),
+        )
+        self._rotate()
+        return CheckpointInfo(
+            generation=gen,
+            manifest_path=self.manifest_path(gen),
+            snapshot_dir=snap_dir,
+            snapshot_digest=digest,
+            log_path=manifest["event_log"],
+            log_offset=int(log_offset),
+            last_seq=int(last_seq),
+        )
+
     def _rotate(self) -> None:
         """Keep the newest ``retain`` committed generations; delete the
         manifest before its snapshot so readers never see a manifest whose
@@ -551,21 +625,14 @@ class RecoveryManager:
                 }
             except Exception as e:  # noqa: BLE001 — report, don't die
                 report["wal"] = {"path": log_path, "error": str(e)}
-        # lease/epoch triage comes with replication, which this package
-        # does not have yet: say so instead of failing
-        lp = os.path.join(self.directory, LEASE_FILENAME)
+        # replication status: lease/epoch triage rides the same report
+        # (import deferred — replication imports this module at top level)
+        from .replication import LeaseFile, lease_path
+
+        lp = lease_path(self.directory)
         if os.path.exists(lp):
-            report["lease"] = {
-                "path": lp,
-                "triaged": False,
-                "reason": "lease triage needs serve/replication.py, which "
-                "is not ported yet",
-            }
-        report["aot_pack"] = {
-            "present": False,
-            "reason": "no AOT pack: the warm start is the kernel build "
-            "cache of ops/cuda_build.py",
-        }
+            report["lease"] = LeaseFile(lp).describe()
+        report["aot_pack"] = aot_pack_status()
         return report
 
     def recover(
@@ -620,8 +687,8 @@ class RecoveryManager:
                 if manifest.get("kind") == "stripe":
                     raise PersistError(
                         f"{mpath}: stripe-sliced checkpoint (partial rows) "
-                        "— not a whole-state serving snapshot (stripe "
-                        "recovery is not ported yet)",
+                        "— recover it with recover_stripe, not as a "
+                        "whole-state serving snapshot",
                         path=mpath,
                     )
                 snap = os.path.join(self.directory, manifest["snapshot"])
@@ -695,6 +762,142 @@ class RecoveryManager:
         )
         return RecoveryResult(
             service=service,
+            outcome=outcome,
+            generation=generation,
+            replayed=replayed,
+            duplicates_skipped=source.skipped if source else 0,
+            last_seq=source.last_seq if source else after_seq,
+            wal=wal,
+            source=source,
+            errors=errors,
+        )
+
+    def recover_stripe(
+        self,
+        stripe,
+        *,
+        log_path: Optional[str] = None,
+        initial_cluster=None,
+        config=None,
+        device=None,
+        strict_wal: bool = False,
+        batch_size: int = 256,
+        replica: str = "stripe",
+    ) -> "RecoveryResult":
+        """Recover ONE stripe owner: walk the ladder newest-first
+        accepting only ``kind: stripe`` generations whose recorded
+        geometry matches ``stripe = (index, count)`` exactly (a serving
+        or closure generation, a different stripe's snapshot, or a
+        drifted pod count are all rung failures, not silent loads),
+        bootstrap the :class:`~.stripes.StripeEngine` from the sliced
+        snapshot, then replay the WAL from the recorded position —
+        skipping already-applied sequence numbers like :meth:`recover`.
+        Degrades to a rebuild from ``initial_cluster`` (full log replay)
+        when no rung holds. ``result.service`` is the positioned
+        :class:`~.stripes.StripeFollower`. ``device=None`` means
+        ``"cuda"``, as for :meth:`recover`."""
+        from ..utils.persist import load_stripe_incremental
+        from .stripes import StripeFollower
+
+        device = resolve_device(device)
+        k, count = int(stripe[0]), int(stripe[1])
+        errors: List[Tuple[int, str]] = []
+        chosen: Optional[dict] = None
+        engine = None
+        gens = self._cm.generations()
+        for gen in gens:
+            mpath = self._cm.manifest_path(gen)
+            try:
+                manifest = load_manifest(mpath)
+                if manifest.get("kind") != "stripe":
+                    raise PersistError(
+                        f"{mpath}: not a stripe checkpoint "
+                        f"(kind={manifest.get('kind', 'serve')!r})",
+                        path=mpath,
+                    )
+                geo = manifest.get("stripe") or {}
+                if (
+                    int(geo.get("index", -1)) != k
+                    or int(geo.get("count", -1)) != count
+                ):
+                    raise PersistError(
+                        f"{mpath}: stripe {geo.get('index')}"
+                        f"/{geo.get('count')} snapshot, caller owns "
+                        f"{k}/{count}",
+                        path=mpath,
+                    )
+                snap = os.path.join(self.directory, manifest["snapshot"])
+                if not os.path.isdir(snap):
+                    raise PersistError(
+                        f"{mpath}: snapshot {manifest['snapshot']} missing",
+                        path=snap,
+                    )
+                digest = _tree_digest(snap)
+                if digest != manifest["snapshot_digest"]:
+                    raise PersistError(
+                        f"{snap}: snapshot digest mismatch (manifest "
+                        f"{manifest['snapshot_digest'][:12]}…, tree "
+                        f"{digest[:12]}…)",
+                        path=snap,
+                    )
+                engine = load_stripe_incremental(
+                    snap, (k, count), config=config, device=device
+                )
+                chosen = manifest
+                break
+            except (PersistError, FileNotFoundError, KeyError) as e:
+                errors.append((gen, str(e)))
+                log_event("recovery_skip", generation=gen, reason=str(e))
+                continue
+        if chosen is not None:
+            outcome = (
+                "newest" if chosen["generation"] == gens[0] else "fallback"
+            )
+            offset = int(chosen["log_offset"])
+            after_seq = int(chosen["last_seq"])
+            generation = int(chosen["generation"])
+            replay_path = log_path or chosen["event_log"]
+        else:
+            if initial_cluster is None:
+                detail = "; ".join(f"gen {g}: {why}" for g, why in errors)
+                raise PersistError(
+                    f"{self.directory}: no usable stripe checkpoint for "
+                    f"stripe {k + 1}/{count} ({detail or 'none found'}) "
+                    "and no initial cluster to rebuild from",
+                    path=self.directory,
+                )
+            from .stripes import StripeEngine
+
+            engine = StripeEngine(
+                initial_cluster, config, device, stripe=(k, count)
+            )
+            outcome = "rebuild"
+            offset, after_seq, generation = 0, -1, -1
+            replay_path = log_path
+        wal: Optional[WalInfo] = None
+        replayed = 0
+        follower = StripeFollower(engine=engine, replica=replica)
+        source: Optional[EventSource] = None
+        if replay_path and os.path.exists(replay_path):
+            wal = scan_wal(replay_path, strict=strict_wal)
+            source = EventSource(
+                replay_path, offset=offset, start_after_seq=after_seq
+            )
+            follower.log_path = replay_path
+            follower.source = source
+            replayed = 0
+            for batch in source.batches(batch_size):
+                follower.apply(batch)
+                replayed += len(batch)
+        RECOVERIES_TOTAL.labels(outcome=outcome).inc()
+        log_event(
+            "stripe_recovery", outcome=outcome, generation=generation,
+            stripe=f"{k + 1}/{count}", replayed=replayed,
+            duplicates_skipped=source.skipped if source else 0,
+            rejected_generations=len(errors),
+        )
+        return RecoveryResult(
+            service=follower,
             outcome=outcome,
             generation=generation,
             replayed=replayed,

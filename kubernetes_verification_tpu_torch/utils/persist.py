@@ -13,6 +13,8 @@ persistence is first-class:
   contribution vectors, cluster manifests via ``dump_cluster``) so a
   long-lived re-verify service resumes without re-solving (BASELINE
   config 5);
+* ``save_stripe_incremental`` / ``load_stripe_incremental`` — a stripe
+  engine's ``[S, N]`` row stripes with a ``__stripe__`` geometry member;
 * ``save_packed_incremental`` / ``load_packed_incremental`` and
   ``save_ports_incremental`` / ``load_ports_incremental`` — the packed
   serving engines' ``state_dict`` plus the slot-ordered manifest;
@@ -30,8 +32,7 @@ the deflate and PyYAML's emitter took minutes. Device state is copied to
 the host on save (packed words as the reference's uint32) and to the
 engine's device on load (``device=None`` means ``cuda``). Every checkpoint
 carries its semantic flags, and a resume under other flags is refused
-(``_check_saved_config``). Host-only. The stripe engine's checkpoints wait
-for the stripe fleet (ROADMAP §1 item 11).
+(``_check_saved_config``). Host-only.
 """
 from __future__ import annotations
 
@@ -363,6 +364,129 @@ def load_incremental(directory: str, config: Optional[VerifyConfig] = None,
         inc._eg_iso = _member(z, state_path, "eg_iso").copy()
         inc.update_count = int(_member(z, state_path, "update_count"))
         keys = [str(k) for k in _member(z, state_path, "keys")]
+        by_key = {f"{p.namespace}/{p.name}": p for p in cluster.policies}
+        for i, key in enumerate(keys):
+            v = _member(z, state_path, f"vec_{i}")
+            if key not in by_key:
+                raise PersistError(
+                    f"{state_path}: state names policy {key!r} absent from "
+                    "the checkpoint manifest — state/manifest mismatch",
+                    path=state_path,
+                )
+            inc.policies[key] = by_key[key]
+            inc._vectors[key] = tuple(row.copy() for row in v.astype(bool))
+    inc._reach_dirty = True
+    return inc
+
+
+def save_stripe_incremental(inc, directory: str) -> None:
+    """Checkpoint a :class:`~..serve.stripes.StripeEngine`: the same
+    envelope as :func:`save_incremental` but the count arrays are the
+    engine's ``[S, N]`` row stripes, and a ``__stripe__`` JSON member
+    records the geometry — a resume into a different stripe index/count
+    (or a drifted pod count) is refused instead of landing rows off by
+    one. File for file the JAX package's (the cluster manifest is JSON,
+    which it reads too)."""
+    from ..ingest.yaml_io import _dump_cluster_json
+
+    os.makedirs(directory, exist_ok=True)
+    _dump_cluster_json(inc.as_cluster(), os.path.join(directory, "cluster"))
+    keys = list(inc.policies)
+    vec = {
+        f"vec_{i}": np.stack(inc._vectors[k]) for i, k in enumerate(keys)
+    }
+    lo, hi = inc.stripe_rows
+    stripe_json = json.dumps(
+        {
+            "index": int(inc.stripe_index),
+            "count": int(inc.stripe_count),
+            "lo": int(lo),
+            "hi": int(hi),
+            "n": len(inc.pods),
+        }
+    )
+    config_json = _config_json(inc.config)
+    _savez(
+        os.path.join(directory, "state.npz"),
+        ing_count=inc._ing_count.cpu().numpy(),
+        eg_count=inc._eg_count.cpu().numpy(),
+        ing_iso=inc._ing_iso,
+        eg_iso=inc._eg_iso,
+        keys=np.array(keys),
+        update_count=np.int64(inc.update_count),
+        __config__=np.frombuffer(config_json.encode(), dtype=np.uint8),
+        __stripe__=np.frombuffer(stripe_json.encode(), dtype=np.uint8),
+        **vec,
+    )
+
+
+def load_stripe_incremental(
+    directory: str,
+    stripe,
+    config: Optional[VerifyConfig] = None,
+    device=None,
+):
+    """Resume a :class:`~..serve.stripes.StripeEngine` for ``stripe =
+    (index, count)`` from a stripe-sliced checkpoint. The snapshot's
+    recorded geometry must match the requested stripe exactly — the
+    count rows are positional, so any drift is refused as
+    :class:`PersistError`, never reinterpreted. ``device=None`` means
+    ``"cuda"``; a checkpoint of either package loads here."""
+    from ..ingest import load_cluster
+    from ..models.core import Cluster
+    from ..serve.stripes import StripeEngine
+
+    k, count = int(stripe[0]), int(stripe[1])
+    cluster, _ = load_cluster(os.path.join(directory, "cluster"))
+    state_path = os.path.join(directory, "state.npz")
+    with _load_npz(state_path) as z:
+        saved = _json_member(z, state_path, "__config__")
+        config = _check_saved_config(
+            saved, config, "load_stripe_incremental", state_path
+        )
+        geo = _json_member(z, state_path, "__stripe__")
+        if (
+            int(geo.get("index", -1)) != k
+            or int(geo.get("count", -1)) != count
+            or int(geo.get("n", -1)) != len(cluster.pods)
+        ):
+            raise PersistError(
+                f"{state_path}: stripe geometry mismatch — snapshot holds "
+                f"stripe {geo.get('index')}/{geo.get('count')} of "
+                f"{geo.get('n')} pods, caller asked for {k}/{count} of "
+                f"{len(cluster.pods)}; rebuild instead of resuming",
+                path=state_path,
+            )
+        inc = StripeEngine(
+            Cluster(
+                pods=cluster.pods, namespaces=cluster.namespaces, policies=[]
+            ),
+            config,
+            device=device,
+            stripe=(k, count),
+        )
+        lo, hi = inc.stripe_rows
+        if (int(geo["lo"]), int(geo["hi"])) != (lo, hi):
+            raise PersistError(
+                f"{state_path}: stripe bounds drifted — snapshot rows "
+                f"[{geo['lo']}, {geo['hi']}), geometry says [{lo}, {hi})",
+                path=state_path,
+            )
+        ing = _member(z, state_path, "ing_count")
+        if ing.shape != (hi - lo, len(cluster.pods)):
+            raise PersistError(
+                f"{state_path}: stripe count shape {ing.shape} does not "
+                f"match rows [{lo}, {hi}) over {len(cluster.pods)} pods",
+                path=state_path,
+            )
+        inc._ing_count = torch.tensor(ing, device=inc.device)
+        inc._eg_count = torch.tensor(
+            _member(z, state_path, "eg_count"), device=inc.device
+        )
+        inc._ing_iso = _member(z, state_path, "ing_iso").copy()
+        inc._eg_iso = _member(z, state_path, "eg_iso").copy()
+        inc.update_count = int(_member(z, state_path, "update_count"))
+        keys = [str(kk) for kk in _member(z, state_path, "keys")]
         by_key = {f"{p.namespace}/{p.name}": p for p in cluster.policies}
         for i, key in enumerate(keys):
             v = _member(z, state_path, f"vec_{i}")

@@ -609,3 +609,102 @@ def test_card_service_failure_reaches_the_caller(cuda_device):
         set_clock(prev)
     assert np.array_equal(got, host.reach())
     assert card._breaker.transitions == ["open", "half_open", "closed"]
+
+
+@pytest.mark.parametrize("kind", ["dense", "packed"])
+def test_follower_on_card_matches_cpu(cuda_device, kind, tmp_path):
+    """A follower on the card and one on the CPU bootstrap from the same
+    leader checkpoint and tail the same WAL: equal engine state (packed
+    words, or the dense counts) and answers after every batch; the card's
+    answers come from the card (its engine's tensors live there)."""
+    from kubernetes_verification_tpu_torch.harness.generate import random_event_stream
+    from kubernetes_verification_tpu_torch.serve import (
+        CheckpointManager,
+        EventSource,
+        FollowerService,
+        VerificationService,
+        WalWriter,
+    )
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=300, n_policies=30, n_namespaces=4, seed=3, p_ipblock_peer=0.0))
+    cfg = kvt.VerifyConfig(compute_ports=False)
+    events = random_event_stream(cluster, n_events=120, seed=4)
+    if kind == "packed":
+        leader = VerificationService(engine=kvt.PackedIncrementalVerifier(
+            cluster, cfg, device="cpu", keep_matrix=True))
+    else:
+        leader = VerificationService(cluster, cfg, device="cpu")
+    log, ck = str(tmp_path / "events.jsonl"), str(tmp_path / "ck")
+    writer = WalWriter(log, epoch=1, fsync=False)
+    src = EventSource(log)
+    writer.append(events[:40])
+    for b in src.batches(64):
+        leader.apply(b)
+    CheckpointManager(ck, fsync=False).checkpoint(
+        leader.engine, log_path=log, log_offset=src.offset, last_seq=src.last_seq)
+    card = FollowerService(ck, log_path=log, replica="card", device=cuda_device,
+                           auto_catch_up=False)
+    host = FollowerService(ck, log_path=log, replica="host", device="cpu",
+                           auto_catch_up=False)
+    assert card.service.packed == (kind == "packed")
+    names = [f"{p.namespace}/{p.name}" for p in cluster.pods]
+    rng = np.random.default_rng(1)
+    probes = [(names[a], names[b]) for a, b in rng.integers(0, 300, (256, 2))]
+    for i in range(40, 120, 20):
+        writer.append(events[i:i + 20])
+        assert card.poll() == host.poll() == 20
+        if kind == "packed":
+            assert card.service.engine._packed.is_cuda
+            assert torch.equal(card.service.engine._packed.cpu(), host.service.engine._packed)
+        else:
+            assert card.service.engine._ing_count.is_cuda
+            assert torch.equal(card.service.engine._ing_count.cpu(),
+                               host.service.engine._ing_count)
+        assert np.array_equal(card.can_reach_batch(probes), host.can_reach_batch(probes))
+        assert card.who_can_reach_batch(names[:4]) == host.who_can_reach_batch(names[:4])
+        assert card.generation == host.generation
+    writer.close()
+
+
+@pytest.mark.parametrize("n,k", [(301, 3), (64, 4)])
+def test_stripes_on_card_match_cpu(cuda_device, n, k, tmp_path):
+    """Stripe followers on the card and on the CPU over the same events:
+    every stripe's counts equal, the coordinators' answers equal, the
+    1/K + ε state bound held, and a stripe checkpoint written on the card
+    recovered on the CPU."""
+    from kubernetes_verification_tpu_torch.harness.generate import random_event_stream
+    from kubernetes_verification_tpu_torch.serve import (
+        CheckpointManager,
+        RecoveryManager,
+        StripeCoordinator,
+        StripeFollower,
+    )
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=n, n_policies=24, n_namespaces=4, seed=7, p_ipblock_peer=0.0))
+    cfg = kvt.VerifyConfig(compute_ports=False)
+    events = random_event_stream(cluster, n_events=60, seed=2)
+    card = [StripeFollower(cluster, cfg, stripe=(s, k), device=cuda_device) for s in range(k)]
+    host = [StripeFollower(cluster, cfg, stripe=(s, k), device="cpu") for s in range(k)]
+    for i in range(0, 60, 15):
+        for a, b in zip(card, host):
+            a.apply(events[i:i + 15])
+            b.apply(events[i:i + 15])
+            assert a.engine._ing_count.is_cuda
+            assert torch.equal(a.engine._ing_count.cpu(), b.engine._ing_count)
+            assert torch.equal(a.engine._eg_count.cpu(), b.engine._eg_count)
+            assert a.engine.state_bytes() <= 2 * n * n * 4 / k + 64 * n
+    cc = StripeCoordinator(card, pods=cluster.pods)
+    hc = StripeCoordinator(host, pods=cluster.pods)
+    assert cc.device.type == "cuda" and hc.device.type == "cpu"
+    names = [f"{p.namespace}/{p.name}" for p in cluster.pods]
+    rng = np.random.default_rng(3)
+    q = [(names[a], names[b]) for a, b in rng.integers(0, n, (512, 2))]
+    assert np.array_equal(cc.can_reach_batch(q), hc.can_reach_batch(q))
+    assert cc.who_can_reach_batch(names[:8]) == hc.who_can_reach_batch(names[:8])
+    assert cc.blast_radius_batch(names[:8]) == hc.blast_radius_batch(names[:8])
+    assert cc.hops(names[0], names[-1], 4) == hc.hops(names[0], names[-1], 4)
+    card[1].checkpoint(CheckpointManager(str(tmp_path), fsync=False))
+    res = RecoveryManager(str(tmp_path)).recover_stripe((1, k), config=cfg, device="cpu")
+    assert torch.equal(res.service.engine._ing_count, host[1].engine._ing_count)

@@ -17,6 +17,7 @@ import kubernetes_verification_tpu_torch as kvt
 from kubernetes_verification_tpu.ops.closure import packed_closure as jax_packed_closure
 from kubernetes_verification_tpu.serve import durability as jdur
 from kubernetes_verification_tpu.serve import events as jev
+from kubernetes_verification_tpu.serve import replication as jrep
 from kubernetes_verification_tpu_torch.resilience.errors import PersistError
 from kubernetes_verification_tpu_torch.serve import VerificationService
 from kubernetes_verification_tpu_torch.serve import durability as pdur
@@ -130,10 +131,19 @@ def test_inspect_reports_alike_with_the_two_gaps(served):
     assert {k: v for k, v in strip(mine)["wal"].items() if k != "path"} == \
         {k: v for k, v in strip(theirs)["wal"].items() if k != "path"}
     assert mine["aot_pack"]["present"] is False and "build cache" in mine["aot_pack"]["reason"]
-    # a lease file is reported as not triaged, and inspect goes on
-    open(os.path.join(pdir, "ck", "leader.lease"), "w").write("{}")
-    report = pdur.RecoveryManager(os.path.join(pdir, "ck")).inspect()
-    assert report["lease"]["triaged"] is False and report["usable"]
+    # the lease triage is the JAX package's: a damaged lease and a live
+    # one are described alike, and inspect goes on
+    ck = os.path.join(pdir, "ck")
+    open(os.path.join(ck, "leader.lease"), "w").write("{}")
+    report = pdur.RecoveryManager(ck).inspect()
+    assert report["usable"] and report["lease"]["present"] and "error" in report["lease"]
+    assert report["lease"] == jdur.RecoveryManager(ck).inspect()["lease"]
+    os.remove(os.path.join(ck, "leader.lease"))
+    jrep.LeaseFile(ck).acquire("leader-0", ttl=1e9)
+    mine, theirs = pdur.RecoveryManager(ck).inspect(), jdur.RecoveryManager(ck).inspect()
+    assert mine["lease"]["epoch"] == 1 and not mine["lease"]["expired"]
+    drop = lambda d: {k: v for k, v in d.items() if k != "age_seconds"}
+    assert drop(mine["lease"]) == drop(theirs["lease"])
 
 
 def test_fallback_rung_after_a_corrupted_newest_generation(served):

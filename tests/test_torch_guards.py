@@ -206,9 +206,73 @@ def test_serving_plane_refuses_the_cpu_without_a_gpu(monkeypatch, tmp_path):
         call(device="cpu")
 
 
+def test_replicas_stripes_and_the_wrapper_refuse_the_cpu_without_a_gpu(
+    monkeypatch, tmp_path
+):
+    """``FollowerService`` (on a shared directory and bootstrapped over HTTP
+    through ``bootstrap_from_leader``), ``StripeEngine``, ``StripeFollower``,
+    the stripe loaders and ``resilient_verify`` default to ``cuda`` too: they
+    raise without a GPU and run on the CPU when asked."""
+    from kubernetes_verification_tpu_torch.resilience.errors import BackendChainExhausted
+    from kubernetes_verification_tpu_torch.resilience.wrapper import resilient_verify
+    from kubernetes_verification_tpu_torch.serve import (
+        CheckpointManager,
+        FollowerService,
+        RecoveryManager,
+        ReplicationServer,
+        StripeEngine,
+        StripeFollower,
+        VerificationService,
+        WalWriter,
+    )
+    from kubernetes_verification_tpu_torch.utils import persist
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(seed=6, n_pods=20, n_policies=4))
+    any_port = kvt.VerifyConfig(compute_ports=False)
+    svc = VerificationService(cluster, any_port, device="cpu")
+    log = str(tmp_path / "events.jsonl")
+    WalWriter(log, fsync=False).close()
+    CheckpointManager(str(tmp_path / "ck"), fsync=False).checkpoint(svc.engine, log_path=log)
+    stripe = StripeFollower(cluster, any_port, stripe=(1, 2), device="cpu")
+    stripe.checkpoint(CheckpointManager(str(tmp_path / "sck"), fsync=False))
+    persist.save_stripe_incremental(stripe.engine, str(tmp_path / "s"))
+    server = ReplicationServer(str(tmp_path / "ck"), log, port=0)
+    server.start()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    n = iter(range(100))
+    calls = [
+        lambda **d: FollowerService(str(tmp_path / "ck"), log_path=log, **d),
+        lambda **d: FollowerService(str(tmp_path / f"net{next(n)}"), leader_url=server.url,
+                                    transport_timeout=5.0, **d),
+        lambda **d: StripeEngine(cluster, any_port, stripe=(0, 2), **d),
+        lambda **d: StripeFollower(cluster, any_port, stripe=(0, 2), **d),
+        lambda **d: persist.load_stripe_incremental(str(tmp_path / "s"), (1, 2), **d),
+        lambda **d: RecoveryManager(str(tmp_path / "sck")).recover_stripe((1, 2), **d),
+    ]
+    try:
+        for call in calls:
+            with pytest.raises(BackendError, match="no CUDA device"):
+                call()
+            call(device="cpu")
+    finally:
+        server.close()
+    with pytest.raises(BackendChainExhausted, match="no CUDA device"):
+        resilient_verify(cluster, any_port)
+    host = kvt.VerifyConfig(compute_ports=False, backend_options=(("device", "cpu"),))
+    assert resilient_verify(cluster, host).reach.shape == (20, 20)
+
+
 def test_importing_the_serving_plane_loads_no_yaml_and_no_jax():
     code = (
         "import sys, kubernetes_verification_tpu_torch.serve, "
+        "kubernetes_verification_tpu_torch.serve.stripes, "
+        "kubernetes_verification_tpu_torch.serve.transport, "
+        "kubernetes_verification_tpu_torch.serve.ingress, "
+        "kubernetes_verification_tpu_torch.serve.autoscale, "
+        "kubernetes_verification_tpu_torch.parallel, "
+        "kubernetes_verification_tpu_torch.resilience.wrapper, "
+        "kubernetes_verification_tpu_torch.observe.fleet, "
+        "kubernetes_verification_tpu_torch.observe.progress, "
         "kubernetes_verification_tpu_torch.observe, "
         "kubernetes_verification_tpu_torch.resilience.faults, "
         "kubernetes_verification_tpu_torch.resilience.breaker; "
