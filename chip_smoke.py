@@ -208,6 +208,28 @@ Phases; any failure exits non-zero before a result line is printed:
     oracle, a forced device loss with chain ``("faulty:torch",)`` reaches
     the caller as ``BackendChainExhausted``, the chain ``("torch", "cpu")``
     is refused with ``ConfigError``, and ``kvtpu_fallbacks_total`` reads 0.
+28. (run right after phase 10, while phases 4, 6, 9 and 10's results are
+    alive) the mesh-sharded paths at world size 1 over NCCL, in this
+    process (``mesh_for()``): ``verify(backend="sharded-packed")`` on the
+    flagship cluster any-port (dst tile 1,024) and with port bitmaps (512):
+    its words == phase 4's and phase 6's over the real columns, its out-
+    and in-degrees and pair count == theirs, bit for bit;
+    ``sharded_packed_closure`` of phase 4's words (tiles 20,000) == phase
+    10's closure;
+    ``policy_pair_masks_sharded`` == phase 9's masks; the dense ``sharded``
+    backend at phase 18's 32,768 pods / 3,277 policies == ``verify(backend=
+    "torch")`` on every field (any-port: ``reach_ports`` with port atoms
+    would be 40 GB there);
+29. four ranks on the one card over gloo with CUDA tensors (NCCL refuses
+    two ranks on one GPU), spawned by the script: on the meshes (4, 1),
+    (2, 2) and (1, 4), the dense and packed backends (any-port and with
+    port bitmaps), the sharded kano reach, ``sharded_packed_closure`` and
+    ``policy_pair_masks_sharded`` on ``random_cluster(8,192 pods, 820
+    policies)`` and ``random_kano(2,000, 200)`` == the world-1 result of
+    the same code, computed first in this process on the card; each rank's
+    times and peak memory are printed (gloo takes the CUDA tensors in
+    every collective: none is staged through the host). A rank that fails
+    or disagrees fails the script, and none outlives the phase.
 
 Phases 9–13 launch neither hand-written kernel (their int8 products are
 ``torch._int_mm`` calls, as the JAX package leaves them to XLA): the counts
@@ -223,15 +245,19 @@ launch ``fused_ports_reach`` never (the dense service's contraction is a
 ``bool_dot``). Phases 25–27 launch ``packed_dir_allow`` in phase 27's
 leader build (exactly twice; a follower bootstrapped from a checkpoint
 launches none, a stripe's contraction is a ``bool_dot``) and
-``fused_ports_reach`` never. Each phase prints its seconds and its peak
-device memory.
+``fused_ports_reach`` never. Phases 28–29 launch neither (the sharded
+paths' products are ``bool_dot`` calls, as the JAX package's are XLA dots
+in ``shard_map`` bodies): the counts are set to 0 before each of their
+steps and must read 0 after, the ranks' included. Each phase prints its
+seconds and its peak device memory.
 
 The second-to-last line is the kernel table as JSON (each kernel's row
 carries its engine build's launches, phase 14's and phase 16's, as
 ``engine_build_launches``, and ``packed_dir_allow``'s its launches in phase
 18's checks as ``dense_check_launches`` and in phase 22's service build as
 ``serve_build_launches``, and its launches in phases 25–27, counted from
-0 at their start, as ``replica_launches``); the last is
+0 at their start, as ``replica_launches``, and each kernel's launches in
+phases 28–29, the ranks' included, as ``sharded_launches``); the last is
 ``{"ok": true, "device": {...}}``. Tolerance everywhere: exact (every output
 is boolean or integer words).
 """
@@ -949,10 +975,11 @@ def host_mask_rows(src8, dst8, rows):
     return shadow, conflict
 
 
-def pair_masks_phase(cluster, enc, dev, smi: str) -> None:
+def pair_masks_phase(cluster, enc, dev, smi: str) -> tuple:
     """Phase 9: the flagship policy-pair masks. ``enc`` is ``cluster``'s
     any-port encoding; the sampled set rows are recomputed from
-    ``cluster``'s model objects."""
+    ``cluster``'s model objects. Returns the masks (phase 28 holds the
+    sharded ones against them)."""
     import numpy as np
 
     import kubernetes_verification_tpu_torch as kvt
@@ -1011,10 +1038,12 @@ def pair_masks_phase(cluster, enc, dev, smi: str) -> None:
     log(f"pairs: 64 sampled policies' shadow and conflict rows == host float64 "
         f"recomputation ({int(want_s.sum())} + {int(want_c.sum())} pairs in those "
         f"rows; {time.perf_counter() - t1:.1f} s on the host)")
+    return shadow, conflict
 
 
-def closure_phase(reach, smi: str) -> None:
-    """Phase 10: the flagship packed closure and the path queries."""
+def closure_phase(reach, smi: str) -> torch.Tensor:
+    """Phase 10: the flagship packed closure and the path queries. Returns
+    the closure's words (phase 28 holds the sharded closure against them)."""
     import numpy as np
 
     import kubernetes_verification_tpu_torch as kvt
@@ -1093,6 +1122,7 @@ def closure_phase(reach, smi: str) -> None:
             f"(level: pairs, 0 = unreachable): "
             + ", ".join(f"{lv}: {c}" for lv, c in enumerate(hist))
             + f" ({time.perf_counter() - tb:.2f} s)")
+    return closed.packed
 
 
 def _block_graph(n: int, block: int, degree: float, rng):
@@ -3633,6 +3663,282 @@ def transport_phase(dev, smi: str) -> int:
     return build[0]
 
 
+#: phase 29: four ranks on the one card over gloo — a reduced cluster (the
+#: flagship's 10 pods per policy) and kano scenario, over every mesh of 4
+SHARD_SMALL = dict(n_pods=8_192, n_policies=820, n_namespaces=20,
+                   p_ipblock_peer=0.0, min_selector_labels=1, seed=0)
+SHARD_KANO = dict(n_containers=2_000, n_policies=200, seed=0)
+SHARD_MESHES = [(4, 1), (2, 2), (1, 4)]
+SHARD_RANKS = 4
+SHARD_TIMEOUT_S = 300
+
+
+def col_counts(words: torch.Tensor) -> "np.ndarray":
+    """int64 [32·W]: set bits per column of int32 [R, W] words, a block of
+    rows unpacked at a time."""
+    from kubernetes_verification_tpu_torch.ops.bits import unpack_words_i8
+
+    cols = words.shape[1] * 32
+    out = torch.zeros(cols, dtype=torch.int64, device=words.device)
+    for r0 in range(0, words.shape[0], 4096):
+        out += unpack_words_i8(words[r0:r0 + 4096], cols).sum(dim=0, dtype=torch.int64)
+    return out.cpu().numpy()
+
+
+def sharded_words_equal(got, want: torch.Tensor, n: int) -> bool:
+    """Host uint32 sharded words [n, W'] == int32 words [n, W] (any
+    device) over the real columns, every pad word of both zero."""
+    import numpy as np
+
+    w = -(-n // 32)
+    got = np.asarray(got)
+    want = want.cpu().numpy().view(np.uint32)
+    return (got.shape[0] == want.shape[0] == n
+            and np.array_equal(got[:, :w], want[:, :w])
+            and not got[:, w:].any() and not want[:, w:].any())
+
+
+def sharded_phase(cluster, enc, main_words, ports_words, closed_words, masks, dev,
+                  smi: str) -> None:
+    """Phase 28: the sharded paths at world size 1 over NCCL, in this
+    process, at full width: ``verify(backend="sharded-packed")`` any-port
+    and with port bitmaps == phases 4 and 6 (words and aggregates, bit for
+    bit), ``sharded_packed_closure`` == phase 10, the dense ``sharded``
+    backend at 32,768 pods == ``verify(backend="torch")``, and
+    ``policy_pair_masks_sharded`` == phase 9. No hand-written kernel."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.ops.closure import packed_row_counts
+
+    t_phase = time.perf_counter()
+    mesh = kvt.mesh_for()
+    log(f"sharded: {mesh}, process group {dist.get_backend()}, world size "
+        f"{dist.get_world_size()}")
+    n = cluster.n_pods
+    # dst tiles: 1,024 any-port; 512 with port bitmaps, the most the port
+    # path's per-tile plane budget allows at R = 19 on 100,000 rows
+    for compute_ports, want, tile in ((False, main_words, 1024), (True, ports_words, 512)):
+        tag = "port bitmaps" if compute_ports else "any-port"
+        with Phase(f"sharded: verify(backend='sharded-packed', {tag})"):
+            t0 = time.perf_counter()
+            res = kvt.verify(cluster, kvt.VerifyConfig(
+                backend="sharded-packed", compute_ports=compute_ports,
+                backend_options=(("keep_matrix", True), ("tile", tile)),
+            ))
+            wall = time.perf_counter() - t0
+        pk = res.packed_result
+        want = want.to(dev)
+        if not sharded_words_equal(pk.packed, want, n):
+            fail(f"sharded: the sharded-packed words ({tag}) differ from the one-shot solve's")
+        rows = packed_row_counts(want).cpu().numpy()
+        if not (np.array_equal(pk.out_degree, rows) and pk.total_pairs == int(rows.sum())
+                and np.array_equal(pk.in_degree, col_counts(want)[:n])):
+            fail(f"sharded: the sharded-packed aggregates ({tag}) differ from the words'")
+        del want
+        log(f"sharded: sharded-packed {tag}: verify {wall:.2f} s (encode "
+            f"{res.timings['encode']:.2f} s, solve {res.timings['solve']:.2f} s: "
+            f"prologue {pk.timings['prologue']:.2f}, maps {pk.timings['maps']:.2f}, sweep "
+            f"of {pk.timings['tiles']} tiles of {tile} {pk.timings['sweep']:.2f}, fetch "
+            f"{pk.timings['fetch']:.2f} s), "
+            f"{pk.total_pairs} pairs; words, out/in-degrees and pairs == the one-shot "
+            f"solve's, bit for bit; {smi}")
+        del res, pk
+        torch.cuda.empty_cache()
+    # N = 100,000 pads to itself, whose 32-multiple divisors are 32·5^k: the
+    # default caps (7,168 / 14,336) snap both tiles to 4,000 (625 products a
+    # pass); 20,000 gives 25 (~8 GB of transients)
+    with Phase("sharded: sharded_packed_closure"):
+        t0 = time.perf_counter()
+        closed = kvt.sharded_packed_closure(mesh, main_words, tile=20_000, dst_tile=20_000)
+        closure_s = time.perf_counter() - t0
+    if not sharded_words_equal(closed, closed_words, n):
+        fail("sharded: sharded_packed_closure differs from phase 10's closure")
+    log(f"sharded: sharded_packed_closure (tiles 20,000) {closure_s:.2f} s == phase 10's "
+        f"closure, bit for bit; {smi}")
+    del closed
+    with Phase("sharded: policy_pair_masks_sharded"):
+        t0 = time.perf_counter()
+        got = kvt.policy_pair_masks_sharded(mesh, enc)
+        pairs_s = time.perf_counter() - t0
+    if not all(np.array_equal(g, w) for g, w in zip(got, masks)):
+        fail("sharded: policy_pair_masks_sharded differs from policy_pair_masks")
+    log(f"sharded: policy_pair_masks_sharded {pairs_s:.2f} s == phase 9's masks; {smi}")
+    dense = kvt.random_cluster(kvt.GeneratorConfig(**DENSE))
+    runs = {}
+    for backend in ("sharded", "torch"):
+        with Phase(f"sharded: verify(backend={backend!r}) at {DENSE['n_pods']} pods"):
+            t0 = time.perf_counter()
+            runs[backend] = kvt.verify(dense, kvt.VerifyConfig(
+                backend=backend, compute_ports=False))
+            runs[backend + "_s"] = time.perf_counter() - t0
+    for f in ("reach", "reach_ports", "selected", "src_sets", "dst_sets",
+              "ingress_isolated", "egress_isolated"):
+        if not np.array_equal(getattr(runs["sharded"], f), getattr(runs["torch"], f)):
+            fail(f"sharded: the dense sharded backend's {f} differs from the torch backend's")
+    log(f"sharded: dense sharded {runs['sharded_s']:.2f} s (solve "
+        f"{runs['sharded'].timings['solve']:.2f} s) == torch {runs['torch_s']:.2f} s "
+        f"(solve {runs['torch'].timings['solve']:.2f} s) on every field at "
+        f"{DENSE['n_pods']} pods / {DENSE['n_policies']} policies; {smi}")
+    del runs, dense
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    SERVE_SUMMARY.append(f"sharded world 1 {phase_s:.1f} s")
+    log(f"sharded: {phase_s:.2f} s; {smi}")
+
+
+def sharded_small(mesh, cluster, encs, kenc) -> tuple:
+    """Phase 29's solves on ``mesh``: ``(arrays, seconds)``. The dense and
+    packed backends (packed any-port and with port bitmaps), the kano
+    reach, the packed closure of the any-port words and the pair masks."""
+    from kubernetes_verification_tpu_torch.backends.base import VerifyConfig
+    from kubernetes_verification_tpu_torch.backends.sharded import ShardedBackend
+    from kubernetes_verification_tpu_torch.backends.sharded_packed import (
+        ShardedPackedBackend,
+    )
+    from kubernetes_verification_tpu_torch.ops.tiled import policy_pair_masks_sharded
+    from kubernetes_verification_tpu_torch.parallel.sharded_closure import (
+        sharded_packed_closure,
+    )
+    from kubernetes_verification_tpu_torch.parallel.sharded_ops import sharded_kano_reach
+
+    out, secs = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        secs[name] = time.perf_counter() - t0
+        return r
+
+    d = timed("sharded", lambda: ShardedBackend(mesh).verify(
+        cluster, VerifyConfig(backend="sharded", compute_ports=False)))
+    for f in ("reach", "selected", "src_sets", "dst_sets", "ingress_isolated",
+              "egress_isolated"):
+        out[f"dense_{f}"] = getattr(d, f)
+    for ports in (False, True):
+        tag = "ports" if ports else "any"
+        r = timed(f"packed_{tag}", lambda: ShardedPackedBackend(mesh).verify(
+            cluster, VerifyConfig(backend="sharded-packed", compute_ports=ports,
+                                  backend_options=(("keep_matrix", True),))))
+        pk = r.packed_result
+        out[f"packed_{tag}"] = pk.packed
+        out[f"out_degree_{tag}"], out[f"in_degree_{tag}"] = pk.out_degree, pk.in_degree
+        out[f"ingress_isolated_{tag}"] = pk.ingress_isolated
+    k, _ = timed("kano", lambda: sharded_kano_reach(mesh, kenc, with_closure=False))
+    out["kano_reach"], out["kano_src"], out["kano_dst"] = k
+    out["closure"] = timed("closure", lambda: sharded_packed_closure(mesh, out["packed_any"]))
+    out["shadow"], out["conflict"] = timed(
+        "pair_masks", lambda: policy_pair_masks_sharded(mesh, encs[False]))
+    return out, secs
+
+
+def _sharded_inputs():
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.encode.encoder import encode_kano
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(**SHARD_SMALL))
+    encs = {p: kvt.encode_cluster(cluster, compute_ports=p) for p in (False, True)}
+    return cluster, encs, encode_kano(*kvt.random_kano(**SHARD_KANO))
+
+
+def _sharded_rank(rank: int, port: int, workdir: str) -> None:
+    """One of phase 29's ranks (spawned): join the gloo group over CUDA
+    tensors on card 0, solve on each mesh, hold every array against the
+    world-1 result the parent wrote, and report."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from kubernetes_verification_tpu_torch.parallel.mesh import init_distributed, mesh_for
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_distributed(f"tcp://127.0.0.1:{port}", SHARD_RANKS, rank, backend="gloo",
+                     device=dev)
+    ref = dict(np.load(f"{workdir}/world1.npz"))
+    inputs = _sharded_inputs()
+    report = {}
+    for shape in SHARD_MESHES:
+        arrays, secs = sharded_small(mesh_for(shape, device=dev, backend="gloo"), *inputs)
+        report[str(shape)] = dict(
+            differ=sorted(k for k, v in arrays.items() if not np.array_equal(v, ref[k])),
+            seconds=secs,
+        )
+    report["launches"] = list(launch_counts())
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(f"{workdir}/rank{rank}.json", "w") as fh:
+        json.dump(report, fh)
+    dist.destroy_process_group()
+
+
+def sharded_ranks_phase(smi: str) -> tuple:
+    """Phase 29: four ranks on the one card over gloo, CUDA tensors (NCCL
+    refuses two ranks on one GPU), spawned by this script; every rank's
+    arrays on the meshes (4, 1), (2, 2) and (1, 4) == the world-1 NCCL
+    result of the same code on the same inputs, computed here first. A
+    rank that fails or disagrees fails the script. Returns the children's
+    launches of the two kernels."""
+    import os
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="kvt-sharded-")
+    with Phase("sharded ranks: world-1 reference"):
+        inputs = _sharded_inputs()
+        ref, secs = sharded_small(kvt.mesh_for(), *inputs)
+        np.savez(os.path.join(tmp.name, "world1.npz"), **ref)
+    log(f"sharded ranks: world-1 reference on {SHARD_SMALL['n_pods']} pods / "
+        f"{SHARD_SMALL['n_policies']} policies and kano {SHARD_KANO['n_containers']} x "
+        f"{SHARD_KANO['n_policies']}: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_sharded_rank, args=(port, tmp.name), nprocs=SHARD_RANKS,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                fail(f"sharded ranks: the {SHARD_RANKS} ranks did not finish in "
+                     f"{SHARD_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    ranks_s = time.perf_counter() - t0
+    launches = [0, 0]
+    for rank in range(SHARD_RANKS):
+        with open(os.path.join(tmp.name, f"rank{rank}.json")) as fh:
+            report = json.load(fh)
+        launches = [a + b for a, b in zip(launches, report.pop("launches"))]
+        peak = report.pop("peak_gib")
+        for shape, r in report.items():
+            if r["differ"]:
+                fail(f"sharded ranks: rank {rank} on mesh {shape} differs from world 1 "
+                     f"on {r['differ']}")
+            log(f"sharded ranks: rank {rank} mesh {shape}: == world 1 on every array; "
+                + ", ".join(f"{k} {v:.2f} s" for k, v in r["seconds"].items()))
+        log(f"sharded ranks: rank {rank} peak device memory {peak:.2f} GiB")
+    tmp.cleanup()
+    if launches != [0, 0]:
+        fail(f"sharded ranks: the ranks launched a hand-written kernel: {launches}")
+    phase_s = time.perf_counter() - t_phase
+    SERVE_SUMMARY.append(f"sharded 4 ranks {phase_s:.1f} s")
+    log(f"sharded ranks: {SHARD_RANKS} gloo ranks on one card, meshes {SHARD_MESHES}, "
+        f"gloo collectives on CUDA tensors (nothing staged through the host): "
+        f"spawn to join {ranks_s:.2f} s; launches packed_dir_allow {launches[0]}, "
+        f"fused_ports_reach {launches[1]}; {phase_s:.2f} s; {smi}")
+    return tuple(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -3664,11 +3970,18 @@ def main() -> int:
     del enc
     torch.cuda.empty_cache()
     verify_phase(dev)
-    pair_masks_phase(cluster, any_enc, dev, smi)
-    del any_enc
-    closure_phase(reach, smi)
+    masks = pair_masks_phase(cluster, any_enc, dev, smi)
+    closed_words = closure_phase(reach, smi)
     main_words = reach.packed  # phase 14's build is held against them
     del reach
+    # phases 28-29 (the sharded paths) count their launches from here
+    reset_counts()
+    sharded_phase(cluster, any_enc, main_words, ports_words, closed_words, masks, dev, smi)
+    del any_enc, closed_words, masks
+    torch.cuda.empty_cache()
+    sharded_launches = tuple(
+        a + b for a, b in zip(launch_counts(), sharded_ranks_phase(smi)))
+    torch.cuda.empty_cache()
     delta_phase(dev)
     kano_phase(dev, smi)
     card_vs_cpu_phase(dev)
@@ -3728,6 +4041,7 @@ def main() -> int:
         "dense_check_launches": dense_launches,
         "serve_build_launches": serve_launches,
         "replica_launches": replica_launches[0],
+        "sharded_launches": sharded_launches[0],
         "max_abs_err": worst,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
@@ -3742,6 +4056,7 @@ def main() -> int:
         "launches": fused_launches,
         "engine_build_launches": ports_engine_launches,
         "replica_launches": replica_launches[1],
+        "sharded_launches": sharded_launches[1],
         "max_abs_err": worst_fused,
         **{k: fused_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
@@ -3749,6 +4064,11 @@ def main() -> int:
     log("serve summary: " + "; ".join(SERVE_SUMMARY) + f"; {smi}")
     log(f"total: {time.perf_counter() - t0:.1f} s; packed_dir_allow: per-launch "
         f"means of the two directions; {smi}")
+    if sharded_launches != (0, 0):
+        fail(f"phases 28-29 launched a hand-written kernel: {sharded_launches}")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # phase 28's world-1 group
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -24,6 +24,8 @@ Entry points run on ``cuda`` unless the caller passes a CPU device::
     containers, policies = kvt.random_kano(1000, 100, seed=0)
     kano = kvt.verify_kano(containers, policies, kvt.VerifyConfig(backend="torch"))
     oracle = kvt.verify(cluster, kvt.VerifyConfig(backend="cpu"))  # host NumPy
+    mesh = kvt.mesh_for()  # every rank of the torch.distributed job (1 here)
+    pk = kvt.sharded_packed_reach(mesh, enc)  # SPMD; or backend="sharded-packed"
 
 The query twins (``ops/batched.py``), the device query state
 (``ops/device_state.py``) and the posture ops (``ops/posture.py``) are
@@ -71,9 +73,20 @@ from .ops.closure import (
     path_upto,
     transitive_closure,
 )
-from .ops.tiled import PackedReach, policy_pair_masks, tiled_k8s_reach
+from .ops.tiled import (
+    PackedReach,
+    policy_pair_masks,
+    policy_pair_masks_sharded,
+    policy_sets_sharded,
+    tiled_k8s_reach,
+)
 from .packed_incremental import PackedIncrementalVerifier, PolicyVectorizer
 from .packed_incremental_ports import PackedPortsIncrementalVerifier, PortUniverseChanged
+from .parallel.mesh import distributed_mesh, init_distributed, mesh_for
+from .parallel.packed_sharded import PackedShardedResult, sharded_packed_reach
+from .parallel.sharded_closure import sharded_packed_closure
+from .backends import sharded as _sharded  # noqa: F401  registers "sharded"
+from .backends import sharded_packed as _sharded_packed  # noqa: F401  registers "sharded-packed"
 
 __all__ = [
     "Cluster",
@@ -91,6 +104,7 @@ __all__ = [
     "PackedIncrementalVerifier",
     "PackedPortsIncrementalVerifier",
     "PackedReach",
+    "PackedShardedResult",
     "Peer",
     "Pod",
     "PortAtom",
@@ -104,17 +118,24 @@ __all__ = [
     "available_backends",
     "bounded_closure_rows",
     "bounded_packed_closure",
+    "distributed_mesh",
     "encode_cluster",
     "encoding_from_arrays",
     "encoding_to_arrays",
     "get_backend",
+    "init_distributed",
+    "mesh_for",
     "packed_closure",
     "packed_closure_delta",
     "path_upto",
     "policy_pair_masks",
+    "policy_pair_masks_sharded",
+    "policy_sets_sharded",
     "random_cluster",
     "random_kano",
     "register_backend",
+    "sharded_packed_closure",
+    "sharded_packed_reach",
     "tiled_k8s_reach",
     "transitive_closure",
     "verify",

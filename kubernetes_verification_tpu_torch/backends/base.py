@@ -4,9 +4,10 @@ The port's own copy of ``kubernetes_verification_tpu.backends.base``: the same
 ``VerifyConfig``, ``PortAtom`` and ``VerifyResult`` (so results of the two
 packages compare field by field), and a registry of its own — registering a
 backend here never touches the JAX package's registry. The built-in backends
-are ``torch``, the dense single-device solve (``backends/device.py``), and
-``cpu``, the object-level NumPy oracle (``backends/cpu.py``); they register
-themselves the first time a backend is looked up.
+are ``torch``, the dense single-device solve (``backends/device.py``),
+``cpu``, the object-level NumPy oracle (``backends/cpu.py``), and the
+mesh-sharded ``sharded`` and ``sharded-packed`` (``backends/sharded*.py``,
+SPMD on ``torch.distributed``); importing the package registers them.
 """
 from __future__ import annotations
 
@@ -185,7 +186,8 @@ def register_backend(name: str, factory: Callable[[], VerifierBackend]) -> None:
 
 
 def _register_builtins() -> None:
-    from . import cpu, device  # noqa: F401  register "cpu" and "torch"
+    # register "cpu", "torch", "sharded" and "sharded-packed"
+    from . import cpu, device, sharded, sharded_packed  # noqa: F401
 
 
 def available_backends() -> List[str]:

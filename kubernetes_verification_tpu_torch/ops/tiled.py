@@ -22,7 +22,8 @@ or on a CUDA device the fused kernel ``ops/kernels.py::fused_ports_reach``.
 ``PackedReach.closure`` closes the packed matrix (``ops/closure.py``), and
 ``policy_pair_masks`` answers the two pairwise policy queries at flagship
 scale from [P, N] per-policy edge sets and their int8 Gram products, without
-the dense [N, N] solve.
+the dense [N, N] solve; ``policy_pair_masks_sharded`` and
+``policy_sets_sharded`` build them over a ``parallel/mesh.py`` mesh.
 """
 from __future__ import annotations
 
@@ -60,6 +61,8 @@ __all__ = [
     "tiled_k8s_reach",
     "kernel_operands",
     "policy_pair_masks",
+    "policy_pair_masks_sharded",
+    "policy_sets_sharded",
     "pack_bool_cols",
     "unpack_cols",
     "unpack_words_i8",
@@ -145,24 +148,36 @@ def _rows(block, lo: int, hi: int):
     return type(block)(**vals)
 
 
-def _peers_by_slot(
+def _slot_counts(
     block: GrantBlock, slots: torch.Tensor, total: int, chunk: int,
     pod_kv, pod_key, ns_kv, ns_key, pod_ns, pol_ns,
 ) -> torch.Tensor:
-    """int8 [total, N]: OR of each slot's grant peer rows (grant ``g`` goes
-    to slot ``slots[g]``), computed in G-chunks so no [G, N] array is ever
-    resident (at 100k pods a full peer matrix alone would be several GB).
-    The slot axis is the policy axis for the any-port solve and the
-    virtual-policy axis for the port-bitmap path. The OR is an int32
-    ``index_add_`` followed by ``> 0``: integer sums are exact whatever the
-    order of the device's atomic adds."""
+    """int32 [total, N]: how many of each slot's grants peer each pod (grant
+    ``g`` goes to slot ``slots[g]``), computed in G-chunks so no [G, N]
+    array is ever resident (at 100k pods a full peer matrix alone would be
+    several GB). The slot axis is the policy axis for the any-port solve
+    and the virtual-policy axis for the port-bitmap path. An int32
+    ``index_add_``: integer sums are exact whatever the order of the
+    device's atomic adds."""
     N = pod_kv.shape[0]
     acc = torch.zeros((total, N), dtype=_I32, device=pod_kv.device)
     for g0 in range(0, block.pol.shape[0], chunk):
         blk = _rows(block, g0, g0 + chunk)
         peers = _grant_peers_full(blk, pod_kv, pod_key, ns_kv, ns_key, pod_ns, pol_ns)
         acc.index_add_(0, slots[g0 : g0 + chunk].long(), peers.to(_I32))
-    return (acc > 0).to(_I8)
+    return acc
+
+
+def _peers_by_slot(
+    block: GrantBlock, slots: torch.Tensor, total: int, chunk: int,
+    pod_kv, pod_key, ns_kv, ns_key, pod_ns, pol_ns,
+) -> torch.Tensor:
+    """int8 [total, N]: OR of each slot's grant peer rows, ``_slot_counts``
+    followed by ``> 0``."""
+    counts = _slot_counts(
+        block, slots, total, chunk, pod_kv, pod_key, ns_kv, ns_key, pod_ns, pol_ns
+    )
+    return (counts > 0).to(_I8)
 
 
 def _sweep_packed(
@@ -685,11 +700,19 @@ def _pair_masks_from_sets(src8: torch.Tensor, dst8: torch.Tensor):
     """``(shadow, conflict)`` bool [P, P] from the [P, N] sets: two int8
     Grams (``share`` co-selection, ``dd`` dst overlap; both operands
     K-contiguous) and the dst popcounts ``dsize``."""
-    P = src8.shape[0]
-    share = bool_dot(src8, src8)
-    dd = bool_dot(dst8, dst8)
-    dsize = dst8.sum(dim=1, dtype=_I32)
-    eye = torch.eye(P, dtype=torch.bool, device=src8.device)
+    return _pair_masks_from_grams(*_grams(src8, dst8))
+
+
+def _grams(src8: torch.Tensor, dst8: torch.Tensor):
+    """``(share, dd, dsize)``: the two int32 [P, P] Grams of the sets and
+    the int32 [P] dst popcounts; sums over the pod axis, so the sharded
+    masks add the ranks' partials."""
+    return bool_dot(src8, src8), bool_dot(dst8, dst8), dst8.sum(dim=1, dtype=_I32)
+
+
+def _pair_masks_from_grams(share: torch.Tensor, dd: torch.Tensor, dsize: torch.Tensor):
+    P = share.shape[0]
+    eye = torch.eye(P, dtype=torch.bool, device=share.device)
     shadow = (share > 0) & (dd == dsize[None, :]) & ~eye
     conflict = (
         (share > 0)
@@ -711,11 +734,9 @@ def _pair_mask_args(
     enc: EncodedCluster, direction_aware_isolation: bool, chunk: int,
     n_pad: int,
 ) -> PairArgs:
-    """Host prologue: grant gates, chunk-aligned grant padding, optional
-    pod-axis padding (+ its validity vector). The pod-axis padding
-    (``n_pad``, ``valid``, ``pad_pods``) is there for the sharded pair
-    masks, which pad N to the mesh (ROADMAP §1 item 10); until those are
-    ported every caller passes ``n_pad=0``."""
+    """Host prologue shared by the one-device and sharded pair-mask
+    entries: grant gates, chunk-aligned grant padding, optional pod-axis
+    padding (+ its validity vector; the sharded masks pad N to the mesh)."""
     P = enc.n_policies
     has_ing = np.bincount(enc.ingress.pol, minlength=P + 1)[:P] > 0
     has_eg = np.bincount(enc.egress.pol, minlength=P + 1)[:P] > 0
@@ -758,3 +779,73 @@ def policy_pair_masks(
     args = _put(_pair_mask_args(enc, direction_aware_isolation, chunk, n_pad=0), dev)
     shadow, conflict = _policy_sets_step(args, chunk=chunk)
     return shadow.cpu().numpy(), conflict.cpu().numpy()
+
+
+def _sharded_set_args(mesh, enc: EncodedCluster, direction_aware_isolation: bool, chunk: int):
+    """The rank's ``PairArgs`` of the sharded Gram-mask and set entries, on
+    its device: N padded to the pod-axis size, the pod-axis leaves cut to
+    the rank's block of ``pods`` (``ip_match``, the one grant leaf with a
+    pod axis, included); the grant stacks whole on every rank."""
+    from ..parallel.mesh import POD_AXIS, pad_amount, rank_slice
+
+    n_pad = pad_amount(enc.n_pods, mesh.shape[POD_AXIS])
+    a = _pair_mask_args(enc, direction_aware_isolation, chunk, n_pad)
+    rows = rank_slice(mesh, POD_AXIS, enc.n_pods + n_pad)
+
+    def cut(block: GrantBlock) -> GrantBlock:
+        if block.ip_match is None:
+            return block
+        return dataclasses.replace(block, ip_match=block.ip_match[:, rows])
+
+    return _put(a._replace(
+        pod_kv=a.pod_kv[rows], pod_key=a.pod_key[rows], pod_ns=a.pod_ns[rows],
+        ingress=cut(a.ingress), egress=cut(a.egress), valid=a.valid[rows],
+    ), mesh.device)
+
+
+def policy_pair_masks_sharded(
+    mesh,
+    enc: EncodedCluster,
+    *,
+    direction_aware_isolation: bool = True,
+    chunk: int = 2048,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """``policy_pair_masks`` over a ``(pods, grants)`` mesh, on every rank:
+    each rank builds the [P, n_loc] src/dst sets of its block of ``pods``
+    and their Gram partials; an int32 sum over ``pods`` gives the whole
+    Grams (the JAX package leaves this split to GSPMD: per-device dots plus
+    a ``psum``). The grant stacks are whole on every rank, and the ranks of
+    one ``grants`` column repeat the same work, as the replicated leaves do
+    there. Only the [P, P] masks come back to the host."""
+    from ..parallel.mesh import POD_AXIS, psum
+
+    src8, dst8 = _policy_sets(
+        _sharded_set_args(mesh, enc, direction_aware_isolation, chunk), chunk=chunk
+    )
+    grams = [psum(mesh, g, POD_AXIS) for g in _grams(src8, dst8)]
+    shadow, conflict = _pair_masks_from_grams(*grams)
+    return shadow.cpu().numpy(), conflict.cpu().numpy()
+
+
+def policy_sets_sharded(
+    mesh,
+    enc: EncodedCluster,
+    *,
+    direction_aware_isolation: bool = True,
+    chunk: int = 2048,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Materialise the per-policy ``(src_sets, dst_sets)`` bool [P, N] from
+    a sharded build (the kano ``working_select`` / ``working_allow`` sets),
+    on every rank: the rank's [P, n_loc] blocks gathered over ``pods``. The
+    result ships to the host, so the caller bounds P·N (the sharded-packed
+    result's ``materialize_policy_sets`` enforces a byte budget)."""
+    from ..parallel.mesh import POD_AXIS, all_gather
+
+    src8, dst8 = _policy_sets(
+        _sharded_set_args(mesh, enc, direction_aware_isolation, chunk), chunk=chunk
+    )
+    n = enc.n_pods
+    return tuple(
+        (all_gather(mesh, x, POD_AXIS, dim=1)[:, :n] > 0).cpu().numpy()
+        for x in (src8, dst8)
+    )

@@ -708,3 +708,37 @@ def test_stripes_on_card_match_cpu(cuda_device, n, k, tmp_path):
     card[1].checkpoint(CheckpointManager(str(tmp_path), fsync=False))
     res = RecoveryManager(str(tmp_path)).recover_stripe((1, k), config=cfg, device="cpu")
     assert torch.equal(res.service.engine._ing_count, host[1].engine._ing_count)
+
+
+def test_sharded_packed_world_one_nccl_matches_tiled(cuda_device):
+    """A world-1 NCCL ``sharded-packed`` solve equals ``tiled_k8s_reach`` on
+    the card, any-port and with port bitmaps, and its packed closure equals
+    ``PackedReach.closure``; run in a child process, so this one joins no
+    process group."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import numpy as np, torch.distributed as dist, kubernetes_verification_tpu_torch as k\n"
+        "c = k.random_cluster(k.GeneratorConfig(n_pods=700, n_policies=60, n_namespaces=4,"
+        " p_ports=0.7, seed=3))\n"
+        "m = k.mesh_for()\n"
+        "assert dist.get_backend() == 'nccl' and m.device.type == 'cuda'\n"
+        "for ports in (False, True):\n"
+        "    enc = k.encode_cluster(c, compute_ports=ports)\n"
+        "    pk = k.sharded_packed_reach(m, enc, tile=64, chunk=32, keep_matrix=True)\n"
+        "    ref = k.tiled_k8s_reach(enc)\n"
+        "    w = -(-enc.n_pods // 32)\n"
+        "    assert np.array_equal(pk.packed[:, :w], ref.packed[:, :w]), ports\n"
+        "    assert pk.total_pairs == int(ref.out_degree().sum()), ports\n"
+        "    assert np.array_equal(pk.ingress_isolated, ref.ingress_isolated), ports\n"
+        "closed = k.sharded_packed_closure(m, pk.packed)\n"
+        "assert np.array_equal(closed[:, :w], ref.closure().packed[:, :w])\n"
+        "dist.destroy_process_group()\n"
+        "print('ok')\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stdout + proc.stderr

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import kubernetes_verification_tpu_torch as kvt
-from kubernetes_verification_tpu_torch.resilience.errors import BackendError
+from kubernetes_verification_tpu_torch.resilience.errors import BackendError, ConfigError
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_ROOT, "kubernetes_verification_tpu_torch")
@@ -284,3 +284,67 @@ def test_importing_the_serving_plane_loads_no_yaml_and_no_jax():
         [sys.executable, "-c", code], cwd=_ROOT, capture_output=True, text=True
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sharded_paths_refuse_the_cpu_without_a_gpu(monkeypatch):
+    """Both sharded backends, ``mesh_for`` and ``init_distributed`` default
+    to ``cuda:<local rank>``: without a GPU they raise before joining any
+    process group."""
+    import torch.distributed as dist
+
+    from kubernetes_verification_tpu_torch.parallel.mesh import init_distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(seed=7, n_pods=20, n_policies=4))
+    for backend in ("sharded", "sharded-packed"):
+        with pytest.raises(BackendError, match="no CUDA device"):
+            kvt.verify(cluster, kvt.VerifyConfig(backend=backend))
+    containers, policies = kvt.random_kano(8, 3, seed=1)
+    with pytest.raises(BackendError, match="no CUDA device"):
+        kvt.verify_kano(containers, policies, kvt.VerifyConfig(backend="sharded"))
+    for call in (kvt.mesh_for, lambda: kvt.mesh_for((1, 1)), init_distributed,
+                 lambda: kvt.mesh_for(device="cuda")):
+        with pytest.raises(BackendError, match="no CUDA device"):
+            call()
+    assert not dist.is_initialized()
+    assert {"sharded", "sharded-packed"} <= set(kvt.available_backends())
+    assert kvt.available_backends() == ["cpu", "sharded", "sharded-packed", "torch"]
+
+
+def test_a_mesh_that_is_not_the_world_raises():
+    """``mesh_for`` never shrinks a mesh to the world: (4, 2) in a 1-rank
+    job is a ``ConfigError``, refused before joining any process group. In
+    a fresh process (process groups are per process), a 1-rank gloo job
+    runs both sharded backends on the CPU and equals the ``torch``
+    backend."""
+    import torch.distributed as dist
+
+    with pytest.raises(ConfigError, match=r"mesh shape \(4, 2\) != 1 ranks"):
+        kvt.mesh_for((4, 2), device="cpu")
+    with pytest.raises(ConfigError, match=r"mesh shape \(2, 1\) != 1 ranks"):
+        kvt.mesh_for(2, device="cpu")
+    assert not dist.is_initialized()
+    code = (
+        "import numpy as np, torch.distributed as dist, kubernetes_verification_tpu_torch as k\n"
+        "from kubernetes_verification_tpu_torch.resilience.errors import ConfigError\n"
+        "c = k.random_cluster(k.GeneratorConfig(seed=8, n_pods=30, n_policies=6))\n"
+        "cpu = (('device', 'cpu'),)\n"
+        "want = k.verify(c, k.VerifyConfig(backend_options=cpu)).reach\n"
+        "for b in ('sharded', 'sharded-packed'):\n"
+        "    got = k.verify(c, k.VerifyConfig(backend=b, backend_options=cpu)).reach\n"
+        "    assert np.array_equal(got, want), b\n"
+        "m = k.mesh_for(device='cpu')\n"
+        "assert dist.get_world_size() == 1 and dict(m.shape) == {'pods': 1, 'grants': 1}\n"
+        "assert m is k.mesh_for((1, 1), device='cpu') is k.distributed_mesh(device='cpu')\n"
+        "try:\n"
+        "    k.mesh_for((4, 2), device='cpu')\n"
+        "    raise SystemExit('no refusal')\n"
+        "except ConfigError:\n"
+        "    pass\n"
+        "dist.destroy_process_group()\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=_ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stdout + proc.stderr
