@@ -230,6 +230,28 @@ Phases; any failure exits non-zero before a result line is printed:
     times and peak memory are printed (gloo takes the CUDA tensors in
     every collective: none is staged through the host). A rank that fails
     or disagrees fails the script, and none outlives the phase.
+30. (right after phase 29, on phase 28's world-1 NCCL group) both serving
+    engines with ``mesh=`` on the ``(1, 1)`` mesh at the flagship, uncut:
+    ``PackedIncrementalVerifier(keep_matrix=True)`` and
+    ``PackedPortsIncrementalVerifier`` built beside their one-device
+    engines, a scripted stream with one op of each kind (policy add /
+    update / remove, pod relabels, removes and adds, a new namespace, its
+    relabel and removal) applied to both, the words equal after every op;
+    the any-port engine built again matrix-free, the same stream,
+    ``sweep_dirty`` and ``solve_stripe(0, Np)`` == the one-device words;
+    each mesh engine checkpointed and resumed on one device, its state ==
+    the mesh engine's, bit for bit. Build seconds split, each op's latency
+    (host clock after a sync), the stripe seconds and peak memory printed;
+31. four gloo ranks on the one card (as phase 29) at phase 29's 8,192 pods
+    / 820 policies, meshes (4, 1), (2, 2) and (1, 4): both engines'
+    gathered state after the build and every op of the stream == the
+    world-1 engines' (computed first in this process), and the (2, 2)
+    checkpoints resumed at (4, 1);
+32. ``verify(backend="datalog")`` on the card (``torch.einsum`` rules,
+    fp32) at BASELINE config 3 (``random_cluster(10,000, 1,000, 20
+    namespaces, seed 0)``, any-port) == ``verify(backend="torch")`` on
+    every field, and the kano program at ``random_kano(10,000, 1,000)`` ==
+    ``verify_kano(backend="torch")``, with their ``timings``.
 
 Phases 9–13 launch neither hand-written kernel (their int8 products are
 ``torch._int_mm`` calls, as the JAX package leaves them to XLA): the counts
@@ -248,8 +270,12 @@ launches none, a stripe's contraction is a ``bool_dot``) and
 ``fused_ports_reach`` never. Phases 28–29 launch neither (the sharded
 paths' products are ``bool_dot`` calls, as the JAX package's are XLA dots
 in ``shard_map`` bodies): the counts are set to 0 before each of their
-steps and must read 0 after, the ranks' included. Each phase prints its
-seconds and its peak device memory.
+steps and must read 0 after, the ranks' included. Phases 30–32 launch
+neither in their mesh engines' and datalog's calls (the mesh engines'
+products are ``bool_dot`` calls, as the JAX engines' are XLA dots under
+GSPMD; the datalog rules are ``torch.einsum``); phase 30's one-device
+engine builds beside them launch the kernels and are not counted. Each
+phase prints its seconds and its peak device memory.
 
 The second-to-last line is the kernel table as JSON (each kernel's row
 carries its engine build's launches, phase 14's and phase 16's, as
@@ -257,7 +283,8 @@ carries its engine build's launches, phase 14's and phase 16's, as
 18's checks as ``dense_check_launches`` and in phase 22's service build as
 ``serve_build_launches``, and its launches in phases 25–27, counted from
 0 at their start, as ``replica_launches``, and each kernel's launches in
-phases 28–29, the ranks' included, as ``sharded_launches``); the last is
+phases 28–29, the ranks' included, as ``sharded_launches``, and in
+phases 30–32 as ``mesh_engine_launches``); the last is
 ``{"ok": true, "device": {...}}``. Tolerance everywhere: exact (every output
 is boolean or integer words).
 """
@@ -3939,6 +3966,399 @@ def sharded_ranks_phase(smi: str) -> tuple:
     return tuple(launches)
 
 
+# ---------------------------------------------------------------------------
+# phases 30-32: the serving engines on a mesh, and the datalog backend
+# ---------------------------------------------------------------------------
+
+#: phase 31: phase 29's cluster and ranks (4 processes share the card)
+MESH_ENGINE_MESHES = [(4, 1), (2, 2), (1, 4)]
+MESH_ENGINE_TIMEOUT_S = 300
+#: BASELINE config 3: 10k pods / 1k policies, multi-namespace +
+#: namespaceSelector (any-port: port bitmaps are config 4's)
+CONFIG3 = dict(n_pods=10_000, n_policies=1_000, n_namespaces=20, seed=0)
+
+
+def _mesh_stream(cluster, ref_eng, ports: bool, rng) -> list:
+    """Phases 30-31's scripted diff stream, one op of each kind at least,
+    as ``(method, args)`` pairs chosen on ``ref_eng`` (every engine of the
+    phase holds the same host state, so the same pairs apply to each): a
+    policy add, update and remove (for the ports engine copies that leave
+    their segments free rows), pod relabels to another pod's labels and to
+    unseen pairs, three pod removes, a new namespace with two pods added
+    into it and one more elsewhere (the tombstones reused: no pod-axis
+    grow), its relabel, its pods' removal and the namespace's."""
+    import dataclasses
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    pols = list(cluster.policies)
+    order = iter(rng.permutation(len(pols)))
+    ops = []
+    while True:
+        p = dataclasses.replace(pols[next(order)], name="mesh-add-0")
+        if not ports or _fits(ref_eng, p, {}):
+            ops.append(("add_policy", (p,)))
+            break
+    while True:
+        tgt, src = pols[next(order)], pols[next(order)]
+        p = dataclasses.replace(tgt, ingress=src.ingress, egress=src.egress,
+                                policy_types=src.policy_types)
+        if not ports or _fits(ref_eng, p, ref_eng._pol_rows[ref_eng._key(tgt)]):
+            ops.append(("update_policy", (p,)))
+            break
+    gone = pols[next(order)]
+    ops.append(("remove_policy", (gone.namespace, gone.name)))
+    live = ref_eng.active_indices()
+    a, b, c = (int(i) for i in rng.choice(live, 3, replace=False))
+    ops.append(("update_pod_labels", (a, dict(ref_eng.pods[c].labels))))
+    ops.append(("update_pod_labels", (b, {"mesh": "unseen", "app": "alpha"})))
+    victims = [ref_eng.pods[int(i)] for i in rng.choice(live, 3, replace=False)]
+    ops += [("remove_pod", (p.namespace, p.name)) for p in victims]
+    ns = cluster.namespaces
+    ops.append(("add_namespace", (kvt.Namespace("mesh-ns", dict(ns[3].labels)),)))
+    ported = [p for p in cluster.pods if p.container_ports] if ports else []
+    for k, space in enumerate(("mesh-ns", "mesh-ns", ns[5].name)):
+        donor = cluster.pods[int(rng.integers(len(cluster.pods)))]
+        cports = dict(ported[int(rng.integers(len(ported)))].container_ports) if ported else {}
+        ops.append(("add_pod", (kvt.Pod(f"mesh-pod-{k}", space, dict(donor.labels),
+                                        ip=donor.ip, container_ports=cports),)))
+    ops.append(("update_namespace_labels", ("mesh-ns", dict(ns[7].labels))))
+    ops += [("remove_pod", ("mesh-ns", f"mesh-pod-{k}")) for k in range(2)]
+    ops.append(("remove_namespace", ("mesh-ns",)))
+    return ops
+
+
+def _state_digests(state) -> dict:
+    """sha256 of each array of a ``state_dict()`` (the ports engine's
+    ``(arrays, meta)``: the meta as sorted JSON)."""
+    import hashlib
+
+    import numpy as np
+
+    meta = None
+    if isinstance(state, tuple):
+        state, meta = state
+    out = {k: hashlib.sha256(np.ascontiguousarray(np.asarray(v)).tobytes()).hexdigest()
+           for k, v in state.items()}
+    if meta is not None:
+        out["__meta__"] = hashlib.sha256(json.dumps(meta, sort_keys=True).encode()).hexdigest()
+    return out
+
+
+def _same_states(a, b) -> list:
+    """The keys on which two ``state_dict()``s differ (digests compared)."""
+    da, db = _state_digests(a), _state_digests(b)
+    return sorted(k for k in set(da) | set(db) if da.get(k) != db.get(k))
+
+
+def mesh_engine_phase(cluster, mesh, dev, smi: str) -> tuple:
+    """Phase 30: both serving engines on a ``(1, 1)`` NCCL mesh at the
+    flagship, uncut, against the one-device engines after every op of the
+    same stream; the any-port engine matrix-free too; a mesh checkpoint
+    resumed on one device. Returns the launches of the mesh engines'
+    calls (the one-device builds, which launch the kernels, excluded)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.ops.bits import to_host_words
+    from kubernetes_verification_tpu_torch.ops.closure import _fit_tile
+    from kubernetes_verification_tpu_torch.utils import persist
+
+    t_phase = time.perf_counter()
+    launches = [0, 0]
+    tmp = tempfile.TemporaryDirectory(prefix="kvt-mesh-engine-")
+    for ports in (False, True):
+        tag = "ports mesh engine" if ports else "mesh engine"
+        cls = kvt.PackedPortsIncrementalVerifier if ports else kvt.PackedIncrementalVerifier
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        one = cls(cluster, device=dev)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        reset_counts()
+        kw = {} if ports else {"keep_matrix": True}
+        t0 = time.perf_counter()
+        eng = cls(cluster, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        log(f"{tag}: one-device build {one_s:.2f} s; mesh {mesh.shape} build {build_s:.2f} s ("
+            + ", ".join(f"{k} {v:.2f} s" for k, v in eng.build_timings.items())
+            + f"; the packed words by dst sub-stripes of {eng._shards.step()} columns), Np "
+            f"{eng._n_padded}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+        if not torch.equal(eng._packed, one._packed):
+            fail(f"{tag}: the mesh build's words differ from the one-device build's")
+        ops = _mesh_stream(cluster, one, ports, np.random.default_rng(30))
+        mf = None
+        if not ports:
+            t0 = time.perf_counter()
+            mf = cls(cluster, mesh=mesh, keep_matrix=False)
+            torch.cuda.synchronize()
+            log(f"{tag}: matrix-free mesh build {time.perf_counter() - t0:.2f} s")
+        lat: dict = {}
+        for method, args in ops:
+            _timed(lat, method, lambda: getattr(eng, method)(*args))
+            getattr(one, method)(*args)
+            if mf is not None:
+                getattr(mf, method)(*args)
+            if not torch.equal(eng._packed, one._packed):
+                fail(f"{tag}: the words differ from the one-device engine's after {method}")
+        log(f"{tag}: {len(ops)} ops, the words == the one-device engine's after every op; "
+            + ", ".join(f"{k} {statistics.median(v) * 1e3:.1f} ms"
+                        + (f" (x{len(v)})" if len(v) > 1 else "") for k, v in lat.items())
+            + " (host clock after a device sync)")
+        if mf is not None:
+            width = _fit_tile(mf._n_padded, 4352)
+            t0 = time.perf_counter()
+            swept = 0
+            for d0, words in mf.sweep_dirty(width):
+                if not _engine_words_equal(one, words, d0):
+                    fail(f"{tag}: matrix-free sweep_dirty stripe {d0} differs")
+                swept += 1
+            sweep_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            whole = mf.solve_stripe(0, mf._n_padded)
+            stripe_s = time.perf_counter() - t0
+            if not np.array_equal(whole, to_host_words(one._packed[: one.n_pods])):
+                fail(f"{tag}: matrix-free solve_stripe(0, Np) differs from the one-device words")
+            log(f"{tag}: matrix-free: sweep_dirty({width}) {swept} stripes {sweep_s:.2f} s, "
+                f"solve_stripe(0, {mf._n_padded}) {stripe_s:.2f} s == the one-device words")
+            del mf, whole
+        path = os.path.join(tmp.name, "ports" if ports else "any")
+        save = persist.save_ports_incremental if ports else persist.save_packed_incremental
+        load = persist.load_ports_incremental if ports else persist.load_packed_incremental
+        t0 = time.perf_counter()
+        save(eng, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load(path, device=dev)
+        load_s = time.perf_counter() - t0
+        differ = _same_states(eng.state_dict(), back.state_dict())
+        differ += _same_states(one.state_dict(), back.state_dict())
+        if differ:
+            fail(f"{tag}: the mesh checkpoint resumed on one device differs on {differ}")
+        launches = [a + b for a, b in zip(launches, launch_counts())]
+        log(f"{tag}: mesh checkpoint {save_s:.2f} s, resumed on one device {load_s:.2f} s: "
+            f"its state == the mesh engine's == the one-device engine's, bit for bit; "
+            f"launches of the mesh calls packed_dir_allow {launch_counts()[0]}, "
+            f"fused_ports_reach {launch_counts()[1]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+        del one, eng, back
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    SERVE_SUMMARY.append(f"mesh engines world 1 {phase_s:.1f} s")
+    log(f"mesh engines: {phase_s:.2f} s; {smi}")
+    return tuple(launches)
+
+
+def _mesh_engine_run(mesh, ports: bool, cluster, ops_fn, save=None, resume=None) -> tuple:
+    """Phase 31's work on one mesh: an engine built (or resumed from
+    ``resume``) on ``mesh``, the stream applied; the state digests after
+    the build and each op, and the seconds."""
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.utils import persist
+
+    cls = kvt.PackedPortsIncrementalVerifier if ports else kvt.PackedIncrementalVerifier
+    t0 = time.perf_counter()
+    if resume is not None:
+        load = persist.load_ports_incremental if ports else persist.load_packed_incremental
+        eng = load(resume, mesh=mesh)
+        return [_state_digests(eng.state_dict())], {"resume": time.perf_counter() - t0}
+    kw = {} if ports else {"keep_matrix": True}
+    eng = cls(cluster, mesh=mesh, **kw)
+    secs = {"build": time.perf_counter() - t0}
+    digests = [_state_digests(eng.state_dict())]
+    t0 = time.perf_counter()
+    for method, args in ops_fn(eng):
+        getattr(eng, method)(*args)
+        digests.append(_state_digests(eng.state_dict()))
+    secs["ops"] = time.perf_counter() - t0
+    if save is not None:
+        (persist.save_ports_incremental if ports else persist.save_packed_incremental)(eng, save)
+    return digests, secs
+
+
+def _mesh_engine_inputs():
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(**SHARD_SMALL))
+    return cluster, lambda ports: (lambda eng: _mesh_stream(
+        cluster, eng, ports, np.random.default_rng(31)))
+
+
+def _mesh_engine_rank(rank: int, port: int, workdir: str, device: str = "cuda:0") -> None:
+    """One of phase 31's ranks (spawned): both engines on each mesh, their
+    gathered state after every op held against the world-1 digests the
+    parent wrote; the (2, 2) checkpoint resumed at (4, 1)."""
+    import torch.distributed as dist
+
+    from kubernetes_verification_tpu_torch.parallel.mesh import init_distributed, mesh_for
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    init_distributed(f"tcp://127.0.0.1:{port}", SHARD_RANKS, rank, backend="gloo",
+                     device=dev)
+    with open(f"{workdir}/world1.json") as fh:
+        ref = json.load(fh)
+    cluster, ops_fn = _mesh_engine_inputs()
+    report = {}
+    for ports in (False, True):
+        kind = "ports" if ports else "any"
+        for shape in MESH_ENGINE_MESHES:
+            mesh = mesh_for(shape, device=dev, backend="gloo")
+            ck = f"{workdir}/ck-{kind}" if shape == (2, 2) else None
+            digests, secs = _mesh_engine_run(mesh, ports, cluster, ops_fn(ports), save=ck)
+            differ = [i for i, (a, b) in enumerate(zip(digests, ref[kind])) if a != b]
+            report[f"{kind} {shape}"] = dict(differ=differ, n=len(digests), seconds=secs)
+        digests, secs = _mesh_engine_run(mesh_for((4, 1), device=dev, backend="gloo"), ports,
+                                         cluster, None, resume=f"{workdir}/ck-{kind}")
+        report[f"{kind} (2, 2) -> (4, 1)"] = dict(
+            differ=[0] if digests[0] != ref[kind][-1] else [], n=1, seconds=secs)
+    report["launches"] = list(launch_counts())
+    report["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                          if dev.type == "cuda" else 0.0)
+    with open(f"{workdir}/rank{rank}.json", "w") as fh:
+        json.dump(report, fh)
+    dist.destroy_process_group()
+
+
+def mesh_engine_ranks_phase(smi: str, device: str = "cuda:0") -> tuple:
+    """Phase 31: four gloo ranks on the one card (as phase 29), both
+    engines on the meshes (4, 1), (2, 2) and (1, 4) at phase 29's 8,192
+    pods / 820 policies: every rank's gathered state after the build and
+    every op == the world-1 NCCL engines' (digests of every array), and the
+    (2, 2) checkpoints resumed at (4, 1) == their final state. Returns the
+    ranks' launches."""
+    import os
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="kvt-mesh-ranks-")
+    cluster, ops_fn = _mesh_engine_inputs()
+    ref, secs = {}, {}
+    reset_counts()
+    for ports in (False, True):
+        kind = "ports" if ports else "any"
+        ref[kind], secs[kind] = _mesh_engine_run(kvt.mesh_for(), ports, cluster, ops_fn(ports))
+    parent = launch_counts()
+    with open(os.path.join(tmp.name, "world1.json"), "w") as fh:
+        json.dump(ref, fh)
+    log(f"mesh engine ranks: world-1 reference at {SHARD_SMALL['n_pods']} pods / "
+        f"{SHARD_SMALL['n_policies']} policies, {len(ref['any']) - 1} ops: "
+        + ", ".join(f"{k} " + ", ".join(f"{a} {b:.2f} s" for a, b in v.items())
+                    for k, v in secs.items()))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_mesh_engine_rank, args=(port, tmp.name, device),
+                             nprocs=SHARD_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_ENGINE_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                fail(f"mesh engine ranks: the {SHARD_RANKS} ranks did not finish in "
+                     f"{MESH_ENGINE_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    ranks_s = time.perf_counter() - t0
+    launches = list(parent)
+    for rank in range(SHARD_RANKS):
+        with open(os.path.join(tmp.name, f"rank{rank}.json")) as fh:
+            report = json.load(fh)
+        launches = [a + b for a, b in zip(launches, report.pop("launches"))]
+        peak = report.pop("peak_gib")
+        for what, r in report.items():
+            if r["differ"]:
+                fail(f"mesh engine ranks: rank {rank} {what} differs from world 1 after "
+                     f"ops {r['differ']}")
+            if rank == 0:
+                log(f"mesh engine ranks: {what}: {r['n']} states == world 1; "
+                    + ", ".join(f"{k} {v:.2f} s" for k, v in r["seconds"].items()))
+        log(f"mesh engine ranks: rank {rank} peak device memory {peak:.2f} GiB")
+    tmp.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    SERVE_SUMMARY.append(f"mesh engines 4 ranks {phase_s:.1f} s")
+    log(f"mesh engine ranks: {SHARD_RANKS} gloo ranks on one card, meshes "
+        f"{MESH_ENGINE_MESHES}, every rank's state == world 1 after every op, the (2, 2) "
+        f"checkpoints resumed at (4, 1); spawn to join {ranks_s:.2f} s; launches "
+        f"packed_dir_allow {launches[0]}, fused_ports_reach {launches[1]}; "
+        f"{phase_s:.2f} s; {smi}")
+    return tuple(launches)
+
+
+def datalog_phase(dev, smi: str) -> tuple:
+    """Phase 32: ``verify(backend="datalog")`` on the card (torch einsum
+    rules in fp32) at BASELINE config 3 == ``verify(backend="torch")`` on
+    every field, and the kano program at ``random_kano(10,000, 1,000)`` ==
+    ``verify_kano(backend="torch")``. Returns the datalog calls'
+    launches."""
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(**CONFIG3))
+    cfg = dict(compute_ports=False, backend_options=(("device", str(dev)),))
+    reset_counts()
+    t0 = time.perf_counter()
+    got = kvt.verify(cluster, kvt.VerifyConfig(backend="datalog", **cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = kvt.verify(cluster, kvt.VerifyConfig(backend="torch", **cfg))
+    for f in ("reach", "selected", "src_sets", "dst_sets", "ingress_isolated",
+              "egress_isolated"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            fail(f"datalog: {f} differs from the torch backend's")
+    log(f"datalog: verify(backend='datalog') at {CONFIG3['n_pods']} pods / "
+        f"{CONFIG3['n_policies']} policies, {CONFIG3['n_namespaces']} namespaces: {wall:.2f} s "
+        f"(program build {got.timings['encode']:.2f} s, solve {got.timings['solve']:.2f} s), "
+        f"{int(got.reach.sum())} pairs, peak device memory {peak:.2f} GiB: reach, selected, "
+        f"src/dst sets and isolation == the torch backend's; {smi}")
+    containers, policies = kvt.random_kano(10_000, 1_000, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    kgot = kvt.verify_kano(containers, policies, kvt.VerifyConfig(
+        backend="datalog", backend_options=cfg["backend_options"]))
+    torch.cuda.synchronize()
+    kwall = time.perf_counter() - t0
+    launches = tuple(a + b for a, b in zip(launches, launch_counts()))
+    kwant = kvt.verify_kano(*kvt.random_kano(10_000, 1_000, seed=0), kvt.VerifyConfig(
+        backend="torch", backend_options=cfg["backend_options"]))
+    for f in ("reach", "src_sets", "dst_sets"):
+        if not np.array_equal(getattr(kgot, f), getattr(kwant, f)):
+            fail(f"datalog: the kano program's {f} differs from verify_kano's")
+    log(f"datalog: kano program at 10,000 containers / 1,000 policies {kwall:.2f} s "
+        f"(program build {kgot.timings['encode']:.2f} s, solve {kgot.timings['solve']:.2f} s), "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB: reach and "
+        f"src/dst sets == verify_kano(backend='torch'); launches packed_dir_allow "
+        f"{launches[0]}, fused_ports_reach {launches[1]}; {time.perf_counter() - t_phase:.2f} s; {smi}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -3981,6 +4401,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded_launches = tuple(
         a + b for a, b in zip(launch_counts(), sharded_ranks_phase(smi)))
+    torch.cuda.empty_cache()
+    # phases 30-32 (this slice) count the mesh engines' and datalog's calls
+    mesh_engine_launches = mesh_engine_phase(cluster, kvt.mesh_for(), dev, smi)
+    torch.cuda.empty_cache()
+    mesh_engine_launches = tuple(
+        a + b for a, b in zip(mesh_engine_launches, mesh_engine_ranks_phase(smi)))
+    torch.cuda.empty_cache()
+    mesh_engine_launches = tuple(
+        a + b for a, b in zip(mesh_engine_launches, datalog_phase(dev, smi)))
     torch.cuda.empty_cache()
     delta_phase(dev)
     kano_phase(dev, smi)
@@ -4042,6 +4471,7 @@ def main() -> int:
         "serve_build_launches": serve_launches,
         "replica_launches": replica_launches[0],
         "sharded_launches": sharded_launches[0],
+        "mesh_engine_launches": mesh_engine_launches[0],
         "max_abs_err": worst,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
@@ -4057,6 +4487,7 @@ def main() -> int:
         "engine_build_launches": ports_engine_launches,
         "replica_launches": replica_launches[1],
         "sharded_launches": sharded_launches[1],
+        "mesh_engine_launches": mesh_engine_launches[1],
         "max_abs_err": worst_fused,
         **{k: fused_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
@@ -4066,6 +4497,8 @@ def main() -> int:
         f"means of the two directions; {smi}")
     if sharded_launches != (0, 0):
         fail(f"phases 28-29 launched a hand-written kernel: {sharded_launches}")
+    if mesh_engine_launches != (0, 0):
+        fail(f"phases 30-32 launched a hand-written kernel: {mesh_engine_launches}")
     import torch.distributed as dist
 
     dist.destroy_process_group()  # phase 28's world-1 group

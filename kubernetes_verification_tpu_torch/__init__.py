@@ -27,16 +27,27 @@ Entry points run on ``cuda`` unless the caller passes a CPU device::
     mesh = kvt.mesh_for()  # every rank of the torch.distributed job (1 here)
     pk = kvt.sharded_packed_reach(mesh, enc)  # SPMD; or backend="sharded-packed"
 
-The query twins (``ops/batched.py``), the device query state
-(``ops/device_state.py``) and the posture ops (``ops/posture.py``) are
-imported from their modules. ``ingest`` and ``utils.persist`` are host-only
-(PyYAML for YAML manifests) and are not imported here; neither is the
-serving plane, ``serve`` (``VerificationService``, ``QueryEngine``,
+The serving engines take ``mesh=`` to shard their state over a
+``(pods, grants)`` mesh, SPMD on ``torch.distributed`` (every rank applies
+the same diffs)::
+
+    sharded = kvt.PackedIncrementalVerifier(cluster, mesh=kvt.mesh_for())
+
+The ``datalog`` backend (``datalog/``) evaluates the kubesv Datalog program
+with ``torch.einsum`` rules on the card. The query twins
+(``ops/batched.py``), the device query state (``ops/device_state.py``) and
+the posture ops (``ops/posture.py``) are imported from their modules. The
+cluster loaders (``load_cluster``, ``dump_cluster``, ``load_kano``) read
+JSON without PyYAML and import it only for YAML manifests;
+``utils.persist`` is imported from its module, and so is the serving
+plane, ``serve`` (``VerificationService``, ``QueryEngine``,
 ``CheckpointManager``, ``RecoveryManager``, ``PostureTracker``), which
-imports this package's ``verify``.
+imports this package's ``verify``. The resilience drivers
+(``resilient_verify``, ``register_faulty``, ...) load on first access.
 """
 from .backends.base import (
     PortAtom,
+    VerifierBackend,
     VerifyConfig,
     VerifyResult,
     available_backends,
@@ -49,7 +60,10 @@ from .encode.carry import encoding_from_arrays, encoding_to_arrays
 from .encode.encoder import EncodedCluster, encode_cluster
 from .harness.generate import GeneratorConfig, random_cluster, random_kano
 from .incremental import IncrementalVerifier
+from .ingest import dump_cluster, load_cluster, load_kano
 from .models.core import (
+    EGRESS,
+    INGRESS,
     Cluster,
     Container,
     DefaultEqualityLabelRelation,
@@ -85,19 +99,46 @@ from .packed_incremental_ports import PackedPortsIncrementalVerifier, PortUniver
 from .parallel.mesh import distributed_mesh, init_distributed, mesh_for
 from .parallel.packed_sharded import PackedShardedResult, sharded_packed_reach
 from .parallel.sharded_closure import sharded_packed_closure
+from .resilience.errors import (
+    BackendChainExhausted,
+    BackendError,
+    BackendOOM,
+    BackendTimeout,
+    ConfigError,
+    DeviceLost,
+    EncodeError,
+    IngestError,
+    KvTpuError,
+    PersistError,
+    UnknownBackendError,
+)
 from .backends import sharded as _sharded  # noqa: F401  registers "sharded"
 from .backends import sharded_packed as _sharded_packed  # noqa: F401  registers "sharded-packed"
+from .datalog import k8s_program as _datalog  # noqa: F401  registers "datalog"
+
+__version__ = "0.1.0"
 
 __all__ = [
+    "BackendChainExhausted",
+    "BackendError",
+    "BackendOOM",
+    "BackendTimeout",
     "Cluster",
+    "ConfigError",
     "Container",
     "DefaultEqualityLabelRelation",
+    "DeviceLost",
+    "EGRESS",
+    "EncodeError",
     "EncodedCluster",
     "Expr",
     "GeneratorConfig",
+    "INGRESS",
     "IncrementalVerifier",
+    "IngestError",
     "IpBlock",
     "KanoPolicy",
+    "KvTpuError",
     "LabelRelation",
     "Namespace",
     "NetworkPolicy",
@@ -106,27 +147,36 @@ __all__ = [
     "PackedReach",
     "PackedShardedResult",
     "Peer",
+    "PersistError",
     "Pod",
     "PortAtom",
     "PolicyVectorizer",
     "PortSpec",
     "PortUniverseChanged",
+    "ResilienceConfig",
     "Rule",
     "Selector",
+    "UnknownBackendError",
+    "VerifierBackend",
     "VerifyConfig",
     "VerifyResult",
     "available_backends",
     "bounded_closure_rows",
     "bounded_packed_closure",
+    "__version__",
     "distributed_mesh",
+    "dump_cluster",
     "encode_cluster",
     "encoding_from_arrays",
     "encoding_to_arrays",
     "get_backend",
     "init_distributed",
+    "load_cluster",
+    "load_kano",
     "mesh_for",
     "packed_closure",
     "packed_closure_delta",
+    "parse_fault_spec",
     "path_upto",
     "policy_pair_masks",
     "policy_pair_masks_sharded",
@@ -134,6 +184,9 @@ __all__ = [
     "random_cluster",
     "random_kano",
     "register_backend",
+    "register_faulty",
+    "resilient_verify",
+    "resilient_verify_kano",
     "sharded_packed_closure",
     "sharded_packed_reach",
     "tiled_k8s_reach",
@@ -141,3 +194,16 @@ __all__ = [
     "verify",
     "verify_kano",
 ]
+
+#: the resilience drivers, loaded on first access: the wrapper and the fault
+#: harness import backend modules, which the error taxonomy above must not
+_LAZY = {"ResilienceConfig", "resilient_verify", "resilient_verify_kano",
+         "register_faulty", "parse_fault_spec"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        from . import resilience
+
+        return getattr(resilience, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -186,7 +186,8 @@ def register_backend(name: str, factory: Callable[[], VerifierBackend]) -> None:
 
 
 def _register_builtins() -> None:
-    # register "cpu", "torch", "sharded" and "sharded-packed"
+    # register "cpu", "torch", "sharded", "sharded-packed" and "datalog"
+    from ..datalog import k8s_program  # noqa: F401
     from . import cpu, device, sharded, sharded_packed  # noqa: F401
 
 

@@ -38,8 +38,15 @@ Differences from the JAX engine, none of which changes a bit of state:
   dispatch, so nothing is prewarmed and no index group is padded to a fixed
   size; the engine still grows its slot axis where the JAX prewarm does
   (no free slot left after a build, a resume or a pod-axis growth);
-* the single-device form only: the mesh-sharded state is ROADMAP §1 item 12,
-  the ``kvtpu_*`` metrics and the dispatch tracker item 14.
+* the ``kvtpu_*`` metrics and the dispatch tracker are ROADMAP §1 item 14.
+
+``mesh=`` shards the state over a ``(pods, grants)`` mesh
+(``parallel/mesh.py``), in the JAX engine's layout: the maps' slots over
+``grants`` and their pods over ``pods``, the counts, row validity and the
+words' rows over ``pods``. Where JAX leaves the collectives to GSPMD, every
+op here runs SPMD with explicit ones (``parallel/engine_mesh.py``): every
+rank calls it with the same arguments, keeps the host bookkeeping
+replicated and holds only its shard of the device state.
 """
 from __future__ import annotations
 
@@ -402,13 +409,20 @@ def _reach_block(
     dst_ids,  # int [D] — global pod ids of the block's columns
     self_traffic: bool,
     default_allow: bool,
+    reduce=None,
 ) -> torch.Tensor:
     """THE reach formula for an arbitrary (src rows × dst cols) block, bool
     [S, D] — the single copy shared by the row patch, the column patch, the
-    pod step, the stripe and row re-solves and the packed query twins. Both
-    products contract the slot axis of K-contiguous pod-major rows."""
-    r = bool_dot(ing_by_pol_s, sel_ing_d) > 0
-    eg_ok = bool_dot(sel_eg_s, eg_by_pol_d) > 0
+    pod step, the stripe and row re-solves, the packed query twins and the
+    mesh form. Both products contract the slot axis of K-contiguous
+    pod-major rows; ``reduce`` (the mesh's sum over ``grants``) completes
+    the int32 counts of a slot shard before the threshold."""
+    ing = bool_dot(ing_by_pol_s, sel_ing_d)
+    eg = bool_dot(sel_eg_s, eg_by_pol_d)
+    if reduce is not None:
+        reduce(ing, eg)
+    r = ing > 0
+    eg_ok = eg > 0
     if default_allow:
         r |= ~(ing_cnt_d > 0)[None, :]
         eg_ok |= ~(eg_cnt_s > 0)[:, None]
@@ -576,9 +590,17 @@ def _patch_cols(
     # later policy diff would resurrect reach bits in a removed pod's row
     # (its eg_cnt is 0, so default-allow marks it egress-open)
     r &= (row_valid > 0)[:, None]
+    _fold_cols(packed, r, cols, seg, words, clear)
+
+
+def _fold_cols(packed, r, cols, seg, words, clear) -> None:
+    """Merge the recomputed dst columns ``r`` (bool [rows, Dc]) into their
+    words of ``packed``: each column's bit folds into its word by an int32
+    ``index_add_`` over ``seg`` (``_col_meta``); only the real words are
+    written."""
     one = torch.ones((), dtype=_I32, device=cols.device)
-    bits = r.to(_I32) * (one << (cols % 32).to(_I32))[None, :]  # [Np, Dc]
-    set_words = torch.zeros((Np, words.shape[0]), dtype=_I32, device=cols.device)
+    bits = r.to(_I32) * (one << (cols % 32).to(_I32))[None, :]  # [rows, Dc]
+    set_words = torch.zeros((r.shape[0], words.shape[0]), dtype=_I32, device=cols.device)
     set_words.index_add_(1, seg, bits)
     packed[:, words] = (packed[:, words] & ~clear[None, :]) | set_words
 
@@ -681,6 +703,30 @@ def _unpack_pod_axis(packed: np.ndarray, Np: int, device) -> torch.Tensor:
     return bits.reshape(Np, p.shape[0]).view(_I8)
 
 
+def _check_mesh(mesh, slot_round: int) -> int:
+    """The mesh's pod-axis size (1 without a mesh), after the JAX engine's
+    check that the slot axis splits over ``grants`` — raised on every rank
+    alike, before any collective."""
+    if mesh is None:
+        return 1
+    from .parallel.mesh import GRANT_AXIS, POD_AXIS
+
+    if slot_round % mesh.shape[GRANT_AXIS]:
+        raise ConfigError(
+            f"slot_round={slot_round} not divisible by the grant axis size "
+            f"{mesh.shape[GRANT_AXIS]}"
+        )
+    return mesh.shape[POD_AXIS]
+
+
+def _make_shards(mesh, n_padded: int, capacity: int):
+    if mesh is None:
+        return None
+    from .parallel.engine_mesh import AnyPortShards
+
+    return AnyPortShards(mesh, n_padded, capacity)
+
+
 def _host_words(t: torch.Tensor) -> np.ndarray:
     """``to_host_words`` that never aliases the engine's state: on the CPU
     the numpy view would follow later in-place diffs, so it is copied."""
@@ -698,7 +744,8 @@ class PackedIncrementalVerifier:
     flagship scale a dense count matrix cannot reach.
 
     ``device=None`` means ``"cuda"`` (``BackendError`` without a GPU); the
-    CPU runs only when the caller passes ``device="cpu"``.
+    CPU runs only when the caller passes ``device="cpu"``. With ``mesh=``
+    the state lives on the mesh's devices (``parallel/engine_mesh.py``).
     """
 
     #: engine kind the serving plane keys on (``serve/service.py``: a
@@ -716,19 +763,26 @@ class PackedIncrementalVerifier:
         device=None,
         slot_round: int = 256,
         chunk: int = 2048,
+        mesh=None,
         keep_matrix: Optional[bool] = None,
         pod_headroom: int = 0,
     ) -> None:
         """``pod_headroom``: extra pod slots padded in at build time so
         ``add_pod`` never has to grow (a grow copies every device buffer).
-        ``keep_matrix=False`` skips materialising the packed matrix: diffs
-        update the maps and counts only, touched rows/columns accumulate in
-        ``dirty_rows``/``dirty_cols``, and ``solve_stripe`` re-verifies any
-        dst range straight from the maps."""
+        ``mesh``: shard the state over a ``(pods, grants)`` mesh
+        (``parallel.mesh_for``) — the slot axis over ``grants``, the pod
+        axis over ``pods`` — every rank calling every op with the same
+        arguments. ``keep_matrix=False`` (the default on a mesh when the
+        packed matrix exceeds 1 GiB per pod rank) skips materialising the
+        packed matrix: diffs update the maps and counts only, touched
+        rows/columns accumulate in ``dirty_rows``/``dirty_cols``, and
+        ``solve_stripe`` re-verifies any dst range straight from the maps."""
         self.config = config or VerifyConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         if pod_headroom < 0:
             raise ConfigError("pod_headroom must be >= 0")
+        dp = _check_mesh(mesh, slot_round)
         self.pods: List[Pod] = _copy_pods(cluster.pods)
         self.namespaces = list(cluster.namespaces)
         self.policies: Dict[str, NetworkPolicy] = {}
@@ -754,11 +808,14 @@ class PackedIncrementalVerifier:
         enc = encode_cluster(snapshot, compute_ports=False)
         n = enc.n_pods
         self.n_pods = n
-        align = 128
+        align = 128 * dp
         self._pod_align = align
         Np = max(align, -(-(n + pod_headroom) // align) * align)
         self._n_padded = Np
         n_pad = Np - n
+        P = enc.n_policies
+        self._capacity = max(slot_round, -(-(P + 8) // slot_round) * slot_round)
+        self._shards = _make_shards(mesh, Np, self._capacity)
         pod_kv, pod_key, pod_ns = pad_pods(enc.pod_kv, enc.pod_key, enc.pod_ns, n_pad)
         # pod-slot bookkeeping: [0, n_pods) is the high-water mark of ever-
         # occupied slots; [n_pods, Np) is headroom; removed slots recycle
@@ -773,11 +830,10 @@ class PackedIncrementalVerifier:
         self._col_mask = self._put(col_mask)
         rv = np.zeros(Np, dtype=np.int8)
         rv[:n] = 1
-        self._row_valid = self._put(rv)
+        self._row_valid = self._put_rows(rv)
         timings["encode"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        P = enc.n_policies
         self._slot_round = slot_round
         g_chunk = max(1, min(chunk, max(enc.ingress.n, enc.egress.n, 1)))
         args = _put_args(HostArgs(
@@ -787,15 +843,26 @@ class PackedIncrementalVerifier:
             pad_grants(enc.egress, (-enc.egress.n) % g_chunk, P, n_pad),
             col_mask,
         ), self.device)
-        self._capacity = max(slot_round, -(-(P + 8) // slot_round) * slot_round)
-        (
-            self._sel_ing8, self._sel_eg8, self._ing_by_pol, self._eg_by_pol,
-            self._ing_cnt, self._eg_cnt,
-        ) = _build_maps(
+        maps = _build_maps(
             args, self._capacity, chunk=g_chunk,
             direction_aware=cfg.direction_aware_isolation,
         )
         del args
+        # host mirrors of the isolation counts (real pods only) — these plus
+        # the vectorizer make every diff's row/word derivation host-local
+        self._h_ing_cnt = maps[4][:n].cpu().numpy().astype(np.int64)
+        self._h_eg_cnt = maps[5][:n].cpu().numpy().astype(np.int64)
+        if self._shards is not None:
+            # the maps were built whole; this rank keeps its block
+            sh = self._shards
+            cs = slice(sh.c0, sh.c0 + sh.cb)
+            maps = tuple(m[sh.rows, cs].contiguous() for m in maps[:4]) + tuple(
+                c[sh.rows].clone() for c in maps[4:])
+        (
+            self._sel_ing8, self._sel_eg8, self._ing_by_pol, self._eg_by_pol,
+            self._ing_cnt, self._eg_cnt,
+        ) = maps
+        del maps
         self._free = list(range(P, self._capacity))
         for i, pol in enumerate(cluster.policies):
             key = self._key(pol)
@@ -807,15 +874,19 @@ class PackedIncrementalVerifier:
         timings["maps"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        self.keep_matrix = True if keep_matrix is None else bool(keep_matrix)
+        if keep_matrix is None:
+            keep_matrix = mesh is None or Np * (Np // 32) * 4 // dp <= (1 << 30)
+        self.keep_matrix = bool(keep_matrix)
         #: matrix-free mode: touched rows/cols since the last full re-solve
         self.dirty_rows = np.zeros(n, dtype=bool)
         self.dirty_cols = np.zeros(n, dtype=bool)
-        self._packed = (
-            _build_packed(self._maps, self._col_mask, self._row_valid, **self._flags)
-            if self.keep_matrix
-            else None
-        )
+        if not self.keep_matrix:
+            self._packed = None
+        elif self._shards is not None:
+            self._packed = self._shards.build_packed(self, self._flags)
+        else:
+            self._packed = _build_packed(
+                self._maps, self._col_mask, self._row_valid, **self._flags)
         self._sync()
         timings["kernel"] = time.perf_counter() - t0
 
@@ -827,21 +898,27 @@ class PackedIncrementalVerifier:
             {ns.name: i for i, ns in enumerate(self.namespaces)},
             cfg.direction_aware_isolation,
         )
-        # host mirrors of the isolation counts (real pods only) — these plus
-        # the vectorizer make every diff's row/word derivation host-local
-        self._h_ing_cnt = self._ing_cnt[:n].cpu().numpy().astype(np.int64)
-        self._h_eg_cnt = self._eg_cnt[:n].cpu().numpy().astype(np.int64)
         self._prewarm()
         timings["vectorizer"] = time.perf_counter() - t0
         #: seconds of the build's phases: host encode, the maps on the
-        #: device, the packed matrix (the two kernel launches), the host
-        #: vectorizer
+        #: device, the packed matrix (the two kernel launches; on a mesh the
+        #: sub-stripe sweep), the host vectorizer
         self.build_timings = timings
         self.init_time = sum(timings.values())
 
     def _put(self, x) -> torch.Tensor:
         """A host array as a tensor of its own on the engine's device."""
         return torch.tensor(np.asarray(x), device=self.device)
+
+    def _put_rows(self, x) -> torch.Tensor:
+        """A pod-indexed host array on the device: this rank's block of it
+        on a mesh."""
+        return self._put(x) if self._shards is None else self._shards.put_rows(x)
+
+    def _rows(self) -> slice:
+        """This rank's rows of a pod-indexed array (all of them on one
+        device)."""
+        return slice(None) if self._shards is None else self._shards.rows
 
     def _sync(self) -> None:
         """Wait for the device (phase timings read the host clock)."""
@@ -864,7 +941,11 @@ class PackedIncrementalVerifier:
         if not self._free:
             self._grow()
         invalid = np.nonzero(~self._col_valid)[0]
-        if len(invalid):
+        if len(invalid) and self._shards is not None:
+            self._shards.pod_step(
+                self, int(invalid[-1]), np.zeros((4, self._capacity), dtype=np.int8),
+                False, self._flags)
+        elif len(invalid):
             zeros = self._put(np.zeros((4, self._capacity), dtype=np.int8))
             idx = int(invalid[-1])
             if self._packed is None:
@@ -897,6 +978,9 @@ class PackedIncrementalVerifier:
         slot_round = self._slot_round
         self._free.extend(range(self._capacity, self._capacity + slot_round))
         self._capacity += slot_round
+        if self._shards is not None:
+            self._shards.grow_slots(self, slot_round)
+            return
         pad = lambda m: torch.nn.functional.pad(m, (0, slot_round))
         self._sel_ing8 = pad(self._sel_ing8)
         self._sel_eg8 = pad(self._sel_eg8)
@@ -910,20 +994,23 @@ class PackedIncrementalVerifier:
         a = self._pod_align
         grow = max(-(-min_extra // a) * a, 4 * a)
         Np2 = self._n_padded + grow
-        pad = torch.nn.functional.pad
-        self._sel_ing8 = pad(self._sel_ing8, (0, 0, 0, grow))
-        self._sel_eg8 = pad(self._sel_eg8, (0, 0, 0, grow))
-        self._ing_by_pol = pad(self._ing_by_pol, (0, 0, 0, grow))
-        self._eg_by_pol = pad(self._eg_by_pol, (0, 0, 0, grow))
-        self._ing_cnt = pad(self._ing_cnt, (0, grow))
-        self._eg_cnt = pad(self._eg_cnt, (0, grow))
+        if self._shards is not None:
+            self._shards.grow_pods(self, Np2)
+        else:
+            pad = torch.nn.functional.pad
+            self._sel_ing8 = pad(self._sel_ing8, (0, 0, 0, grow))
+            self._sel_eg8 = pad(self._sel_eg8, (0, 0, 0, grow))
+            self._ing_by_pol = pad(self._ing_by_pol, (0, 0, 0, grow))
+            self._eg_by_pol = pad(self._eg_by_pol, (0, 0, 0, grow))
+            self._ing_cnt = pad(self._ing_cnt, (0, grow))
+            self._eg_cnt = pad(self._eg_cnt, (0, grow))
+            if self._packed is not None:
+                self._packed = pad(self._packed, (0, grow // 32, 0, grow))
         self._col_valid = np.concatenate([self._col_valid, np.zeros(grow, dtype=bool)])
         self._col_mask = self._put(self._col_mask_host())
         rv = np.zeros(Np2, dtype=np.int8)
         rv[: self.n_pods] = self.pod_active
-        self._row_valid = self._put(rv)
-        if self._packed is not None:
-            self._packed = pad(self._packed, (0, grow // 32, 0, grow))
+        self._row_valid = self._put_rows(rv)
         self._n_padded = Np2
         self._closure = None  # shape changed; next closure_packed is full
         self._closure_base = None
@@ -975,19 +1062,27 @@ class PackedIncrementalVerifier:
 
         # _closure_base is a COPY: later diffs update self._packed in place,
         # and an alias would silently follow them. It unlocks the
-        # additions-only route (+1 packed matrix of device memory).
+        # additions-only route (+1 packed matrix of device memory). A mesh
+        # engine closes its gathered words on every rank, replicated.
+        if self._closure is not None and not self._closure_dirty.any():
+            return self._closure
+        words = self._whole_words()
         if self._closure is None:
-            self._closure = packed_closure(self._packed, tile=tile)
+            self._closure = packed_closure(words, tile=tile)
             self._closure_dirty = np.zeros(self._n_padded, dtype=bool)
-            self._closure_base = self._packed.clone()
-        elif self._closure_dirty.any():
+        else:
             self._closure = packed_closure_delta(
-                self._packed, self._closure, self._closure_dirty,
+                words, self._closure, self._closure_dirty,
                 prev_base=self._closure_base, tile=tile,
             )
             self._closure_dirty[:] = False
-            self._closure_base = self._packed.clone()
+        self._closure_base = words.clone()
         return self._closure
+
+    def _whole_words(self) -> torch.Tensor:
+        """The packed words ``[Np, W]``: the state itself on one device, the
+        rows gathered from every pod rank on a mesh."""
+        return self._packed if self._shards is None else self._shards.full(self._packed)
 
     def _dispatch_diff(
         self, slot: int, new4_padded: np.ndarray, rows: np.ndarray, cols: np.ndarray
@@ -995,6 +1090,14 @@ class PackedIncrementalVerifier:
         """The slot write, then (matrix kept) the touched rows and columns
         re-derived, or (matrix-free) the dirty sets grown."""
         self._mark_closure_dirty(rows, cols)
+        if self._shards is not None:
+            self._shards.slot_write(self, slot, new4_padded)
+            if self._packed is None:
+                self.dirty_rows[rows] = True
+                self.dirty_cols[cols] = True
+            else:
+                self._patch_mesh(rows, cols)
+            return
         new4 = self._put(new4_padded)
         if self._packed is None:
             _slot_write(self._maps, slot, new4)
@@ -1011,12 +1114,21 @@ class PackedIncrementalVerifier:
     def _patch(self, rows: np.ndarray, cols: np.ndarray) -> None:
         """``rows``/``cols``: unique sorted touched src rows / dst columns."""
         self._mark_closure_dirty(rows, cols)
+        if self._shards is not None:
+            self._patch_mesh(rows, cols)
+            return
         for g in _groups(rows, _ROW_GROUP):
             _patch_rows(self._packed, self._maps, self._col_mask, self._put(g),
                         **self._flags)
         for g in _groups(cols, _COL_GROUP):
             _patch_cols(self._packed, self._maps, self._row_valid, *self._col_meta(g),
                         **self._flags)
+
+    def _patch_mesh(self, rows: np.ndarray, cols: np.ndarray) -> None:
+        for g in _groups(rows, _ROW_GROUP):
+            self._shards.patch_rows(self, g, self._flags)
+        for g in _groups(cols, _COL_GROUP):
+            self._shards.patch_cols(self, g, self._flags)
 
     def _set_slot(self, slot: int, old4, new4) -> None:
         """old4/new4: host int8 [n] vector quadruples (old may be None for a
@@ -1099,7 +1211,10 @@ class PackedIncrementalVerifier:
         pod.labels = dict(labels)
         self._vectorizer.note_pod(idx)
         cols = self._pod_cols(pod)
-        _apply_pod_col(self._maps, idx, self._put(cols))
+        if self._shards is not None:
+            self._shards.write_pod_rows(self, [idx], cols[:, None, :])
+        else:
+            _apply_pod_col(self._maps, idx, self._put(cols))
         self._h_ing_cnt[idx] = int(cols[0].sum())
         self._h_eg_cnt[idx] = int(cols[1].sum())
         if self._packed is None:
@@ -1113,6 +1228,13 @@ class PackedIncrementalVerifier:
     def _dispatch_pod(self, idx: int, cols4: np.ndarray, active: bool) -> None:
         """One pod-slot step (occupy or tombstone)."""
         self._mark_closure_dirty([idx], [idx])
+        if self._shards is not None:
+            self._shards.pod_step(self, idx, cols4, active, self._flags)
+            if self._packed is None:
+                self.dirty_rows[idx] = True
+                self.dirty_cols[idx] = True
+            self.update_count += 1
+            return
         cols = self._put(cols4)
         if self._packed is None:
             _pod_step_mf(self._maps, self._col_mask, self._row_valid, idx, cols, active)
@@ -1181,7 +1303,10 @@ class PackedIncrementalVerifier:
             cols = np.stack([self._pod_cols(self.pods[int(i)]) for i in g], axis=1)
             self._h_ing_cnt[g] = cols[0].sum(axis=1)
             self._h_eg_cnt[g] = cols[1].sum(axis=1)
-            _apply_pod_cols_group(self._maps, self._put(g), self._put(cols))
+            if self._shards is not None:
+                self._shards.write_pod_rows(self, g, cols)
+            else:
+                _apply_pod_cols_group(self._maps, self._put(g), self._put(cols))
         if self._packed is None:
             self._mark_closure_dirty(idx_arr, idx_arr)
             self.dirty_rows[idx_arr] = True
@@ -1325,6 +1450,11 @@ class PackedIncrementalVerifier:
                 f"stripe [{d0}, {d0 + width}) outside the padded pod range "
                 f"{self._n_padded}"
             )
+        if self._shards is not None:
+            # SPMD: a retry on one rank alone would strand the others in a
+            # collective, so a mesh re-solve is not retried
+            out = self._shards.stripe(self, d0, width, self._flags)
+            return to_host_words(out[: self.n_pods])
         out = retry_transient(
             lambda: _stripe_step(
                 self._maps, self._col_mask, self._row_valid, d0, width=width,
@@ -1349,6 +1479,8 @@ class PackedIncrementalVerifier:
             return np.zeros((0, self._n_padded // 32), dtype=np.uint32)
         if rows.min() < 0 or rows.max() >= self.n_pods:
             raise ConfigError(f"row index out of range [0, {self.n_pods})")
+        if self._shards is not None:
+            return to_host_words(self._shards.solve_rows(self, rows, self._flags))
         idx = self._put(rows)
         out = retry_transient(
             lambda: _rows_step(
@@ -1370,13 +1502,20 @@ class PackedIncrementalVerifier:
                 "maps"
             )
         n = self.n_pods
+        ing_cnt, eg_cnt = self._whole_counts()
         return PackedReach(
-            packed=self._packed[:n],
+            packed=self._whole_words()[:n],
             n_pods=n,
-            ingress_isolated=(self._ing_cnt[:n] > 0).cpu().numpy(),
-            egress_isolated=(self._eg_cnt[:n] > 0).cpu().numpy(),
+            ingress_isolated=(ing_cnt[:n] > 0).cpu().numpy(),
+            egress_isolated=(eg_cnt[:n] > 0).cpu().numpy(),
             active=None if self.pod_active.all() else self.pod_active.copy(),
         )
+
+    def _whole_counts(self):
+        """The isolation counts ``[Np]`` (gathered over ``pods`` on a mesh)."""
+        if self._shards is None:
+            return self._ing_cnt, self._eg_cnt
+        return self._shards.full(self._ing_cnt), self._shards.full(self._eg_cnt)
 
     @property
     def reach(self) -> np.ndarray:
@@ -1408,14 +1547,18 @@ class PackedIncrementalVerifier:
         manifest (pods with their CURRENT labels + policies) travels
         separately; the resume re-freezes the encoding on it."""
         keys = list(self.policies)
-        pack = lambda m: _pack_pod_axis(m).cpu().numpy()
+        if self._shards is None:
+            pack = lambda m: _pack_pod_axis(m).cpu().numpy()
+        else:
+            pack = self._shards.gather_map
+        ing_cnt, eg_cnt = self._whole_counts()
         state = {
             "sel_ing": pack(self._sel_ing8),
             "sel_eg": pack(self._sel_eg8),
             "ing_by_pol": pack(self._ing_by_pol),
             "eg_by_pol": pack(self._eg_by_pol),
-            "ing_cnt": self._ing_cnt.cpu().numpy().astype(np.int32),
-            "eg_cnt": self._eg_cnt.cpu().numpy().astype(np.int32),
+            "ing_cnt": ing_cnt.cpu().numpy().astype(np.int32),
+            "eg_cnt": eg_cnt.cpu().numpy().astype(np.int32),
             "slots": np.asarray([self._slot[k] for k in keys], dtype=np.int32),
             "keys": np.array(keys),
             "n_padded": np.int64(self._n_padded),
@@ -1431,7 +1574,7 @@ class PackedIncrementalVerifier:
             "ns_names": np.array([ns.name for ns in self.namespaces]),
         }
         if self._packed is not None:
-            state["packed"] = _host_words(self._packed)
+            state["packed"] = _host_words(self._whole_words())
         if self._closure is not None:
             state["closure"] = _host_words(self._closure)
             state["closure_dirty"] = self._closure_dirty
@@ -1446,17 +1589,20 @@ class PackedIncrementalVerifier:
         state: Dict[str, np.ndarray],
         config: Optional[VerifyConfig] = None,
         device=None,
+        mesh=None,
         keep_matrix: Optional[bool] = None,
     ) -> "PackedIncrementalVerifier":
         """Resume from :meth:`state_dict` output — this package's or the JAX
-        engine's — WITHOUT re-solving: the maps, counts and matrix upload
-        straight to the device, only the host-side vectorizer re-freezes on
-        the manifest's labels. ``keep_matrix=False`` drops a checkpointed
-        matrix and resumes matrix-free; ``True`` requires the checkpoint to
-        contain one."""
+        engine's, saved on one device or on any mesh — WITHOUT re-solving:
+        the maps, counts and matrix upload straight to the device (or this
+        rank's block of them onto ``mesh``), only the host-side vectorizer
+        re-freezes on the manifest's labels. ``keep_matrix=False`` drops a
+        checkpointed matrix and resumes matrix-free; ``True`` requires the
+        checkpoint to contain one."""
         self = cls.__new__(cls)
         self.config = config or VerifyConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.pods = _copy_pods(cluster.pods)
         # the manifest already lists every auto-created namespace; the
         # state's authoritative ns list prunes namespaces a tombstone pod
@@ -1475,14 +1621,23 @@ class PackedIncrementalVerifier:
         self._closure = None
         self._closure_base = None
         self._closure_dirty = None
+        dp = _check_mesh(mesh, self._slot_round)
+        if Np % (128 * dp):
+            raise ConfigError(
+                f"checkpointed padding {Np} incompatible with a {dp}-way pod axis")
+        self._shards = _make_shards(mesh, Np, self._capacity)
         t0 = time.perf_counter()
-        self._sel_ing8 = _unpack_pod_axis(state["sel_ing"], Np, self.device)
-        self._sel_eg8 = _unpack_pod_axis(state["sel_eg"], Np, self.device)
-        self._ing_by_pol = _unpack_pod_axis(state["ing_by_pol"], Np, self.device)
-        self._eg_by_pol = _unpack_pod_axis(state["eg_by_pol"], Np, self.device)
-        self._ing_cnt = self._put(np.asarray(state["ing_cnt"], dtype=np.int32))
-        self._eg_cnt = self._put(np.asarray(state["eg_cnt"], dtype=np.int32))
-        self._pod_align = 128
+        if self._shards is None:
+            load = lambda key: _unpack_pod_axis(state[key], Np, self.device)
+        else:
+            load = lambda key: self._shards.load_map(state[key])
+        self._sel_ing8 = load("sel_ing")
+        self._sel_eg8 = load("sel_eg")
+        self._ing_by_pol = load("ing_by_pol")
+        self._eg_by_pol = load("eg_by_pol")
+        self._ing_cnt = self._put_rows(np.asarray(state["ing_cnt"], dtype=np.int32))
+        self._eg_cnt = self._put_rows(np.asarray(state["eg_cnt"], dtype=np.int32))
+        self._pod_align = 128 * dp
         self.pod_active = np.asarray(
             state.get("pod_active", np.ones(self.n_pods, dtype=bool))
         ).copy()
@@ -1496,7 +1651,7 @@ class PackedIncrementalVerifier:
         self._col_mask = self._put(self._col_mask_host())
         rv = np.zeros(Np, dtype=np.int8)
         rv[: self.n_pods] = self.pod_active
-        self._row_valid = self._put(rv)
+        self._row_valid = self._put_rows(rv)
         keys = [str(k) for k in state["keys"]]
         slots = [int(s) for s in state["slots"]]
         by_key = {f"{p.namespace}/{p.name}": p for p in cluster.policies}
@@ -1515,7 +1670,10 @@ class PackedIncrementalVerifier:
                 "re-solve (or resume matrix-free and use solve_stripe)"
             )
         self.keep_matrix = bool(keep_matrix)
-        self._packed = _words(state["packed"], self.device) if keep_matrix else None
+        self._packed = (
+            _words(np.asarray(state["packed"])[self._rows()], self.device)
+            if keep_matrix else None
+        )
         self.dirty_rows = np.asarray(state["dirty_rows"]).copy()
         self.dirty_cols = np.asarray(state["dirty_cols"]).copy()
         if "closure" in state and self._packed is not None:

@@ -50,12 +50,18 @@ Differences from the JAX engine, none of which changes a byte of state:
   card, ``_GATHER_PAD``), and the per-diff VP-row values travel unpacked
   (the JAX ``_vals_cap`` ladder and its bit-packed transfer only avoid XLA
   recompiles);
-* the single-device form only: the mesh-sharded state is ROADMAP §1 item
-  12, the ``kvtpu_*`` metrics, the dispatch tracker and ``register_kernel``
-  item 14, ``save/load_ports_incremental`` item 10;
+* the ``kvtpu_*`` metrics, the dispatch tracker and ``register_kernel``
+  are ROADMAP §1 item 14;
 * the number of ported masks is capped by ``fused_ports_reach``
   (``ops/kernels.py::FUSED_MAX_MASKS``), where JAX has a ``max_port_masks``
   option (default 32).
+
+``mesh=`` shards the state over a ``(pods, grants)`` mesh as the JAX engine
+does: each direction's VP axis over ``grants`` (padded to a multiple of the
+grant axis with inert rows after the sink row, outside every segment), the
+pod axis over ``pods``; every op runs SPMD with explicit collectives
+(``parallel/engine_mesh.py::PortsShards``), its segment products summed
+over ``grants`` before the mask-group combine.
 """
 from __future__ import annotations
 
@@ -187,30 +193,48 @@ def _ports_reach_block(
     rows=None, cols=None, *, self_traffic: bool, default_allow: bool,
 ) -> torch.Tensor:
     """Reach of a (src × dst) block under port semantics, bool — the
-    incremental counterpart of the sweep, on the shared ``_mask_group_conj``.
-    Exactly one of ``rows`` (gather srcs, full dst axis) or ``cols`` (full
-    src axis, gather dsts) is given; every segment product is a
-    ``bool_dot`` of K-contiguous pod-major rows."""
-    seg = {d: {s: m for m, (s, l) in enumerate(_spans(layout, d)) if l} for d in "ie"}
-    Np = src["i"][0].shape[0]
+    incremental counterpart of the sweep. Exactly one of ``rows`` (gather
+    srcs, full dst axis) or ``cols`` (full src axis, gather dsts) is
+    given; on a CUDA device the gathered rows are padded to a multiple of
+    ``_GATHER_PAD`` and the counts trimmed back."""
     idx = rows if rows is not None else cols
     k = idx.shape[0]
     if idx.is_cuda and k % _GATHER_PAD:
         idx = torch.cat([idx, idx[-1:].repeat(_GATHER_PAD - k % _GATHER_PAD)])
+    gathered = lambda side: {d: [t[idx] for t in side[d]] for d in side}
     if rows is not None:
-        shape = (k, Np)
-
-        def dot(d, s):
-            m = seg[d][s]
-            return bool_dot(src[d][m][idx], dst[d][m])[:k] > 0
-
+        src, trim = gathered(src), lambda c: c[:k]
     else:
-        shape = (Np, k)
+        dst, trim = gathered(dst), lambda c: c[:, :k]
+    return _ports_block(
+        src, dst, layout, ing_cnt_d, eg_cnt_s, src_ids, dst_ids, trim=trim,
+        self_traffic=self_traffic, default_allow=default_allow,
+    )
 
-        def dot(d, s):
-            m = seg[d][s]
-            return bool_dot(src[d][m], dst[d][m][idx])[:, :k] > 0
 
+def _ports_block(
+    src, dst, layout: PortLayout, ing_cnt_d, eg_cnt_s, src_ids, dst_ids, *,
+    self_traffic: bool, default_allow: bool, trim=None, reduce=None,
+) -> torch.Tensor:
+    """The port reach of the block whose src-side operands are ``src[d][m]``
+    [S, l] and dst-side ``dst[d][m]`` [D, l] (segment ``m`` of direction
+    ``d``, ``_spans`` order), bool [S, D], on the shared
+    ``_mask_group_conj``: every segment product is a ``bool_dot`` of
+    K-contiguous pod-major rows, its counts ``trim``-med (gather padding)
+    and completed by ``reduce`` (the mesh's sum over ``grants``) before the
+    threshold."""
+    seg = {d: {s: m for m, (s, l) in enumerate(_spans(layout, d)) if l} for d in "ie"}
+
+    def dot(d, s):
+        m = seg[d][s]
+        counts = bool_dot(src[d][m], dst[d][m])
+        if trim is not None:
+            counts = trim(counts)
+        if reduce is not None:
+            reduce(counts)
+        return counts > 0
+
+    shape = (src_ids.shape[0], dst_ids.shape[0])
     false_t = torch.zeros(shape, dtype=torch.bool, device=ing_cnt_d.device)
     conj, gi_any, ge_any = _mask_group_conj(
         layout, lambda s, l: dot("i", s), lambda s, l: dot("e", s), false_t
@@ -359,6 +383,15 @@ def _build_packed(
     return out
 
 
+def _make_shards(mesh, n_padded: int, layout: PortLayout, total_rows: Dict[str, int]):
+    if mesh is None:
+        return None
+    from .parallel.engine_mesh import PortsShards
+
+    return PortsShards(
+        mesh, n_padded, {d: _spans(layout, d) for d in "ie"}, total_rows)
+
+
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -366,10 +399,11 @@ def _build_packed(
 
 class PackedPortsIncrementalVerifier:
     """Port-bitmap reachability under policy add/remove/update, pod churn
-    and namespace relabels, on one device.
+    and namespace relabels, on one device or on a mesh.
 
     ``device=None`` means ``"cuda"`` (``BackendError`` without a GPU); the
-    CPU runs only when the caller passes ``device="cpu"``.
+    CPU runs only when the caller passes ``device="cpu"``. With ``mesh=``
+    the state lives on the mesh's devices (``parallel/engine_mesh.py``).
     """
 
     #: engine kind the serving plane keys on (``serve/service.py``)
@@ -387,15 +421,20 @@ class PackedPortsIncrementalVerifier:
         headroom: int = 8,
         tile: int = 512,
         chunk: int = 2048,
+        mesh=None,
         pod_headroom: int = 0,
     ) -> None:
         """``headroom``: free VP rows per segment, for policy diffs to
         allocate from. ``tile``: the pod-axis alignment unit of growth (the
-        JAX engine's sweep tile). ``pod_headroom``: extra free pod slots
+        JAX engine's sweep tile). ``mesh``: shard the VP operands (VP axis
+        over ``grants``, pod axis over ``pods``), the counts and the packed
+        matrix over a ``(pods, grants)`` mesh, every rank calling every op
+        with the same arguments. ``pod_headroom``: extra free pod slots
         padded in at build time, so pod churn beyond the pad-to-alignment
         slack avoids growing the pod axis (a grow copies every buffer)."""
         self.config = config or VerifyConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         if pod_headroom < 0:
             raise ConfigError("pod_headroom must be >= 0")
         self.pods: List[Pod] = _copy_pods(cluster.pods)
@@ -441,7 +480,6 @@ class PackedPortsIncrementalVerifier:
         self._col_mask = self._put(col_mask)
         rv = np.zeros(Np, dtype=np.int8)
         rv[:n] = 1
-        self._row_valid = self._put(rv)
         if enc.restrict_bank is not None:
             bank8 = np.zeros((enc.restrict_bank.shape[0], Np), dtype=np.int8)
             bank8[:, :n] = enc.restrict_bank
@@ -467,6 +505,8 @@ class PackedPortsIncrementalVerifier:
         )
         self._layout = layout
         self._total_rows = {"i": len(vp_pol_i), "e": len(vp_pol_e)}
+        self._shards = _make_shards(mesh, Np, layout, self._total_rows)
+        self._row_valid = self._put_rows(rv)
         self._mask_rank = {
             tuple(bool(b) for b in row): r for r, row in enumerate(ported_masks)
         }
@@ -488,8 +528,14 @@ class PackedPortsIncrementalVerifier:
         )
         del a
         # the sink policy's row of the selections is zero
-        self._ing_cnt = sel_ing_ext.sum(dim=0, dtype=_I32)
-        self._eg_cnt = sel_eg_ext.sum(dim=0, dtype=_I32)
+        ing_cnt = sel_ing_ext.sum(dim=0, dtype=_I32)
+        eg_cnt = sel_eg_ext.sum(dim=0, dtype=_I32)
+        self._h_ing_cnt = ing_cnt[:n].cpu().numpy().astype(np.int64)
+        self._h_eg_cnt = eg_cnt[:n].cpu().numpy().astype(np.int64)
+        rows = self._rows()
+        self._ing_cnt = ing_cnt[rows].clone()
+        self._eg_cnt = eg_cnt[rows].clone()
+        del ing_cnt, eg_cnt
         bank = vp.bank8
         full = {
             "vp_peers_i": vp_peers_i,
@@ -502,18 +548,23 @@ class PackedPortsIncrementalVerifier:
         self._dst: Dict[str, List[torch.Tensor]] = {}
         for key, d, side in _MAP_KEYS:
             m = full.pop(key)
-            (self._dst if side else self._src)[d] = [
-                m[s : s + l].t().contiguous() for s, l in _spans(layout, d)
-            ]
-            del m
+            segs = [m[s : s + l, rows].t().contiguous() for s, l in _spans(layout, d)]
+            if self._shards is not None:
+                # the maps were built whole; this rank keeps its block
+                segs = self._shards.slice_segments(d, segs)
+            (self._dst if side else self._src)[d] = segs
+            del m, segs
         self._sync()
         timings["maps"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        self._packed = _build_packed(
-            self._src, self._dst, layout, self._ing_cnt, self._eg_cnt,
-            self._col_mask, self._row_valid, **self._flags,
-        )
+        if self._shards is not None:
+            self._packed = self._shards.build_packed(self, self._flags)
+        else:
+            self._packed = _build_packed(
+                self._src, self._dst, layout, self._ing_cnt, self._eg_cnt,
+                self._col_mask, self._row_valid, **self._flags,
+            )
         self._sync()
         timings["kernel"] = time.perf_counter() - t0
 
@@ -570,8 +621,6 @@ class PackedPortsIncrementalVerifier:
             {ns.name: i for i, ns in enumerate(self.namespaces)},
             cfg.direction_aware_isolation,
         )
-        self._h_ing_cnt = self._ing_cnt[:n].cpu().numpy().astype(np.int64)
-        self._h_eg_cnt = self._eg_cnt[:n].cpu().numpy().astype(np.int64)
         self._prewarm()
         self._sync()
         timings["vectorizer"] = time.perf_counter() - t0
@@ -604,6 +653,10 @@ class PackedPortsIncrementalVerifier:
     # ------------------------------------------------------------- plumbing
     # the any-port engine's: same state names and semantics
     _put = PackedIncrementalVerifier._put
+    _put_rows = PackedIncrementalVerifier._put_rows
+    _rows = PackedIncrementalVerifier._rows
+    _whole_words = PackedIncrementalVerifier._whole_words
+    _whole_counts = PackedIncrementalVerifier._whole_counts
     _sync = PackedIncrementalVerifier._sync
     _col_mask_host = PackedIncrementalVerifier._col_mask_host
     _col_meta = PackedIncrementalVerifier._col_meta
@@ -887,17 +940,27 @@ class PackedPortsIncrementalVerifier:
                 (m, row - self._seg_spans[d][m][0])
                 for m, row in ((self._seg_of_row(d, r), r) for r in touched)
             ]
-            vals[d] = self._put(v)
-        _vp_write(
-            self._src, self._dst, self._ing_cnt, self._eg_cnt, locs, vals,
-            self._put(d_ing), self._put(d_eg),
-        )
+            vals[d] = v
+        if self._shards is not None:
+            self._shards.vp_write(self, locs, vals, d_ing, d_eg)
+        else:
+            _vp_write(
+                self._src, self._dst, self._ing_cnt, self._eg_cnt, locs,
+                {d: self._put(v) for d, v in vals.items()},
+                self._put(d_ing), self._put(d_eg),
+            )
         self._patch(rows, cols)
         self.update_count += 1
 
     def _patch(self, rows: np.ndarray, cols: np.ndarray) -> None:
         """``rows``/``cols``: unique sorted touched src rows / dst columns."""
         self._mark_closure_dirty(rows, cols)
+        if self._shards is not None:
+            for g in _groups(rows, _ROW_GROUP):
+                self._shards.patch_rows(self, g, self._flags)
+            for g in _groups(cols, _COL_GROUP):
+                self._shards.patch_cols(self, g, self._flags)
+            return
         args = (self._packed, self._src, self._dst, self._ing_cnt, self._eg_cnt)
         flags = dict(layout=self._layout, **self._flags)
         for g in _groups(rows, _ROW_GROUP):
@@ -1056,6 +1119,16 @@ class PackedPortsIncrementalVerifier:
         False only for the prewarm's tombstone."""
         if bookkeep:
             self._mark_closure_dirty([idx], [idx])
+        if self._shards is not None:
+            # SPMD: not retried (a retry on one rank alone would strand the
+            # others in a collective)
+            self._shards.pod_step(self, idx, ci, ce, cnt_i, cnt_e, active, self._flags)
+        else:
+            self._pod_step_one_device(idx, ci, ce, cnt_i, cnt_e, active)
+        if bookkeep:
+            self.update_count += 1
+
+    def _pod_step_one_device(self, idx, ci, ce, cnt_i, cnt_e, active) -> None:
         ci_t, ce_t = self._put(ci), self._put(ce)
         retry_transient(
             lambda: _ports_pod_step(
@@ -1066,8 +1139,6 @@ class PackedPortsIncrementalVerifier:
             policy=self.retry_policy,
             backend="packed-ports",
         )
-        if bookkeep:
-            self.update_count += 1
 
     # identical state surface (_ns_labels / namespaces / _vectorizer /
     # _packed / _closure / pods) — the any-port engine's implementations
@@ -1100,6 +1171,11 @@ class PackedPortsIncrementalVerifier:
             cnt_e = np.asarray([c[3] for c in cols], dtype=np.int32)
             self._h_ing_cnt[g] = cnt_i
             self._h_eg_cnt[g] = cnt_e
+            if self._shards is not None:
+                self._shards.write_pod_rows(
+                    self, g, np.stack([c[0] for c in cols], axis=-1),
+                    np.stack([c[1] for c in cols], axis=-1), cnt_i, cnt_e)
+                continue
             _ports_apply_pod_cols_group(
                 self._src, self._dst, self._ing_cnt, self._eg_cnt, self._layout,
                 self._put(g),
@@ -1196,22 +1272,26 @@ class PackedPortsIncrementalVerifier:
         tile and word alignments (the JAX engine's rule: at least two
         alignment units). A grow copies every device buffer — prefer
         ``pod_headroom`` at build time."""
-        a = int(np.lcm(np.lcm(self._tile, 128), 128))
+        dp = 1 if self._shards is None else self._shards.dp
+        a = int(np.lcm(np.lcm(self._tile, 128), 128 * dp))
         grow = max(-(-min_extra // a) * a, 2 * a)
         Np2 = self._n_padded + grow
-        pad = torch.nn.functional.pad
-        for maps in (self._src, self._dst):
-            for d in maps:
-                maps[d] = [pad(t, (0, 0, 0, grow)) for t in maps[d]]
-        self._ing_cnt = pad(self._ing_cnt, (0, grow))
-        self._eg_cnt = pad(self._eg_cnt, (0, grow))
-        self._packed = pad(self._packed, (0, grow // 32, 0, grow))
+        if self._shards is not None:
+            self._shards.grow_pods(self, Np2)
+        else:
+            pad = torch.nn.functional.pad
+            for maps in (self._src, self._dst):
+                for d in maps:
+                    maps[d] = [pad(t, (0, 0, 0, grow)) for t in maps[d]]
+            self._ing_cnt = pad(self._ing_cnt, (0, grow))
+            self._eg_cnt = pad(self._eg_cnt, (0, grow))
+            self._packed = pad(self._packed, (0, grow // 32, 0, grow))
         self._bank8_host = np.pad(self._bank8_host, ((0, 0), (0, grow)))
         self._col_valid = np.concatenate([self._col_valid, np.zeros(grow, dtype=bool)])
         self._col_mask = self._put(self._col_mask_host())
         rv = np.zeros(Np2, dtype=np.int8)
         rv[: self.n_pods] = self.pod_active
-        self._row_valid = self._put(rv)
+        self._row_valid = self._put_rows(rv)
         self._n_padded = Np2
         self._closure = None  # shape changed; next closure_packed is full
         self._closure_base = None
@@ -1260,19 +1340,23 @@ class PackedPortsIncrementalVerifier:
             ]
             return np.asarray(flat, dtype=np.int32).reshape(-1, 3)
 
-        def pack(segs: List[torch.Tensor]) -> np.ndarray:
+        def pack(d: str, segs: List[torch.Tensor]) -> np.ndarray:
             """The segments' rows then the zero sink row, uint8 [T, Np/8]."""
+            if self._shards is not None:
+                return self._shards.gather_segments(
+                    d, segs, self._seg_spans[d], self._total_rows[d])
             rows = [_pack_pod_axis(t) for t in segs]
             rows.append(rows[0].new_zeros((1, self._n_padded // 8)))
             return torch.cat(rows).cpu().numpy()
 
         arrays = {
-            key: pack((self._dst if side else self._src)[d]) for key, d, side in _MAP_KEYS
+            key: pack(d, (self._dst if side else self._src)[d]) for key, d, side in _MAP_KEYS
         }
+        ing_cnt, eg_cnt = self._whole_counts()
         arrays.update({
-            "ing_cnt": self._ing_cnt.cpu().numpy().astype(np.int32),
-            "eg_cnt": self._eg_cnt.cpu().numpy().astype(np.int32),
-            "packed": _host_words(self._packed),
+            "ing_cnt": ing_cnt.cpu().numpy().astype(np.int32),
+            "eg_cnt": eg_cnt.cpu().numpy().astype(np.int32),
+            "packed": _host_words(self._whole_words()),
             "owners_i": owners("i"),
             "owners_e": owners("e"),
             "res_i": row_res("i"),
@@ -1320,15 +1404,19 @@ class PackedPortsIncrementalVerifier:
         meta: Dict,
         config: Optional[VerifyConfig] = None,
         device=None,
+        mesh=None,
     ) -> "PackedPortsIncrementalVerifier":
         """Resume from :meth:`state_dict` output — this package's or the JAX
-        engine's — WITHOUT re-solving: the VP maps, counts and words upload
-        straight to the device; the vocab, namespace matrices, posting
-        lists, resolution masks and restriction bank re-derive
-        deterministically from the manifest."""
+        engine's, saved on one device or on any mesh — WITHOUT re-solving:
+        the VP maps, counts and words upload straight to the device (or
+        this rank's block of them onto ``mesh``, the VP axis split for its
+        grant axis); the vocab, namespace matrices, posting lists,
+        resolution masks and restriction bank re-derive deterministically
+        from the manifest."""
         self = cls.__new__(cls)
         self.config = config or VerifyConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.pods = _copy_pods(cluster.pods)
         self.namespaces = list(cluster.namespaces)
         if "ns_names" in arrays:
@@ -1354,6 +1442,7 @@ class PackedPortsIncrementalVerifier:
             full_e=tuple(lay["full_e"]),
             ov_rows=tuple(tuple(r) for r in lay["ov_rows"]),
         )
+        self._shards = _make_shards(mesh, Np, self._layout, self._total_rows)
         self._mask_rank = {
             tuple(bool(b) for b in mask): int(rank) for mask, rank in meta["mask_rank"]
         }
@@ -1401,7 +1490,7 @@ class PackedPortsIncrementalVerifier:
         self._col_mask = self._put(self._col_mask_host())
         rv = np.zeros(Np, dtype=np.int8)
         rv[:n] = self.pod_active
-        self._row_valid = self._put(rv)
+        self._row_valid = self._put_rows(rv)
 
         # ownership + free lists from the saved owner vectors
         keys = [str(k) for k in arrays["keys"]]
@@ -1437,13 +1526,15 @@ class PackedPortsIncrementalVerifier:
         self._src, self._dst = {}, {}
         for key, d, side in _MAP_KEYS:
             packed = np.asarray(arrays[key])
-            (self._dst if side else self._src)[d] = [
-                _unpack_pod_axis(packed[s : s + l], Np, self.device)
-                for s, l in self._seg_spans[d]
-            ]
-        self._ing_cnt = self._put(np.asarray(arrays["ing_cnt"], dtype=np.int32))
-        self._eg_cnt = self._put(np.asarray(arrays["eg_cnt"], dtype=np.int32))
-        self._packed = _words(arrays["packed"], self.device)
+            if self._shards is not None:
+                segs = self._shards.load_segments(d, packed, self._seg_spans[d])
+            else:
+                segs = [_unpack_pod_axis(packed[s : s + l], Np, self.device)
+                        for s, l in self._seg_spans[d]]
+            (self._dst if side else self._src)[d] = segs
+        self._ing_cnt = self._put_rows(np.asarray(arrays["ing_cnt"], dtype=np.int32))
+        self._eg_cnt = self._put_rows(np.asarray(arrays["eg_cnt"], dtype=np.int32))
+        self._packed = _words(np.asarray(arrays["packed"])[self._rows()], self.device)
         if "closure" in arrays:
             self._closure = _words(arrays["closure"], self.device)
             self._closure_dirty = np.asarray(arrays["closure_dirty"], dtype=bool).copy()

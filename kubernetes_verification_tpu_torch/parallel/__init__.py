@@ -7,17 +7,22 @@ CPU), and ``sharded_ops`` / ``packed_sharded`` / ``sharded_closure`` the
 dense, packed and closure solves over it, SPMD: every rank calls them with
 the same encoding and gets the same global result. (The dense standalone
 closure is ``sharded_ops.sharded_closure``; the name ``sharded_closure``
-here is the packed closure's module.)
+here is the packed closure's module.) ``engine_mesh`` is the SPMD half of
+the serving engines' ``mesh=`` forms, on ``mesh``'s named collectives
+(``gather_rows``, ``psum_counts``, ``barrier``).
 """
 from .mesh import (
     GRANT_AXIS,
     POD_AXIS,
     Mesh,
+    barrier,
     distributed_mesh,
+    gather_rows,
     init_distributed,
     mesh_for,
     pad_amount,
     pad_rows,
+    psum_counts,
 )
 from .packed_sharded import PackedShardedResult, sharded_packed_reach
 from .sharded_closure import (
@@ -35,14 +40,17 @@ __all__ = [
     "ClosureBudgetError",
     "Mesh",
     "PackedShardedResult",
+    "barrier",
     "check_closure_budget",
     "distributed_mesh",
     "estimate_closure_hbm",
+    "gather_rows",
     "init_distributed",
     "mesh_for",
     "pad_amount",
     "pad_rows",
     "parse_stripe",
+    "psum_counts",
     "sharded_k8s_reach",
     "sharded_kano_reach",
     "sharded_packed_closure",

@@ -22,7 +22,8 @@ CPU gloo; ``backend="gloo"`` over CUDA tensors runs several ranks on one
 card (NCCL refuses two ranks on one GPU; torch 2.11's gloo takes CUDA
 tensors in the three collectives used here, so nothing is staged through
 the host). No collective moves ``bool`` (NCCL has none): gathers move
-``uint8``, sums ``int32``, packed words travel as ``int32``.
+``uint8`` (``bool`` and ``int8`` as a ``uint8`` view), sums ``int32``,
+packed words travel as ``int32``.
 """
 from __future__ import annotations
 
@@ -46,8 +47,11 @@ __all__ = [
     "distributed_mesh",
     "init_distributed",
     "all_gather",
+    "gather_rows",
     "psum",
+    "psum_counts",
     "broadcast",
+    "barrier",
     "pad_rows",
     "pad_amount",
     "rank_slice",
@@ -229,13 +233,49 @@ def distributed_mesh(
 def all_gather(mesh: Mesh, x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
     """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``: the members'
     blocks of ``x`` over ``axis``'s group, in member order, concatenated
-    along ``dim``. ``bool`` travels as ``uint8``."""
-    is_bool = x.dtype == torch.bool
-    src = (x.to(torch.uint8) if is_bool else x).contiguous()
+    along ``dim``. ``bool`` and ``int8`` travel as ``uint8``."""
+    dtype = x.dtype
+    if dtype == torch.bool:
+        src = x.to(torch.uint8).contiguous()
+    elif dtype == torch.int8:
+        src = x.contiguous().view(torch.uint8)
+    else:
+        src = x.contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, src, group=mesh.groups[axis])
     out = torch.cat(parts, dim=dim)
-    return out.to(torch.bool) if is_bool else out
+    if dtype == torch.bool:
+        return out.to(torch.bool)
+    return out.view(torch.int8) if dtype == torch.int8 else out
+
+
+def gather_rows(mesh: Mesh, x: torch.Tensor, ids, block: int, axis: str = POD_AXIS) -> torch.Tensor:
+    """Rows ``ids`` of a tensor split over ``axis`` in blocks of ``block``
+    rows, on every member: ``x`` is this rank's block, ``ids`` the global
+    row numbers (host ints, the same on every rank), the result ``[K,
+    ...]`` in the order of ``ids``. Each owner contributes only its own
+    rows, padded to the most any member owns, in one ``all_gather``; no
+    collective runs when ``ids`` is empty (on every rank alike)."""
+    ids = np.asarray(ids, dtype=np.int64)
+    if not ids.size:
+        return x[:0]
+    owner = ids // block
+    k = mesh.shape[axis]
+    counts = np.bincount(owner, minlength=k)
+    kmax = int(counts.max())
+    me = mesh.coords[axis]
+    mine = torch.as_tensor(ids[owner == me] - me * block, device=x.device)
+    src = x[mine]
+    if src.shape[0] < kmax:
+        src = torch.cat([src, src.new_zeros((kmax - src.shape[0], *src.shape[1:]))])
+    gathered = all_gather(mesh, src, axis, dim=0)  # [k · kmax, ...]
+    # each id's place: its owner's block, then its rank among that owner's ids
+    seen = np.zeros(k, dtype=np.int64)
+    pos = np.empty(ids.size, dtype=np.int64)
+    for j, o in enumerate(owner):
+        pos[j] = o * kmax + seen[o]
+        seen[o] += 1
+    return gathered[torch.as_tensor(pos, device=x.device)]
 
 
 def _in_place(x: torch.Tensor, collective) -> torch.Tensor:
@@ -259,6 +299,16 @@ def psum(mesh: Mesh, x: torch.Tensor, axis) -> torch.Tensor:
     return _in_place(x, lambda t: dist.all_reduce(t, group=group))
 
 
+def psum_counts(mesh: Mesh, *xs: torch.Tensor) -> None:
+    """Sum int32 partial counts over ``grants`` in place — the OR over the
+    grant axis, taken on the counts before any threshold (never on packed
+    words: no collective has a bitwise OR)."""
+    for x in xs:
+        if x.dtype != torch.int32:
+            raise ConfigError(f"psum_counts takes int32 counts, not {x.dtype}")
+        psum(mesh, x, GRANT_AXIS)
+
+
 def broadcast(mesh: Mesh, x: torch.Tensor, axis: str, member: int) -> torch.Tensor:
     """``x`` of ``axis``'s member ``member`` on every member of the group
     (in place; the others pass a buffer of its shape and dtype)."""
@@ -266,6 +316,11 @@ def broadcast(mesh: Mesh, x: torch.Tensor, axis: str, member: int) -> torch.Tens
     src = mesh.global_rank(member, grant) if axis == POD_AXIS else mesh.global_rank(pod, member)
     group = mesh.groups[axis]
     return _in_place(x, lambda t: dist.broadcast(t, src=src, group=group))
+
+
+def barrier(mesh: Mesh) -> None:
+    """Every rank of the mesh's job waits for the others."""
+    dist.barrier(group=mesh.groups[BOTH])
 
 
 def pad_amount(n: int, multiple: int) -> int:

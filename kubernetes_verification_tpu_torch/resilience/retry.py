@@ -4,7 +4,7 @@ The port's copy of ``kubernetes_verification_tpu.resilience.retry``: the
 packed incremental engine wraps its stripe and row re-solves in
 :func:`retry_transient`, so a transient device failure does not kill a
 long-lived serving verifier mid-query. The retry counter metric of the JAX
-package is not part of the port (ROADMAP §1 item 13).
+package is not part of the port (ROADMAP §1 item 14).
 
 Jitter is seeded (``random.Random(seed)`` per call), so a given failure
 sequence produces the same delay schedule on every run.

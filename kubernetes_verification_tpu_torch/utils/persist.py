@@ -507,36 +507,59 @@ def save_packed_incremental(inc, directory: str) -> None:
     — the config-5 diff engine: cluster manifest + bit-packed per-policy
     maps + isolation counts + (when kept) the packed matrix + slot layout +
     dirty bookkeeping. ~8× smaller than the device state thanks to the
-    bit-packing."""
+    bit-packing. An engine on a mesh is saved by every rank together (its
+    ``state_dict`` gathers the shards): rank 0 writes the files, and no
+    rank returns before they exist."""
     from ..ingest.yaml_io import _dump_cluster_json
 
-    os.makedirs(directory, exist_ok=True)
-    # include_inactive: the manifest's pod list position IS the slot index,
-    # so tombstoned pod slots must keep their place (state["pod_active"]
-    # marks them on resume)
-    _dump_cluster_json(
-        inc.as_cluster(include_inactive=True), os.path.join(directory, "cluster")
-    )
     state = inc.state_dict()
-    _savez(
-        os.path.join(directory, "state.npz"),
-        __config__=np.frombuffer(
-            _config_json(inc.config).encode(), dtype=np.uint8
-        ),
-        **state,
-    )
+    if _writes(inc):
+        os.makedirs(directory, exist_ok=True)
+        # include_inactive: the manifest's pod list position IS the slot
+        # index, so tombstoned pod slots must keep their place
+        # (state["pod_active"] marks them on resume)
+        _dump_cluster_json(
+            inc.as_cluster(include_inactive=True), os.path.join(directory, "cluster")
+        )
+        _savez(
+            os.path.join(directory, "state.npz"),
+            __config__=np.frombuffer(
+                _config_json(inc.config).encode(), dtype=np.uint8
+            ),
+            **state,
+        )
+    _saved(inc)
+
+
+def _writes(inc) -> bool:
+    """Whether this process writes an engine's checkpoint: always on one
+    device, rank 0 of a mesh."""
+    mesh = getattr(inc, "mesh", None)
+    return mesh is None or mesh.rank == 0
+
+
+def _saved(inc) -> None:
+    """On a mesh, wait until rank 0 has written the checkpoint."""
+    mesh = getattr(inc, "mesh", None)
+    if mesh is not None:
+        from ..parallel.mesh import barrier
+
+        barrier(mesh)
 
 
 def load_packed_incremental(
     directory: str,
     config: Optional[VerifyConfig] = None,
     device=None,
+    mesh=None,
     keep_matrix: Optional[bool] = None,
 ):
     """Resume a :class:`~..packed_incremental.PackedIncrementalVerifier`
     from a checkpoint without re-solving: state arrays upload straight to
-    the device; only the host vectorizer re-freezes on the manifest's
-    labels. (The JAX package's ``mesh=`` form is ROADMAP §1 item 12.)"""
+    the device, or each rank's block of them onto ``mesh`` (every rank
+    calls this; a checkpoint saved on one factorisation resumes on another,
+    or on one device, and the reverse); only the host vectorizer re-freezes
+    on the manifest's labels."""
     from ..ingest import load_cluster
     from ..packed_incremental import PackedIncrementalVerifier
 
@@ -553,40 +576,46 @@ def load_packed_incremental(
             if k not in ("__config__", _CHECKSUM_KEY)
         }
     return PackedIncrementalVerifier.from_state(
-        cluster, state, config, device=device, keep_matrix=keep_matrix,
+        cluster, state, config, device=device, mesh=mesh, keep_matrix=keep_matrix,
     )
 
 
 def save_ports_incremental(inc, directory: str) -> None:
     """Checkpoint a :class:`~..packed_incremental_ports.
     PackedPortsIncrementalVerifier`: cluster manifest + bit-packed VP
-    operands + counts + packed matrix + frozen layout/universe metadata."""
+    operands + counts + packed matrix + frozen layout/universe metadata. On
+    a mesh every rank saves together, as ``save_packed_incremental``."""
     from ..ingest.yaml_io import _dump_cluster_json
 
-    os.makedirs(directory, exist_ok=True)
-    # slot-ordered manifest: tombstoned pods stay in place so list position
-    # == slot index on resume (paired with the saved pod_active map)
-    _dump_cluster_json(
-        inc.as_cluster(include_inactive=True), os.path.join(directory, "cluster")
-    )
     arrays, meta = inc.state_dict()
-    _savez(
-        os.path.join(directory, "state.npz"),
-        __config__=np.frombuffer(
-            _config_json(inc.config).encode(), dtype=np.uint8
-        ),
-        __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
-        **arrays,
-    )
+    if _writes(inc):
+        os.makedirs(directory, exist_ok=True)
+        # slot-ordered manifest: tombstoned pods stay in place so list
+        # position == slot index on resume (paired with the saved pod_active
+        # map)
+        _dump_cluster_json(
+            inc.as_cluster(include_inactive=True), os.path.join(directory, "cluster")
+        )
+        _savez(
+            os.path.join(directory, "state.npz"),
+            __config__=np.frombuffer(
+                _config_json(inc.config).encode(), dtype=np.uint8
+            ),
+            __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+            **arrays,
+        )
+    _saved(inc)
 
 
 def load_ports_incremental(
     directory: str,
     config: Optional[VerifyConfig] = None,
     device=None,
+    mesh=None,
 ):
-    """Resume a port-bitmap incremental verifier without re-solving; the
-    frozen universe re-derives deterministically from the manifest."""
+    """Resume a port-bitmap incremental verifier without re-solving (onto
+    ``mesh`` as ``load_packed_incremental`` does); the frozen universe
+    re-derives deterministically from the manifest."""
     from ..ingest import load_cluster
     from ..packed_incremental_ports import PackedPortsIncrementalVerifier
 
@@ -604,7 +633,7 @@ def load_ports_incremental(
             if k not in ("__config__", "__meta__", _CHECKSUM_KEY)
         }
     return PackedPortsIncrementalVerifier.from_state(
-        cluster, arrays, meta, config, device=device
+        cluster, arrays, meta, config, device=device, mesh=mesh
     )
 
 

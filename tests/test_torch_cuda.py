@@ -742,3 +742,91 @@ def test_sharded_packed_world_one_nccl_matches_tiled(cuda_device):
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stdout + proc.stderr
+
+
+def test_mesh_engines_world_one_nccl_match_one_device(cuda_device):
+    """Both serving engines on a ``(1, 1)`` NCCL mesh equal the one-device
+    engines on the card after every op of a stream (the words, and the
+    whole state at the end), the any-port one matrix-free too (its stripes
+    == the one-device words); run in a child process, so this one joins no
+    process group."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import dataclasses, numpy as np, torch, torch.distributed as dist\n"
+        "import kubernetes_verification_tpu_torch as k\n"
+        "c = k.random_cluster(k.GeneratorConfig(n_pods=700, n_policies=60, n_namespaces=4,"
+        " p_ports=0.7, seed=3))\n"
+        "m = k.mesh_for()\n"
+        "assert dist.get_backend() == 'nccl' and m.device.type == 'cuda'\n"
+        "pols = list(c.policies)\n"
+        "ops = [('remove_policy', (pols[0].namespace, pols[0].name)),\n"
+        "       ('add_policy', (dataclasses.replace(pols[0], name='readd'),)),\n"
+        "       ('update_pod_labels', (5, {'zz': 'qq'})),\n"
+        "       ('remove_pod', (c.pods[9].namespace, c.pods[9].name)),\n"
+        "       ('add_pod', (k.Pod('new', c.pods[1].namespace, {'app': 'n'}),)),\n"
+        "       ('update_namespace_labels', (c.namespaces[1].name, {'fresh': 'x'}))]\n"
+        "def same(a, b):\n"
+        "    a, b = (x[0] if isinstance(x, tuple) else x for x in (a, b))\n"
+        "    return sorted(a) == sorted(b) and all(\n"
+        "        np.asarray(a[key]).tobytes() == np.asarray(b[key]).tobytes() for key in a)\n"
+        "for cls, kw in ((k.PackedIncrementalVerifier, {'keep_matrix': True}),\n"
+        "                (k.PackedPortsIncrementalVerifier, {})):\n"
+        "    ports = cls is k.PackedPortsIncrementalVerifier\n"
+        "    cfg = k.VerifyConfig(compute_ports=ports)\n"
+        "    one = cls(c, cfg)\n"
+        "    eng = cls(c, cfg, mesh=m, **kw)\n"
+        "    mf = None if ports else cls(c, cfg, mesh=m, keep_matrix=False)\n"
+        "    assert same(eng.state_dict(), one.state_dict())\n"
+        "    for op, args in ops:\n"
+        "        for e in (one, eng, mf):\n"
+        "            if e is not None:\n"
+        "                getattr(e, op)(*args)\n"
+        "        assert torch.equal(eng._packed, one._packed), op\n"
+        "    assert same(eng.state_dict(), one.state_dict())\n"
+        "    if mf is not None:\n"
+        "        for d0, words in mf.sweep_dirty(128):\n"
+        "            want = one._packed[:one.n_pods, d0 // 32:(d0 + 128) // 32]\n"
+        "            assert np.array_equal(words, want.cpu().numpy().view(np.uint32)), d0\n"
+        "dist.destroy_process_group()\n"
+        "print('ok')\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("compute_ports", [False, True])
+def test_datalog_backend_on_card_matches_torch(cuda_device, compute_ports):
+    """``verify(backend="datalog")`` on the card (its default: torch einsum
+    rules) equals its own NumPy route on every field and the ``torch``
+    backend on the reach, selection and isolation (and on the policy sets
+    any-port: with port atoms the Datalog sets drop the peers of a rule
+    whose named ports resolve on no pod, as the JAX package's do —
+    ``ROADMAP.md`` §3); the kano program equals ``verify_kano``'s."""
+    c = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=300, n_policies=40, n_namespaces=4, p_ports=0.6, seed=5))
+    got = kvt.verify(c, kvt.VerifyConfig(backend="datalog", compute_ports=compute_ports,
+                                         closure=True))
+    want = kvt.verify(c, kvt.VerifyConfig(backend="torch", compute_ports=compute_ports,
+                                          closure=True))
+    host = kvt.verify(c, kvt.VerifyConfig(backend="datalog", compute_ports=compute_ports,
+                                          backend_options=(("use_torch", False),)))
+    for f in ("reach", "reach_ports", "selected", "src_sets", "dst_sets",
+              "ingress_isolated", "egress_isolated", "closure"):
+        w, g = getattr(want, f), getattr(got, f)
+        assert (w is None) == (g is None), f
+        if w is None:
+            continue
+        if f != "closure":
+            np.testing.assert_array_equal(g, getattr(host, f), err_msg=f)
+        if not (compute_ports and f in ("src_sets", "dst_sets")):
+            np.testing.assert_array_equal(g, w, err_msg=f)
+    cs, ps = kvt.random_kano(400, 40, seed=2)
+    kg = kvt.verify_kano(cs, ps, kvt.VerifyConfig(backend="datalog"))
+    kw = kvt.verify_kano(*kvt.random_kano(400, 40, seed=2), kvt.VerifyConfig(backend="torch"))
+    np.testing.assert_array_equal(kg.reach, kw.reach)
+    np.testing.assert_array_equal(kg.src_sets, kw.src_sets)

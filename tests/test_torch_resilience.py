@@ -18,6 +18,22 @@ from kubernetes_verification_tpu_torch.resilience.retry import (
     retry_transient,
 )
 
+
+
+@pytest.fixture(autouse=True)
+def _restore_backend_registry():
+    """``register_faulty`` adds ``faulty:<inner>`` to the backend registry
+    for the rest of the process; put the registry back after each test, so
+    a later test on the same worker sees the package's own backends."""
+    from kubernetes_verification_tpu_torch.backends import base
+
+    base.available_backends()  # the built-ins registered before the snapshot
+    saved = dict(base._REGISTRY)
+    yield
+    base._REGISTRY.clear()
+    base._REGISTRY.update(saved)
+
+
 _MESSAGES = [
     "RESOURCE_EXHAUSTED: out of HBM",
     "Out of memory while trying to allocate",

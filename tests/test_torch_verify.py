@@ -77,8 +77,8 @@ def test_unported_paths_name_the_roadmap():
     """What raised "not ported" before now runs: ``closure=True`` and kano
     mode (``tests/test_torch_kano.py`` holds both against JAX). An unknown
     backend still raises; the registry holds the card's ``torch`` backend,
-    the host's ``cpu`` oracle and the mesh-sharded ``sharded`` and
-    ``sharded-packed``."""
+    the host's ``cpu`` oracle, the Datalog engine's ``datalog`` and the
+    mesh-sharded ``sharded`` and ``sharded-packed``."""
     cluster = kvt.random_cluster(kvt.GeneratorConfig(seed=1, n_pods=10, n_policies=3))
     jcluster = jax_random_cluster(JaxGeneratorConfig(seed=1, n_pods=10, n_policies=3))
     cpu = (("device", "cpu"),)
@@ -94,4 +94,4 @@ def test_unported_paths_name_the_roadmap():
             label_relation=kvt.DefaultEqualityLabelRelation(), backend_options=cpu))
     with pytest.raises(KeyError):
         kvt.verify(cluster, kvt.VerifyConfig(backend="tpu"))
-    assert kvt.available_backends() == ["cpu", "sharded", "sharded-packed", "torch"]
+    assert kvt.available_backends() == ["cpu", "datalog", "sharded", "sharded-packed", "torch"]

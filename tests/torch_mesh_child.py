@@ -13,7 +13,14 @@ each case's mesh over it (all four factorisations over the same world) and
 writes ``<out>/<id>.r<rank>.npz``: the case's arrays, or ``error`` (the
 exception's class and message) when the call raised. Imports the PyTorch
 port only; the tests hold the files against the JAX package.
+
+The ``engine`` kind builds a serving engine on the mesh (or resumes one
+from a checkpoint a previous case saved) and applies a scripted op list
+(``resolve_op``: JSON ops, which the tests resolve against the JAX
+package's objects the same way), writing the state after the build and
+after every op.
 """
+import dataclasses
 import json
 import os
 import sys
@@ -249,7 +256,123 @@ def run_verify_kano(mesh, case, _):
     return out
 
 
+def resolve_op(op, eng, cluster, pkg):
+    """``(method, args)`` of one scripted engine op (a JSON list) on ``eng``
+    built from ``cluster``; ``pkg`` is the package whose model classes the
+    args use (the port here, the JAX package in the tests):
+
+    * ``["remove_policy", {"pol": i}]``, ``["add_policy", {"pol": i,
+      "name": n}]`` (or ``{"donor": gen, ...}``: policy ``i`` of another
+      generated cluster), ``["update_policy", {"pol": i, "ingress_of": j}]``
+      — ``i``/``j`` index the built cluster's policies;
+    * ``["update_pod_labels", idx, labels | {"labels_of": k}]``;
+    * ``["add_pod", name, ns | {"ns_of": k}, labels]``, ``["remove_pod",
+      {"pod": k}]`` — ``k`` is a pod slot of the engine at that moment;
+    * ``["update_namespace_labels", {"ns": i}, labels | {"ns_labels_of":
+      j}]``, ``["add_namespace", name, labels]``,
+      ``["remove_namespace", name]``."""
+    name, *args = op
+    pols = list(cluster.policies)
+
+    def policy(spec):
+        src = pols
+        if "donor" in spec:
+            src = list(pkg.random_cluster(pkg.GeneratorConfig(**spec["donor"])).policies)
+        pol = src[spec["pol"]]
+        if "ingress_of" in spec:
+            pol = dataclasses.replace(pol, ingress=pols[spec["ingress_of"]].ingress)
+        if "name" in spec:
+            pol = dataclasses.replace(pol, name=spec["name"])
+        return pol
+
+    if name == "remove_policy":
+        p = pols[args[0]["pol"]]
+        return name, (p.namespace, p.name)
+    if name in ("add_policy", "update_policy"):
+        return name, (policy(args[0]),)
+    if name == "update_pod_labels":
+        idx, labels = args
+        if isinstance(labels, dict) and "labels_of" in labels:
+            labels = dict(eng.pods[labels["labels_of"]].labels)
+        return name, (idx, labels)
+    if name == "add_pod":
+        pod_name, ns, labels = args
+        if isinstance(ns, dict):
+            ns = eng.pods[ns["ns_of"]].namespace
+        return name, (pkg.Pod(pod_name, ns, labels),)
+    if name == "remove_pod":
+        victim = eng.pods[args[0]["pod"]]
+        return name, (victim.namespace, victim.name)
+    if name == "update_namespace_labels":
+        ns, labels = args
+        if isinstance(labels, dict) and "ns_labels_of" in labels:
+            labels = dict(cluster.namespaces[labels["ns_labels_of"]].labels)
+        return name, (cluster.namespaces[ns["ns"]].name, labels)
+    if name == "add_namespace":
+        return name, (pkg.Namespace(args[0], args[1]),)
+    return name, tuple(args)
+
+
+def _state(eng):
+    """The engine's state, copied (``dirty_rows`` and the like are the live
+    arrays, which later ops change in place)."""
+    st = eng.state_dict()
+    meta = None
+    if isinstance(st, tuple):  # the ports engine: (arrays, meta)
+        st, meta = st
+    out = {k: np.array(v) for k, v in st.items()}
+    if meta is not None:
+        out["__meta__"] = np.array(json.dumps(meta, sort_keys=True))
+    return out
+
+
+def run_engine(mesh, case, _):
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.utils import persist
+
+    kw = case["kw"]
+    ports = kw.get("ports", False)
+    cfg = kvt.VerifyConfig(compute_ports=ports)
+    cluster = cluster_of(case["gen"])
+    if kw.get("resume"):
+        load = persist.load_ports_incremental if ports else persist.load_packed_incremental
+        eng = load(os.path.join(case["out"], kw["resume"]), mesh=mesh, **kw.get("build", {}))
+    else:
+        cls = kvt.PackedPortsIncrementalVerifier if ports else kvt.PackedIncrementalVerifier
+        eng = cls(cluster, cfg, mesh=mesh, **kw.get("build", {}))
+    res = {f"0.{k}": v for k, v in _state(eng).items()}
+    for i, op in enumerate(kw.get("ops", []), 1):
+        if op[0] == "save":
+            save = persist.save_ports_incremental if ports else persist.save_packed_incremental
+            save(eng, os.path.join(case["out"], op[1]))
+            continue
+        if op[0] == "sweep":
+            for d0, words in eng.sweep_dirty(op[1]):
+                res[f"{i}.sweep.{d0}"] = words
+            continue
+        if op[0] == "stripe":
+            res[f"{i}.stripe"] = _try(lambda: eng.solve_stripe(op[1], op[2]))
+            continue
+        if op[0] == "rows":
+            res[f"{i}.rows"] = _try(lambda: eng.solve_rows(op[1]))
+            continue
+        method, args = resolve_op(op, eng, cluster, kvt)
+        ret = getattr(eng, method)(*args)
+        if ret is not None:
+            res[f"{i}.ret"] = np.asarray(ret)
+        res.update({f"{i}.{k}": v for k, v in _state(eng).items()})
+    if getattr(eng, "keep_matrix", True):  # the ports engine always keeps it
+        res["reach"] = eng.reach
+        res["reach_active"] = eng.reach_active()
+    else:
+        res["packed_reach"] = _try(eng.packed_reach)
+    if kw.get("closure"):
+        res["closure"] = eng.closure_packed(tile=64)
+    return res
+
+
 RUNNERS = {
+    "engine": run_engine,
     "k8s": run_k8s,
     "kano": run_kano,
     "closure": run_closure,
