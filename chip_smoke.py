@@ -298,10 +298,17 @@ import time
 
 import torch
 
+from kubernetes_verification_tpu_torch.observe.introspect import (
+    H100_SXM,
+    device_bytes_per_s,
+    device_peak_macs_per_s,
+)
+
 #: the published dense int8 tensor-core peak and memory rate of one H100 SXM
-#: (NVIDIA's data sheet; at the full 700 W power limit)
-H100_INT8_OPS = 1979e12
-H100_BYTES_PER_S = 3.35e12
+#: (NVIDIA's data sheet; at the full 700 W power limit), from the port's one
+#: table of published peaks (``observe/introspect.py``)
+H100_INT8_OPS = 2 * device_peak_macs_per_s(H100_SXM, "int8")
+H100_BYTES_PER_S = device_bytes_per_s(H100_SXM)
 
 MAIN = dict(n_pods=100_000, n_policies=10_000, n_namespaces=20,
             p_ipblock_peer=0.0, min_selector_labels=1, seed=0)
@@ -364,10 +371,11 @@ def probe() -> tuple:
     return kind, smi
 
 
-def build() -> None:
+def build() -> float:
     """Build both kernels at once and print, per kernel instantiation, what
     ``ptxas`` reports (registers, spills, static shared memory) and the
-    dynamic shared memory each launch asks for."""
+    dynamic shared memory each launch asks for. Returns the build's
+    seconds."""
     from kubernetes_verification_tpu_torch.ops.cuda_build import build_all, load_library
 
     t0 = time.perf_counter()
@@ -377,12 +385,14 @@ def build() -> None:
         for line in out.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "smem", "spill")):
                 log(f"  ptxas: {line.strip()}")
-    log(f"build: {time.perf_counter() - t0:.1f} s ({len(built)} built)")
+    build_s = time.perf_counter() - t0
+    log(f"build: {build_s:.1f} s ({len(built)} built)")
     smem = load_library("packed_dir_allow").packed_dir_allow_smem_bytes()
     log(f"  packed_dir_allow: {smem} bytes of dynamic shared memory per block")
     for w in (1, 2):
         smem = load_library("fused_ports_reach").fused_ports_reach_smem_bytes(w)
         log(f"  fused_ports_reach W={w}: {smem} bytes of dynamic shared memory per block")
+    return build_s
 
 
 def kernel_small(dev) -> int:
@@ -4359,7 +4369,277 @@ def datalog_phase(dev, smi: str) -> tuple:
     return launches
 
 
+def native_phase(dev, smi: str) -> None:
+    """Phase 33: the ``native`` backend (host C++, OpenMP) at BASELINE
+    config 3 any-port with ``closure=True``, at phase 8's cluster with port
+    semantics, and on ``random_kano(10,000, 1,000)``: every field equals
+    ``verify(backend="torch")`` on the card. No hand-written kernel launches
+    in the native calls."""
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+
+    if "native" not in kvt.available_backends():
+        fail("native: the backend is not registered (no C++ compiler?)")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    card = (("device", str(dev)),)
+    fields = ("reach", "reach_ports", "closure", "selected", "src_sets", "dst_sets",
+              "ingress_isolated", "egress_isolated")
+    runs = []
+    for tag, gen, flags in (
+        ("config 3", CONFIG3, dict(compute_ports=False, closure=True)),
+        ("phase 8's cluster with ports", VERIFY, dict(compute_ports=True)),
+    ):
+        cluster = kvt.random_cluster(kvt.GeneratorConfig(**gen))
+        reset_counts()
+        t0 = time.perf_counter()
+        got = kvt.verify(cluster, kvt.VerifyConfig(backend="native", **flags))
+        native_s = time.perf_counter() - t0
+        if launch_counts() != (0, 0):
+            fail(f"native: {tag}: the native call launched {launch_counts()}")
+        t0 = time.perf_counter()
+        want = kvt.verify(cluster, kvt.VerifyConfig(backend="torch", backend_options=card,
+                                                    **flags))
+        torch_s = time.perf_counter() - t0
+        for f in fields:
+            g, w = getattr(got, f), getattr(want, f)
+            if (g is None) != (w is None) or (g is not None and not np.array_equal(g, w)):
+                fail(f"native: {tag}: {f} differs from the torch backend's")
+        runs.append(f"{tag} ({gen['n_pods']} pods / {gen['n_policies']} policies): native "
+                    f"{native_s:.2f} s, torch {torch_s:.2f} s, {int(got.reach.sum())} pairs")
+    containers, policies = kvt.random_kano(KANO["n_containers"], KANO["n_policies"],
+                                           seed=KANO["seed"])
+    reset_counts()
+    t0 = time.perf_counter()
+    got = kvt.verify_kano(containers, policies, kvt.VerifyConfig(backend="native"))
+    native_s = time.perf_counter() - t0
+    if launch_counts() != (0, 0):
+        fail(f"native: kano: the native call launched {launch_counts()}")
+    t0 = time.perf_counter()
+    want = kvt.verify_kano(containers, policies,
+                           kvt.VerifyConfig(backend="torch", backend_options=card))
+    torch_s = time.perf_counter() - t0
+    for f in ("reach", "src_sets", "dst_sets"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            fail(f"native: kano: {f} differs from verify_kano(backend='torch')")
+    runs.append(f"kano ({KANO['n_containers']} containers / {KANO['n_policies']} policies): "
+                f"native {native_s:.2f} s, torch {torch_s:.2f} s")
+    log("native: " + "; ".join(runs) + "; every field == the torch backend's on the card, "
+        f"0 hand-kernel launches in the native calls; {time.perf_counter() - t_phase:.2f} s, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+
+
+def observe_phase(any_enc, ports_enc, bound_rows, fused_row, dev, smi: str) -> None:
+    """Phase 34 (right after phase 7, on phases 4 and 6's encodings): the
+    sentinel suite on the card (``run_calibration``: each chain's median,
+    spread, MACs/s and ``calibrated``, the dispatch probe); introspection on
+    for one any-port and one port-bitmap flagship solve, whose published
+    ``packed_dir_allow`` / ``fused_ports_reach`` reports give, through
+    ``introspect.analytic_bound``, phase 5 and 7's bounds to 0.1 ms; the
+    cost table; ``memory_snapshot`` lists ``cuda:0`` at
+    ``torch.cuda.memory_allocated(0)``; a span under
+    ``install_span_memory_hook`` carries the memory fields."""
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.observe import (
+        introspect,
+        sentinel,
+        spans,
+        telemetry,
+        trace,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = sentinel.run_calibration(dev)
+    if ctx["platform"] != "gpu" or ctx["device"] != torch.cuda.get_device_name(0):
+        fail(f"observe: the calibration ran on {ctx['platform']} / {ctx['device']}")
+    for name, k in ctx["kernels"].items():
+        log(f"observe: sentinel {name} {k['config']}: median {k['median_s'] * 1e3:.3f} ms, "
+            f"spread {k['spread_pct']:.2f} % (bound {ctx['max_spread_pct_bound']:g} %), "
+            + (f"{k['macs_per_s'] / 1e12:.1f} T MACs/s, " if k["macs_per_run"] else "")
+            + f"calibrated {k['calibrated']}; {smi}")
+    log(f"observe: dispatch probe (a launch and .item()) median "
+        f"{ctx['dispatch_s'] * 1e6:.1f} us, min {ctx['dispatch_min_s'] * 1e6:.1f} us; "
+        f"calibrated peak {ctx['calibrated_peak_macs_per_s'] / 1e12:.1f} T MACs/s; {smi}")
+
+    introspect.clear_reports()
+    introspect.set_introspection(True)
+    try:
+        for enc in (any_enc, ports_enc):
+            kvt.tiled_k8s_reach(enc, device=dev, fetch=False)
+        torch.cuda.synchronize()
+    finally:
+        introspect.set_introspection(False)
+    reps = {r.fn: r for r in introspect.reports() if r.engine == "cuda"}
+    for name, phase, want in (("packed_dir_allow", 5, bound_rows[0]["bound_ms"]),
+                              ("fused_ports_reach", 7, fused_row["bound_ms"])):
+        rep = reps.get(name)
+        if rep is None or rep.source != "analytic" or rep.platform != "gpu":
+            fail(f"observe: no analytic card report of {name}: {rep}")
+        secs, by = introspect.analytic_bound(rep.flops, rep.bytes_accessed,
+                                             torch.cuda.get_device_name(0))
+        if abs(1e3 * secs - want) > 0.1:
+            fail(f"observe: {name}'s report gives a {1e3 * secs:.2f} ms bound, phase "
+                 f"{phase} printed {want:.2f} ms")
+        log(f"observe: {name} report: {rep.flops:.4e} operations, {rep.bytes_accessed:.4e} "
+            f"bytes, bound {1e3 * secs:.2f} ms ({by}) == phase {phase}'s {want:.2f} ms")
+    log("observe: cost table of the two solves:\n" + introspect.format_cost_table())
+    introspect.clear_reports()
+
+    snap = telemetry.memory_snapshot()
+    allocated = torch.cuda.memory_allocated(0)
+    card = [e for e in snap if e["device"] == "cuda:0"]
+    if not card or card[0]["bytes_in_use"] != allocated:
+        fail(f"observe: memory_snapshot {snap} does not list cuda:0 at {allocated} bytes")
+    log("observe: memory_snapshot:\n" + telemetry.format_memory_table(snap))
+    telemetry.install_span_memory_hook()
+    try:
+        with trace("chip_smoke_memory_probe") as sp:
+            probe_t = torch.empty(1 << 20, dtype=torch.int32, device=dev)
+        del probe_t
+    finally:
+        spans.set_memory_hook(None)
+    if not ("mem_enter_bytes" in sp.attrs and "mem_exit_bytes" in sp.attrs):
+        fail(f"observe: the span carries no memory fields: {sp.attrs}")
+    log(f"observe: a traced span carries mem_enter_bytes {sp.attrs['mem_enter_bytes']} and "
+        f"mem_exit_bytes {sp.attrs['mem_exit_bytes']}; {time.perf_counter() - t_phase:.2f} s, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+
+
+def _words_digest(eng) -> str:
+    import hashlib
+
+    words = eng._packed[: eng.n_pods].cpu().numpy()
+    return f"{tuple(words.shape)}:{hashlib.sha256(words.tobytes()).hexdigest()}"
+
+
+def warm_child(ck: str, log_path: str, build_dir: str, out: str) -> int:
+    """Phase 35's child: with an empty kernel build directory and no
+    ``nvcc``, recover phase 22's checkpoint directory (installing its warm
+    pack), answer a full resync and a probe batch, and write what it
+    counted to ``out``."""
+    import os
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    from kubernetes_verification_tpu_torch.observe import aot
+    from kubernetes_verification_tpu_torch.ops import cuda_build
+    from kubernetes_verification_tpu_torch.serve import QueryEngine, RecoveryManager
+    from kubernetes_verification_tpu_torch.serve.events import FullResync
+
+    cuda_build.BUILD_DIR = build_dir  # empty: nothing built in this process
+    if os.listdir(build_dir) or cuda_build.nvcc_version() is not None:
+        fail("warm child: the build directory is not empty or nvcc is reachable")
+    reset_counts()
+    res = RecoveryManager(ck).recover(log_path=log_path, device=dev)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t_start
+    svc = res.service
+    t0 = time.perf_counter()
+    svc.apply([FullResync(cluster=svc.engine.as_cluster())])
+    probes = query_mix(svc.engine.pods, 35)[0]
+    answers = QueryEngine(svc).can_reach_batch(probes)
+    torch.cuda.synchronize()
+    first_answer_s = time.perf_counter() - t_start
+    with open(out, "w") as fh:
+        json.dump({
+            "hits": aot.hit_total(), "misses": aot.miss_total(),
+            "nvcc_runs": cuda_build.counts()["nvcc_runs"],
+            "launches": list(launch_counts()),
+            "digest": _words_digest(svc.engine),
+            "answers": int(answers.sum()), "recover_s": recover_s,
+            "resync_s": time.perf_counter() - t0, "first_answer_s": first_answer_s,
+            "built": sorted(os.listdir(build_dir)),
+        }, fh)
+    return 0
+
+
+def warm_start_phase(ctx: dict, build_s: float, dev, smi: str) -> int:
+    """Phase 35 (right after phase 25, on phase 22's checkpoint directory
+    and WAL): the pack phase 22's ``CheckpointManager`` shipped lists both
+    libraries under this environment; a child process with an empty build
+    directory, no ``nvcc`` on its ``PATH`` and ``CUDA_HOME`` at an empty
+    directory recovers the directory (hits 2, misses 0, ``nvcc`` runs 0),
+    answers a full resync whose words equal the leader's (exactly 2
+    ``packed_dir_allow`` launches) and a probe batch; ``inspect`` and a
+    replica's ``/healthz`` report the pack present with ``env_match``.
+    Returns the child's ``packed_dir_allow`` launches."""
+    import os
+    import tempfile
+
+    from kubernetes_verification_tpu_torch.observe import aot
+    from kubernetes_verification_tpu_torch.serve import (
+        RecoveryManager,
+        ReplicationClient,
+        ReplicationServer,
+    )
+
+    t_phase = time.perf_counter()
+    ck, log_path, leader = ctx["ck"], ctx["log"], ctx["svc"]
+    status = aot.pack_status(aot.pack_dir(ck))
+    if not (status["present"] and status["env_match"] and status["corrupt"] == 0
+            and status["libraries"] == ["fused_ports_reach", "packed_dir_allow"]):
+        fail(f"warm start: phase 22's pack is not both libraries of this environment: "
+             f"{status}")
+    inspected = RecoveryManager(ck).inspect(log_path=log_path)["aot_pack"]
+    with ReplicationServer(ck, log_path, port=0) as server:
+        health = ReplicationClient(server.url, timeout=30.0).healthz()["aot"]
+    for tag, report in (("inspect", inspected), ("/healthz", health)):
+        if not (report["present"] and report["env_match"]):
+            fail(f"warm start: {tag} reports the pack {report}")
+    want = _words_digest(leader.engine)
+    scratch = tempfile.TemporaryDirectory(prefix="kvt-warm-")
+    build_dir = os.path.join(scratch.name, "build")
+    empty_cuda = os.path.join(scratch.name, "no-cuda")
+    os.makedirs(build_dir)
+    os.makedirs(empty_cuda)
+    env = dict(os.environ, CUDA_HOME=empty_cuda, PATH=os.pathsep.join(
+        d for d in os.environ.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc"))))
+    out = os.path.join(scratch.name, "child.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--warm-child", ck, log_path,
+         build_dir, out],
+        env=env, capture_output=True, text=True, timeout=600,
+    )
+    child_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"warm start: the child exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+             f"{proc.stderr[-4000:]}")
+    with open(out) as fh:
+        got = json.load(fh)
+    scratch.cleanup()
+    if (got["hits"], got["misses"], got["nvcc_runs"]) != (2, 0, 0):
+        fail(f"warm start: the child counted hits {got['hits']}, misses {got['misses']}, "
+             f"nvcc runs {got['nvcc_runs']}")
+    if got["launches"] != [2, 0]:
+        fail(f"warm start: the child launched {got['launches']}, not packed_dir_allow twice")
+    if got["digest"] != want:
+        fail(f"warm start: the child's resync words {got['digest']} != the leader's {want}")
+    log(f"warm start: child (no nvcc, empty build directory) loaded both libraries from "
+        f"the pack (hits {got['hits']:.0f}, misses {got['misses']:.0f}, nvcc runs "
+        f"{got['nvcc_runs']}), recovered in {got['recover_s']:.2f} s from its start, "
+        f"answered a full resync ({got['launches'][0]} packed_dir_allow launches, words == "
+        f"the leader's) and 4,096 probes in {got['resync_s']:.2f} s: first answer "
+        f"{got['first_answer_s']:.2f} s after its start ({child_wall:.2f} s of process "
+        f"wall) beside phase 2's nvcc build of {build_s:.1f} s; inspect and /healthz: pack "
+        f"present, env_match; {time.perf_counter() - t_phase:.2f} s; {smi}")
+    SERVE_SUMMARY.append(
+        f"phase 35 warm start: first answer {got['first_answer_s']:.2f} s after the "
+        f"child's start with 0 nvcc runs (phase 2's build {build_s:.1f} s)")
+    return got["launches"][0]
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--warm-child"]:
+        return warm_child(*sys.argv[2:6])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
               file=sys.stderr)
@@ -4368,7 +4648,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     t0 = time.perf_counter()
     kind, smi = probe()
-    build()
+    build_s = build()
     worst = kernel_small(dev)
     worst_fused = fused_small(dev)
 
@@ -4387,6 +4667,8 @@ def main() -> int:
     fused_launches, ports_words = ports_path(enc, dev)
     torch.cuda.empty_cache()
     fused_row = fused_full(enc, dev, smi)
+    torch.cuda.empty_cache()
+    observe_phase(any_enc, enc, rows, fused_row, dev, smi)
     del enc
     torch.cuda.empty_cache()
     verify_phase(dev)
@@ -4411,6 +4693,8 @@ def main() -> int:
     mesh_engine_launches = tuple(
         a + b for a, b in zip(mesh_engine_launches, datalog_phase(dev, smi)))
     torch.cuda.empty_cache()
+    native_phase(dev, smi)
+    torch.cuda.empty_cache()
     delta_phase(dev)
     kano_phase(dev, smi)
     card_vs_cpu_phase(dev)
@@ -4424,6 +4708,7 @@ def main() -> int:
     reset_counts()
     replicated_phase(replica_ctx, dev, smi)
     replica_launches = launch_counts()
+    warm_launches = warm_start_phase(replica_ctx, build_s, dev, smi)
     replica_ctx["tmp"].cleanup()
     del replica_ctx
     torch.cuda.empty_cache()
@@ -4472,6 +4757,7 @@ def main() -> int:
         "replica_launches": replica_launches[0],
         "sharded_launches": sharded_launches[0],
         "mesh_engine_launches": mesh_engine_launches[0],
+        "warm_start_launches": warm_launches,
         "max_abs_err": worst,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),

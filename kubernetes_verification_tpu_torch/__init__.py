@@ -33,7 +33,9 @@ the same diffs)::
 
     sharded = kvt.PackedIncrementalVerifier(cluster, mesh=kvt.mesh_for())
 
-The ``datalog`` backend (``datalog/``) evaluates the kubesv Datalog program
+The ``native`` backend (``backends/native.py``) runs the packed-bitset C++
+engine on the host (registered where a C++ compiler exists). The
+``datalog`` backend (``datalog/``) evaluates the kubesv Datalog program
 with ``torch.einsum`` rules on the card. The query twins
 (``ops/batched.py``), the device query state (``ops/device_state.py``) and
 the posture ops (``ops/posture.py``) are imported from their modules. The
@@ -115,6 +117,11 @@ from .resilience.errors import (
 from .backends import sharded as _sharded  # noqa: F401  registers "sharded"
 from .backends import sharded_packed as _sharded_packed  # noqa: F401  registers "sharded-packed"
 from .datalog import k8s_program as _datalog  # noqa: F401  registers "datalog"
+
+try:  # needs a C++ compiler (or a previously built library)
+    from .backends import native as _native  # noqa: F401  registers "native"
+except Exception:  # pragma: no cover - NativeUnavailable or loader errors
+    pass
 
 __version__ = "0.1.0"
 

@@ -186,9 +186,15 @@ def register_backend(name: str, factory: Callable[[], VerifierBackend]) -> None:
 
 
 def _register_builtins() -> None:
-    # register "cpu", "torch", "sharded", "sharded-packed" and "datalog"
+    # register "cpu", "torch", "sharded", "sharded-packed" and "datalog",
+    # and "native" where a C++ compiler exists
     from ..datalog import k8s_program  # noqa: F401
     from . import cpu, device, sharded, sharded_packed  # noqa: F401
+
+    try:
+        from . import native  # noqa: F401
+    except Exception:  # NativeUnavailable or loader errors
+        pass
 
 
 def available_backends() -> List[str]:

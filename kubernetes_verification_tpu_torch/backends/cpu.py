@@ -15,14 +15,13 @@ It plays the role of both reference verifiers:
   Datalog program (``kubesv/kubesv/constraint.py:136-298``), with the
   reference's two semantic flags plus correct policyTypes handling.
 
-It runs on the host only and needs no device. The JAX package's phase
-timers, host cost estimates, metrics and progress ticker are not part of
-the port (ROADMAP §1 item 14); ``timings`` holds the phases' seconds.
+It runs on the host only and needs no device. Its phase timers
+(``observe.Phases``), host cost estimates (``publish_host_estimate``),
+metrics and closure progress ticker are the JAX package's.
 """
 from __future__ import annotations
 
-import time
-from typing import Dict, Sequence, Set
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -33,8 +32,12 @@ from ..models.core import (
     KanoPolicy,
     NetworkPolicy,
     Peer,
+    Pod,
     Rule,
 )
+from ..observe import Phases
+from ..observe.introspect import publish_host_estimate
+from ..observe.metrics import BYTES_TRANSFERRED, CLOSURE_ITERATIONS
 from .base import (
     VerifierBackend,
     VerifyConfig,
@@ -84,37 +87,50 @@ class CpuBackend(VerifierBackend):
         config: VerifyConfig,
     ) -> VerifyResult:
         n = len(containers)
-        t0 = time.perf_counter()
-        cluster_keys: Set[str] = set()
-        for c in containers:
-            cluster_keys.update(c.labels)
+        ph = Phases()
+        with ph("encode"):
+            cluster_keys: Set[str] = set()
+            for c in containers:
+                cluster_keys.update(c.labels)
 
-        reach = np.zeros((n, n), dtype=bool)
-        src_sets = np.zeros((len(policies), n), dtype=bool)
-        dst_sets = np.zeros((len(policies), n), dtype=bool)
+            reach = np.zeros((n, n), dtype=bool)
+            src_sets = np.zeros((len(policies), n), dtype=bool)
+            dst_sets = np.zeros((len(policies), n), dtype=bool)
 
-        for c in containers:  # rebuild the per-container policy indices
-            c.select_policies.clear()
-            c.allow_policies.clear()
-        t1 = time.perf_counter()
+            for c in containers:  # rebuild the per-container policy indices
+                c.select_policies.clear()
+                c.allow_policies.clear()
 
-        relation = config.label_relation
-        for pi, pol in enumerate(policies):
-            for i, c in enumerate(containers):
-                src_sets[pi, i] = _kano_match(
-                    c.labels, pol.src_labels, cluster_keys, relation
-                )
-                dst_sets[pi, i] = _kano_match(
-                    c.labels, pol.dst_labels, cluster_keys, relation
-                )
-            # matrix[src] |= dst_set for every selected src
-            # (kano_py/kano/model.py:158-163)
-            reach |= np.outer(src_sets[pi], dst_sets[pi])
-            for i in range(n):
-                if src_sets[pi, i]:
-                    containers[i].select_policies.append(pi)
-                if dst_sets[pi, i]:
-                    containers[i].allow_policies.append(pi)
+        with ph("solve", backend=self.name):
+            relation = config.label_relation
+            for pi, pol in enumerate(policies):
+                for i, c in enumerate(containers):
+                    src_sets[pi, i] = _kano_match(
+                        c.labels, pol.src_labels, cluster_keys, relation
+                    )
+                    dst_sets[pi, i] = _kano_match(
+                        c.labels, pol.dst_labels, cluster_keys, relation
+                    )
+                # matrix[src] |= dst_set for every selected src
+                # (kano_py/kano/model.py:158-163)
+                reach |= np.outer(src_sets[pi], dst_sets[pi])
+                for i in range(n):
+                    if src_sets[pi, i]:
+                        containers[i].select_policies.append(pi)
+                    if dst_sets[pi, i]:
+                        containers[i].allow_policies.append(pi)
+
+        BYTES_TRANSFERRED.labels(backend=self.name).set(0)  # pure host
+        # analytic host estimate (no XLA program to analyse): P selector
+        # sweeps over n containers plus P rank-1 outer products into [n,n]
+        publish_host_estimate(
+            self.name,
+            "verify_kano",
+            flops=len(policies) * n * (2 + n),
+            bytes_accessed=len(policies) * n * n + 2 * len(policies) * n,
+            output_bytes=reach.nbytes + src_sets.nbytes + dst_sets.nbytes,
+            signature=(n, len(policies)),
+        )
         return VerifyResult(
             n_pods=n,
             mode="kano",
@@ -124,7 +140,7 @@ class CpuBackend(VerifierBackend):
             src_sets=src_sets,
             dst_sets=dst_sets,
             closure=_transitive_closure(reach) if config.closure else None,
-            timings={"encode": t1 - t0, "solve": time.perf_counter() - t1},
+            timings=ph.timings,
         )
 
     # ------------------------------------------------------------------- k8s
@@ -132,13 +148,14 @@ class CpuBackend(VerifierBackend):
         pods, policies, namespaces = cluster.pods, cluster.policies, cluster.namespaces
         n, P = len(pods), len(policies)
         ns_labels = {ns.name: ns.labels for ns in namespaces}
-        t0 = time.perf_counter()
+        ph = Phases()
 
-        atoms = (
-            compute_port_atoms(policies, pods)
-            if config.compute_ports
-            else [ALL_ATOM]
-        )
+        with ph("encode"):
+            atoms = (
+                compute_port_atoms(policies, pods)
+                if config.compute_ports
+                else [ALL_ATOM]
+            )
         Q = len(atoms)
 
         def rule_dst_ports(rule: Rule) -> np.ndarray:
@@ -167,39 +184,40 @@ class CpuBackend(VerifierBackend):
                             out[d, q] = True
             return out
 
-        selected = np.zeros((P, n), dtype=bool)
-        for pi, pol in enumerate(policies):
-            for i, pod in enumerate(pods):
-                selected[pi, i] = (
-                    pod.namespace == pol.namespace
-                    and pol.pod_selector.matches(pod.labels)
-                )
+        with ph("encode"):
+            selected = np.zeros((P, n), dtype=bool)
+            for pi, pol in enumerate(policies):
+                for i, pod in enumerate(pods):
+                    selected[pi, i] = (
+                        pod.namespace == pol.namespace
+                        and pol.pod_selector.matches(pod.labels)
+                    )
 
         # Direction gating: with direction_aware_isolation=False (reference
         # compat, kubesv never consults policyTypes) every selecting policy
         # isolates AND its rules apply in both directions.
-        affects_in = np.array(
-            [
-                pol.affects_ingress if config.direction_aware_isolation else True
-                for pol in policies
-            ],
-            dtype=bool,
-        )
-        affects_eg = np.array(
-            [
-                pol.affects_egress if config.direction_aware_isolation else True
-                for pol in policies
-            ],
-            dtype=bool,
-        )
-        ing_iso = np.zeros(n, dtype=bool)
-        eg_iso = np.zeros(n, dtype=bool)
-        for pi in range(P):
-            if affects_in[pi]:
-                ing_iso |= selected[pi]
-            if affects_eg[pi]:
-                eg_iso |= selected[pi]
-        t1 = time.perf_counter()
+        with ph("compile"):
+            affects_in = np.array(
+                [
+                    pol.affects_ingress if config.direction_aware_isolation else True
+                    for pol in policies
+                ],
+                dtype=bool,
+            )
+            affects_eg = np.array(
+                [
+                    pol.affects_egress if config.direction_aware_isolation else True
+                    for pol in policies
+                ],
+                dtype=bool,
+            )
+            ing_iso = np.zeros(n, dtype=bool)
+            eg_iso = np.zeros(n, dtype=bool)
+            for pi in range(P):
+                if affects_in[pi]:
+                    ing_iso |= selected[pi]
+                if affects_eg[pi]:
+                    eg_iso |= selected[pi]
 
         def peer_match(peer: Peer, pol: NetworkPolicy) -> np.ndarray:
             """bool[N]: pods this peer matches (see Peer docstring)."""
@@ -230,46 +248,75 @@ class CpuBackend(VerifierBackend):
 
         # Single pass over rules: compute each rule's peer set once and use it
         # both for the allow tensors and the per-policy src/dst edge sets.
-        ingress_allow = np.zeros((n, n, Q), dtype=bool)
-        egress_allow = np.zeros((n, n, Q), dtype=bool)
-        src_sets = np.zeros((P, n), dtype=bool)
-        dst_sets = np.zeros((P, n), dtype=bool)
-        for pi, pol in enumerate(policies):
-            tgt = selected[pi]
-            if affects_in[pi] and pol.ingress:
-                for rule in pol.ingress:
-                    srcs = rule_peer_set(rule, pol)
-                    dmask = rule_dst_ports(rule)  # [N, Q], dst = selected
-                    ingress_allow |= (
-                        srcs[:, None, None] & (tgt[:, None] & dmask)[None, :, :]
-                    )
-                    src_sets[pi] |= srcs
-                dst_sets[pi] |= tgt
-            if affects_eg[pi] and pol.egress:
-                for rule in pol.egress:
-                    dsts = rule_peer_set(rule, pol)
-                    dmask = rule_dst_ports(rule)  # [N, Q], dst = peers
-                    egress_allow |= (
-                        tgt[:, None, None] & (dsts[:, None] & dmask)[None, :, :]
-                    )
-                    dst_sets[pi] |= dsts
-                src_sets[pi] |= tgt
+        with ph("solve", backend=self.name):
+            ingress_allow = np.zeros((n, n, Q), dtype=bool)
+            egress_allow = np.zeros((n, n, Q), dtype=bool)
+            src_sets = np.zeros((P, n), dtype=bool)
+            dst_sets = np.zeros((P, n), dtype=bool)
+            for pi, pol in enumerate(policies):
+                tgt = selected[pi]
+                if affects_in[pi] and pol.ingress:
+                    for rule in pol.ingress:
+                        srcs = rule_peer_set(rule, pol)
+                        dmask = rule_dst_ports(rule)  # [N, Q], dst = selected
+                        ingress_allow |= (
+                            srcs[:, None, None] & (tgt[:, None] & dmask)[None, :, :]
+                        )
+                        src_sets[pi] |= srcs
+                    dst_sets[pi] |= tgt
+                if affects_eg[pi] and pol.egress:
+                    for rule in pol.egress:
+                        dsts = rule_peer_set(rule, pol)
+                        dmask = rule_dst_ports(rule)  # [N, Q], dst = peers
+                        egress_allow |= (
+                            tgt[:, None, None] & (dsts[:, None] & dmask)[None, :, :]
+                        )
+                        dst_sets[pi] |= dsts
+                    src_sets[pi] |= tgt
 
-        # default-allow: pods unselected in a direction allow everything in
-        # it iff the flag is on (real k8s True; reference's default False,
-        # kubesv/kubesv/constraint.py:202-223).
-        if config.default_allow_unselected:
-            ingress_ok = ingress_allow | ~ing_iso[None, :, None]
-            egress_ok = egress_allow | ~eg_iso[:, None, None]
-        else:
-            ingress_ok = ingress_allow
-            egress_ok = egress_allow
+            # default-allow: pods unselected in a direction allow everything in
+            # it iff the flag is on (real k8s True; reference's default False,
+            # kubesv/kubesv/constraint.py:202-223).
+            if config.default_allow_unselected:
+                ingress_ok = ingress_allow | ~ing_iso[None, :, None]
+                egress_ok = egress_allow | ~eg_iso[:, None, None]
+            else:
+                ingress_ok = ingress_allow
+                egress_ok = egress_allow
 
-        reach_pq = ingress_ok & egress_ok
-        if config.self_traffic:
-            di = np.arange(n)
-            reach_pq[di, di, :] = True
-        reach = reach_pq.any(axis=2)
+            reach_pq = ingress_ok & egress_ok
+            if config.self_traffic:
+                di = np.arange(n)
+                reach_pq[di, di, :] = True
+            reach = reach_pq.any(axis=2)
+
+        BYTES_TRANSFERRED.labels(backend=self.name).set(0)  # pure host
+        # analytic host estimates, one per phase: selector/peer matching is
+        # the "encode" side, rule ORs into the [n,n,Q] allow tensors (then
+        # the 3-tensor combine) dominate the "solve" side
+        n_rules = sum(
+            (len(pol.ingress or ()) if affects_in[pi] else 0)
+            + (len(pol.egress or ()) if affects_eg[pi] else 0)
+            for pi, pol in enumerate(policies)
+        )
+        publish_host_estimate(
+            self.name,
+            "encode_selectors",
+            flops=(P + n_rules) * n,
+            bytes_accessed=2 * (P + n_rules) * n,
+            output_bytes=selected.nbytes,
+            signature=(n, P, Q),
+        )
+        publish_host_estimate(
+            self.name,
+            "solve_reach",
+            flops=(n_rules + 3) * n * n * Q,
+            bytes_accessed=2 * (n_rules + 3) * n * n * Q,
+            argument_bytes=selected.nbytes,
+            output_bytes=reach.nbytes + reach_pq.nbytes,
+            temp_bytes=ingress_allow.nbytes + egress_allow.nbytes,
+            signature=(n, P, Q),
+        )
         return VerifyResult(
             n_pods=n,
             mode="k8s",
@@ -284,23 +331,30 @@ class CpuBackend(VerifierBackend):
             ingress_isolated=ing_iso,
             egress_isolated=eg_iso,
             closure=_transitive_closure(reach) if config.closure else None,
-            timings={"encode": t1 - t0, "solve": time.perf_counter() - t1},
+            timings=ph.timings,
         )
 
 
 def _transitive_closure(reach: np.ndarray) -> np.ndarray:
     """Boolean transitive closure by repeated squaring — the full-path
     generalisation of the reference's ≤2-hop ``path``
-    (``kubesv/kubesv/constraint.py:233-237``). The loop stops at the
-    fixpoint, within ⌈log₂N⌉ squarings."""
+    (``kubesv/kubesv/constraint.py:233-237``)."""
+    import math
+
+    from ..observe.progress import ProgressTicker
+
     closure = reach.copy()
-    while True:
-        nxt = closure | (
-            (closure.astype(np.int64) @ closure.astype(np.int64)) > 0
-        )
-        if np.array_equal(nxt, closure):
-            return closure
-        closure = nxt
+    bound = max(1, math.ceil(math.log2(max(closure.shape[0], 2))))
+    with ProgressTicker("cpu_closure", total=bound, unit="pass") as ticker:
+        while True:
+            CLOSURE_ITERATIONS.inc()
+            nxt = closure | (
+                (closure.astype(np.int64) @ closure.astype(np.int64)) > 0
+            )
+            ticker.tick()
+            if np.array_equal(nxt, closure):
+                return closure
+            closure = nxt
 
 
 register_backend("cpu", CpuBackend)

@@ -6,7 +6,9 @@ on the host, move the arrays to the device once, run ``ops/reach.py``'s
 the matrix with ``ops/closure.py::transitive_closure`` when
 ``VerifyConfig.closure`` asks for it, and return numpy arrays. The device is
 the backend option ``("device", ...)``, default ``"cuda"``; without a CUDA
-device the default raises rather than running on the CPU.
+device the default raises rather than running on the CPU. The JAX backend's
+dispatch tracker (under this backend's label, ``torch``) and transfer metric
+are kept.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import torch
 
 from ..encode.encoder import encode_cluster, encode_kano, encode_kano_relation
 from ..models.core import Cluster, Container, KanoPolicy
+from ..observe import DispatchTracker, tree_nbytes
+from ..observe.metrics import BYTES_TRANSFERRED
 from ..ops.closure import transitive_closure
 from ..ops.match import as_tensors, match_selectors
 from ..ops.reach import KanoOut, _bool_or_matmul, k8s_reach, kano_reach
@@ -25,6 +29,9 @@ from ..runtime import resolve_device
 from .base import VerifierBackend, VerifyConfig, VerifyResult, register_backend
 
 __all__ = ["TorchBackend"]
+
+#: first dispatches per abstract signature (kvtpu_jit_recompiles_total)
+_TRACKER = DispatchTracker("torch")
 
 
 def _put(dev):
@@ -53,6 +60,16 @@ class TorchBackend(VerifierBackend):
         t0 = time.perf_counter()
         enc = encode_cluster(cluster, compute_ports=config.compute_ports)
         t1 = time.perf_counter()
+        _TRACKER.track(
+            "_k8s_step",
+            enc,
+            static=(
+                config.self_traffic,
+                config.default_allow_unselected,
+                config.direction_aware_isolation,
+                config.closure,
+            ),
+        )
         out = k8s_reach(
             put(enc.pod_kv), put(enc.pod_key), put(enc.pod_ns),
             put(enc.ns_kv), put(enc.ns_key),
@@ -67,6 +84,9 @@ class TorchBackend(VerifierBackend):
         closure = transitive_closure(out.reach) if config.closure else None
         _sync(dev)
         t2 = time.perf_counter()
+        BYTES_TRANSFERRED.labels(backend=self.name).set(
+            tree_nbytes(enc) + tree_nbytes(out) + tree_nbytes(closure)
+        )
         return VerifyResult(
             n_pods=cluster.n_pods,
             mode="k8s",
@@ -98,6 +118,8 @@ class TorchBackend(VerifierBackend):
             # relation accepts, so the plugin runs as selector matching
             enc_r = encode_kano_relation(containers, policies, config.label_relation)
             t1 = time.perf_counter()
+            _TRACKER.track("_kano_relation_step", enc_r, static=(config.closure,))
+            enc_bytes = tree_nbytes(enc_r)
             pod_kv, pod_key = put(enc_r.pod_kv), put(enc_r.pod_key)
             src_sets = match_selectors(as_tensors(enc_r.src_sel, dev), pod_kv, pod_key)
             dst_sets = match_selectors(as_tensors(enc_r.dst_sel, dev), pod_kv, pod_key)
@@ -109,6 +131,8 @@ class TorchBackend(VerifierBackend):
         else:
             enc = encode_kano(containers, policies)
             t1 = time.perf_counter()
+            _TRACKER.track("_kano_step", enc, static=(config.closure,))
+            enc_bytes = tree_nbytes(enc)
             out = kano_reach(
                 put(enc.pod_kv), put(enc.src_req), put(enc.src_impossible),
                 put(enc.dst_req), put(enc.dst_impossible),
@@ -116,6 +140,9 @@ class TorchBackend(VerifierBackend):
         closure = transitive_closure(out.reach) if config.closure else None
         _sync(dev)
         t2 = time.perf_counter()
+        BYTES_TRANSFERRED.labels(backend=self.name).set(
+            enc_bytes + tree_nbytes(out) + tree_nbytes(closure)
+        )
         src_sets = _host(out.src_sets)
         dst_sets = _host(out.dst_sets)
         # maintain the reference's per-container policy index lists

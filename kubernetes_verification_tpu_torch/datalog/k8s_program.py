@@ -38,12 +38,12 @@ program, rule for rule. The backend is an entry point, so it evaluates the
 rules with PyTorch on the card by default (``use_torch=True`` on
 ``cuda``); the backend option ``("device", "cpu")`` runs the torch rules on
 the CPU and ``("use_torch", False)`` the JAX package's NumPy host default.
-The JAX package's phase timers, host cost estimate and transfer metric are
-ROADMAP §1 item 14's hooks; ``timings`` holds the phases' seconds.
+The phase timers (``observe.Phases``), the host cost estimates and the
+transfer metric are the JAX package's; on the card the metric counts the
+relations fetched back to the host.
 """
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,7 +56,10 @@ from ..backends.base import (
 )
 from ..encode.vocab import Vocab
 from ..models.core import Cluster, Container, KanoPolicy, Selector
-from .engine import Atom, Program, solve
+from ..observe import Phases
+from ..observe.introspect import publish_host_estimate as _publish_host_estimate
+from ..observe.metrics import BYTES_TRANSFERRED
+from .engine import Atom, Program, Solution, solve
 
 __all__ = ["build_k8s_program", "build_kano_program", "DatalogBackend"]
 
@@ -421,6 +424,14 @@ def _solve(prog: Program, config: VerifyConfig):
     )
 
 
+def _fetched_bytes(sol: Solution, config: VerifyConfig) -> int:
+    """Bytes of the relations fetched from the card (0 on the host)."""
+    on_card = bool(config.opt("use_torch", True)) and str(
+        config.opt("device") or "cuda"
+    ).startswith("cuda")
+    return sum(int(v.nbytes) for v in sol.relations.values()) if on_card else 0
+
+
 class DatalogBackend(VerifierBackend):
     """``backend="datalog"``: solve via the dense Datalog engine.
 
@@ -433,13 +444,14 @@ class DatalogBackend(VerifierBackend):
     name = "datalog"
 
     def verify(self, cluster: Cluster, config: VerifyConfig) -> VerifyResult:
-        t0 = time.perf_counter()
-        prog, _, atoms = build_k8s_program(cluster, config)
-        t1 = time.perf_counter()
-        sol = _solve(prog, config)
-        t2 = time.perf_counter()
+        ph = Phases()
+        with ph("encode"):
+            prog, _, atoms = build_k8s_program(cluster, config)
+        with ph("solve", backend=self.name):
+            sol = _solve(prog, config)
+        BYTES_TRANSFERRED.labels(backend=self.name).set(_fetched_bytes(sol, config))
 
-        P = len(cluster.policies)
+        N, P = cluster.n_pods, len(cluster.policies)
         selected = sol["selected"][:, :P].T  # [P, N]
         sel_ing = sol["sel_ing"][:, :P].T
         sel_eg = sol["sel_eg"][:, :P].T
@@ -452,8 +464,22 @@ class DatalogBackend(VerifierBackend):
         has_eg = np.array([bool(p.egress) for p in cluster.policies], dtype=bool)
         src_sets = ing_allow | (sel_eg & has_eg[:, None])
         dst_sets = eg_allow | (sel_ing & has_ing[:, None])
+        # analytic host estimate: semi-naive evaluation touches each dense
+        # relation tensor once per stratum; the [N, N, Q] allow/edge
+        # relations dominate
+        n_q = (
+            sol["edge_q"].shape[2] if "edge_q" in sol.relations else 1
+        )
+        _publish_host_estimate(
+            self.name,
+            "solve_datalog",
+            flops=3 * N * N * n_q + 2 * P * N,
+            bytes_accessed=2 * (3 * N * N * n_q + 2 * P * N),
+            output_bytes=sol["edge"].nbytes,
+            signature=(N, P, n_q),
+        )
         return VerifyResult(
-            n_pods=cluster.n_pods,
+            n_pods=N,
             mode="k8s",
             backend=self.name,
             config=config,
@@ -466,7 +492,7 @@ class DatalogBackend(VerifierBackend):
             ingress_isolated=sel_ing.any(axis=0),
             egress_isolated=sel_eg.any(axis=0),
             closure=sol["path"] if config.closure else None,
-            timings={"encode": t1 - t0, "solve": t2 - t1},
+            timings=ph.timings,
         )
 
     def verify_kano(
@@ -475,11 +501,12 @@ class DatalogBackend(VerifierBackend):
         policies: Sequence[KanoPolicy],
         config: VerifyConfig,
     ) -> VerifyResult:
-        t0 = time.perf_counter()
-        prog, _ = build_kano_program(containers, policies)
-        t1 = time.perf_counter()
-        sol = _solve(prog, config)
-        t2 = time.perf_counter()
+        ph = Phases()
+        with ph("encode"):
+            prog, _ = build_kano_program(containers, policies)
+        with ph("solve", backend=self.name):
+            sol = _solve(prog, config)
+        BYTES_TRANSFERRED.labels(backend=self.name).set(_fetched_bytes(sol, config))
         P = len(policies)
         src_sets = sol["src_set"][:, :P].T
         dst_sets = sol["dst_set"][:, :P].T
@@ -494,6 +521,15 @@ class DatalogBackend(VerifierBackend):
             from ..backends.cpu import _transitive_closure
 
             closure = _transitive_closure(reach)
+        n = len(containers)
+        _publish_host_estimate(
+            self.name,
+            "solve_datalog_kano",
+            flops=P * n * (2 + n),
+            bytes_accessed=2 * P * n * n,
+            output_bytes=reach.nbytes,
+            signature=(n, P),
+        )
         return VerifyResult(
             n_pods=len(containers),
             mode="kano",
@@ -503,7 +539,7 @@ class DatalogBackend(VerifierBackend):
             src_sets=src_sets,
             dst_sets=dst_sets,
             closure=closure,
-            timings={"encode": t1 - t0, "solve": t2 - t1},
+            timings=ph.timings,
         )
 
 

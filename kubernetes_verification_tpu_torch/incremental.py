@@ -20,9 +20,10 @@ Differences from the JAX engine, none of which changes a count:
   set and columns where its destination vector is set (``_rank1_add``), not
   the whole matrix: both are exact, and the untouched cells gain 0;
 * the build's contraction is one int8 ``bool_dot`` per direction, and its
-  per-policy maps come from the tiled solver's ``_policy_maps``;
-* the JAX package's metrics and dispatch tracker are not part of the port
-  (ROADMAP §1 item 14).
+  per-policy maps come from the tiled solver's ``_policy_maps``.
+
+The JAX engine's ``kvtpu_*`` metrics and dispatch tracker are kept, at the
+same call sites.
 
 Scope: any-port semantics; pod add/remove changes N and falls back to a
 rebuild. At 32,768 pods one count matrix is 4.29 GB.
@@ -38,6 +39,8 @@ import torch
 from .backends.base import VerifyConfig
 from .encode.encoder import cluster_vocab, encode_cluster
 from .models.core import Cluster, NetworkPolicy, Pod
+from .observe import DispatchTracker
+from .observe.metrics import INCREMENTAL_OPS
 from .ops.closure import bool_dot
 from .ops.padding import pad_grants
 from .ops.tiled import HostArgs, _policy_maps, _put
@@ -115,6 +118,10 @@ def _derive_reach(
     return reach
 
 
+#: first dispatches per abstract signature (kvtpu_jit_recompiles_total)
+_TRACKER = DispatchTracker("dense")
+
+
 class IncrementalVerifier:
     """Maintains a cluster's reachability under policy/pod-label diffs.
 
@@ -127,6 +134,9 @@ class IncrementalVerifier:
     #: transient-failure budget around the reach derivation; assign a tuned
     #: RetryPolicy on the instance to change it
     retry_policy = RetryPolicy()
+
+    def _count_op(self, op: str) -> None:
+        INCREMENTAL_OPS.labels(engine=self.metrics_engine, op=op).inc()
 
     def __init__(
         self,
@@ -283,6 +293,7 @@ class IncrementalVerifier:
 
     def _apply(self, vecs, sign: int) -> None:
         sel_ing, sel_eg, ing_peers, eg_peers = vecs
+        _TRACKER.track("_rank1_add", self._ing_count, ing_peers, sel_ing)
         _rank1_add(self._ing_count, ing_peers, sel_ing, sign)
         _rank1_add(self._eg_count, sel_eg, eg_peers, sign)
         self._ing_iso += sign * np.asarray(vecs[0], dtype=np.int64)
@@ -300,12 +311,14 @@ class IncrementalVerifier:
         self.policies[key] = pol
         self._vectors[key] = vecs
         self._apply(vecs, +1)
+        self._count_op("policy_add")
 
     def remove_policy(self, namespace: str, name: str) -> None:
         key = f"{namespace}/{name}"
         self.policies.pop(key)  # KeyError if absent
         vecs = self._vectors.pop(key)
         self._apply(vecs, -1)
+        self._count_op("policy_remove")
 
     def update_policy(self, pol: NetworkPolicy) -> None:
         self.remove_policy(pol.namespace, pol.name)
@@ -368,6 +381,7 @@ class IncrementalVerifier:
         self._eg_iso[idx] += new[5] - old[5]
         self._reach_dirty = True
         self.update_count += 1
+        self._count_op("pod_relabel")
 
     def _patch_row_col(
         self,
@@ -383,6 +397,7 @@ class IncrementalVerifier:
         engine of the serving plane overrides this: the row patch lands only
         on the owning stripe while the column slice lands on every
         stripe."""
+        _TRACKER.track("_row_col_patch", self._ing_count)
         _row_col_patch(self._ing_count, idx, d_ing_row, d_ing_col)
         _row_col_patch(self._eg_count, idx, d_eg_row, d_eg_col)
 
@@ -411,6 +426,7 @@ class IncrementalVerifier:
                 self._apply(old, -1)
                 self._apply(new, +1)
                 self._vectors[key] = new
+        self._count_op("namespace_relabel")
 
     def remove_namespace(self, name: str) -> None:
         """Same contract as the packed engines' (this engine has no pod
@@ -430,6 +446,7 @@ class IncrementalVerifier:
             )
         del self._ns_labels[name]
         self.namespaces = [ns for ns in self.namespaces if ns.name != name]
+        self._count_op("namespace_remove")
 
     # --------------------------------------------------------------- result
     def _iso_tensors(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -445,6 +462,14 @@ class IncrementalVerifier:
         from the counts on the device on demand, then copied)."""
         if self._reach_dirty:
             t0 = time.perf_counter()
+            _TRACKER.track(
+                "_derive_reach",
+                self._ing_count,
+                static=(
+                    self.config.self_traffic,
+                    self.config.default_allow_unselected,
+                ),
+            )
 
             def derive() -> np.ndarray:
                 ing_iso, eg_iso = self._iso_tensors()

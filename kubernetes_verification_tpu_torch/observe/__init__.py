@@ -21,16 +21,39 @@ The port's copy of the framework-free core of
   exporters (``export``).
 * ``scrape_replica`` / ``SloMonitor`` / ``render_fleet`` — fleet scraping
   and SLO burn rates (``fleet``).
+* ``DispatchTracker`` — first-dispatch detection by abstract-shape hashing
+  (``jit``).
+* ``KernelCostReport`` / ``set_introspection`` / ``maybe_publish`` —
+  analytic cost accounting of dispatch sites and of the two hand kernels,
+  with the card's published peaks (``introspect``).
+* ``memory_snapshot`` / ``start_sampler`` — live CUDA-allocator telemetry
+  with host-RSS fallback (``telemetry``).
+* ``append_run`` / ``check_regression`` / ``expand_derived`` — the
+  bench-history store and (dispatch-deflation-aware) regression gate
+  (``history``).
+* ``run_calibration`` / ``SentinelSuite`` — fixed-shape compute-bound
+  calibration chains timed with CUDA events, and the dispatch probe
+  (``sentinel``).
+* ``aot`` — the warm kernel pack: built CUDA libraries shipped with every
+  checkpoint (imported from its module, as in the JAX package).
 
 This package's registry is its own: a process that imports both packages
 holds two registries, and each package's counters count only its own work.
-The rest of the JAX package's ``observe`` (AOT packs, sentinels, cost
-introspection, dispatch tracking, bench history and telemetry) is not part
-of the port yet.
+``utils.observe`` re-exports the seed-era names from here for backward
+compatibility. ``observe.__all__`` holds every name of the JAX package's.
 """
 from __future__ import annotations
 
-from . import fleet, flight, metrics, progress
+from . import (
+    fleet,
+    flight,
+    history,
+    introspect,
+    metrics,
+    progress,
+    sentinel,
+    telemetry,
+)
 from .events import (
     Clock,
     configure_logging,
@@ -61,6 +84,30 @@ from .flight import (
     trigger_dump,
 )
 from .flight import install_from_env as install_flight_recorder_from_env
+from .history import (
+    append_run,
+    check_regression,
+    deflate_record,
+    expand_derived,
+    load_runs,
+)
+from .introspect import (
+    KernelCostReport,
+    device_peak_macs_per_s,
+    format_cost_table,
+    format_roofline_table,
+    maybe_publish,
+    publish_host_estimate,
+    roofline_rows,
+    set_introspection,
+)
+from .jit import DispatchTracker, abstract_signature, tree_nbytes
+from .sentinel import (
+    SentinelCalibrationError,
+    SentinelSuite,
+    run_calibration,
+    slim_context,
+)
 from .progress import ProgressTicker, active_jobs, eta_bar, render_jobs
 from .registry import (
     DEFAULT_BUCKETS,
@@ -92,6 +139,15 @@ from .spans import (
     trace_headers,
     trace_to_dir,
     uninstall_profile_signal,
+)
+from .telemetry import (
+    TelemetrySampler,
+    format_memory_table,
+    install_span_memory_hook,
+    memory_snapshot,
+    sample_once,
+    start_sampler,
+    stop_sampler,
 )
 
 __all__ = [
@@ -152,4 +208,35 @@ __all__ = [
     "active_jobs",
     "render_jobs",
     "eta_bar",
+    "introspect",
+    "telemetry",
+    "history",
+    "sentinel",
+    "KernelCostReport",
+    "format_cost_table",
+    "maybe_publish",
+    "publish_host_estimate",
+    "set_introspection",
+    "device_peak_macs_per_s",
+    "format_roofline_table",
+    "roofline_rows",
+    "TelemetrySampler",
+    "format_memory_table",
+    "install_span_memory_hook",
+    "memory_snapshot",
+    "sample_once",
+    "start_sampler",
+    "stop_sampler",
+    "append_run",
+    "check_regression",
+    "deflate_record",
+    "expand_derived",
+    "load_runs",
+    "SentinelCalibrationError",
+    "SentinelSuite",
+    "run_calibration",
+    "slim_context",
+    "DispatchTracker",
+    "abstract_signature",
+    "tree_nbytes",
 ]

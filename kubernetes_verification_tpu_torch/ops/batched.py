@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..packed_incremental import _reach_block, _rows_step
+from ..observe.metrics import QUERY_PACKED_DISPATCHES_TOTAL
 from .bits import to_host_words
 
 __all__ = [
@@ -246,6 +247,7 @@ def packed_reach_rows(
         col_mask, row_valid, _idx(src_idx, row_valid.device),
         self_traffic=self_traffic, default_allow=default_allow,
     )
+    QUERY_PACKED_DISPATCHES_TOTAL.labels(kind="rows").inc()
     return to_host_words(words)
 
 
@@ -263,6 +265,7 @@ def packed_reach_cols(
         row_valid, _idx(dst_idx, row_valid.device),
         self_traffic=self_traffic, default_allow=default_allow,
     )
+    QUERY_PACKED_DISPATCHES_TOTAL.labels(kind="cols").inc()
     return cols[:n].cpu().numpy()
 
 
@@ -287,6 +290,7 @@ def packed_any_port(
         row_valid, _idx(src_idx, dev), _idx(q_row, dev), _idx(q_dst, dev),
         self_traffic=self_traffic, default_allow=default_allow,
     )
+    QUERY_PACKED_DISPATCHES_TOTAL.labels(kind="probe").inc()
     return to_host_words(words), ans.cpu().numpy()
 
 
@@ -412,3 +416,42 @@ def stripe_any_port(
         default_allow_unselected=default_allow_unselected,
     )
     return rows.cpu().numpy(), ans.cpu().numpy()
+
+
+# Kernel-manifest registration (observe/aot.py): rebind the dispatch
+# functions so their dispatch keys reach the warm pack's manifest; call
+# sites above are unchanged (late binding).
+from ..observe.aot import register_kernel as _register_kernel  # noqa: E402
+
+_reach_rows_kernel = _register_kernel(
+    "query", "_reach_rows_kernel", _reach_rows_kernel,
+    static_argnames=("self_traffic", "default_allow_unselected"),
+)
+_probe_rows_kernel = _register_kernel(
+    "query", "_probe_rows_kernel", _probe_rows_kernel,
+    static_argnames=("self_traffic", "default_allow_unselected"),
+)
+_reach_cols_kernel = _register_kernel(
+    "query", "_reach_cols_kernel", _reach_cols_kernel,
+    static_argnames=("self_traffic", "default_allow_unselected"),
+)
+_packed_probe_kernel = _register_kernel(
+    "query", "_packed_probe_kernel", _packed_probe_kernel,
+    static_argnames=("self_traffic", "default_allow"),
+)
+_packed_cols_kernel = _register_kernel(
+    "query", "_packed_cols_kernel", _packed_cols_kernel,
+    static_argnames=("self_traffic", "default_allow"),
+)
+_stripe_rows_kernel = _register_kernel(
+    "query", "_stripe_rows_kernel", _stripe_rows_kernel,
+    static_argnames=("self_traffic", "default_allow_unselected"),
+)
+_stripe_probe_kernel = _register_kernel(
+    "query", "_stripe_probe_kernel", _stripe_probe_kernel,
+    static_argnames=("self_traffic", "default_allow_unselected"),
+)
+_stripe_cols_kernel = _register_kernel(
+    "query", "_stripe_cols_kernel", _stripe_cols_kernel,
+    static_argnames=("self_traffic", "default_allow_unselected"),
+)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..observe.introspect import maybe_publish
 from ..observe.metrics import (
     CLOSURE_BOUNDED_LEVELS,
     CLOSURE_ITERATIONS,
@@ -120,7 +121,8 @@ def bool_dot(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     multiples of 8, so ``a`` gains zero rows up to 17, both operands zero
     columns up to a multiple of 8 (at least 8), and ``bt`` zero rows up to a
     multiple of 8; the counts are trimmed back to [M, D]. Zero rows and
-    columns add nothing to any count."""
+    columns add nothing to any count. With introspection on, it publishes
+    its exact ``2·M·K·D`` operations (``observe/introspect.py``)."""
     m, k = a.shape
     d = bt.shape[0]
     pm = max(17 - m, 0)
@@ -131,6 +133,11 @@ def bool_dot(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     if pd or pk:
         bt = F.pad(bt, (0, pk, 0, pd))
     out = torch._int_mm(a.contiguous(), bt.contiguous().t())
+    maybe_publish(
+        "closure", "bool_dot",
+        lambda: {"flops": 2 * m * k * d, "bytes_accessed": (m + d) * k + 4 * m * d},
+        (a, bt, a.device.type),
+    )
     return out[:m, :d] if (pm or pd) else out
 
 
@@ -696,3 +703,30 @@ def path_upto(reach, hops: int, *, device=None):
         pack_bool_cols(padded), np.arange(n), hops=hops, want_hops=False
     )
     return unpack_words_i8(acc, n + pad)[:, :n].to(torch.bool)
+
+
+# Kernel-manifest registration (observe/aot.py): rebind the dispatch
+# functions so their dispatch keys reach the warm pack's manifest; call
+# sites above are unchanged (late binding).
+from ..observe.aot import register_kernel as _register_kernel  # noqa: E402
+
+_packed_square_step = _register_kernel(
+    "closure", "_packed_square_step", _packed_square_step,
+    static_argnames=("row_tile", "dst_tile"),
+)
+_closure_rows_step = _register_kernel(
+    "closure", "_closure_rows_step", _closure_rows_step,
+    static_argnames=("tile",),
+)
+_rows_touching = _register_kernel("closure", "_rows_touching", _rows_touching)
+_rows_differ = _register_kernel("closure", "_rows_differ", _rows_differ)
+_delta_seed = _register_kernel("closure", "_delta_seed", _delta_seed)
+_any_removed = _register_kernel("closure", "_any_removed", _any_removed)
+_add_edges_round = _register_kernel(
+    "closure", "_add_edges_round", _add_edges_round, static_argnames=("tile",)
+)
+_rows_any = _register_kernel("closure", "_rows_any", _rows_any)
+_bounded_frontier_step = _register_kernel(
+    "closure", "_bounded_frontier_step", _bounded_frontier_step,
+    static_argnames=("tile",),
+)

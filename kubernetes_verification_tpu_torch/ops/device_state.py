@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..observe.metrics import DEVICE_STATE_FLIPS_TOTAL, QUERY_H2D_BYTES_TOTAL
 from ..resilience.errors import ServeError
 from .batched import _reach_rows_kernel
 from .bits import pack_bool_cols
@@ -113,6 +114,7 @@ class DeviceStateCache:
             self._front = state  # the atomic flip readers race against
         if aged_out is not None:
             aged_out.release()
+        DEVICE_STATE_FLIPS_TOTAL.labels(kind=state.kind).inc()
         return state
 
     def clear(self) -> None:
@@ -184,6 +186,8 @@ def dense_query_state(
     if with_reach_words:
         arrays["reach_words"] = _dense_reach_words(engine, ing_iso, eg_iso)
         owned.append("reach_words")
+    if h2d:
+        QUERY_H2D_BYTES_TOTAL.labels(kind="dense").inc(h2d)
     return DeviceQueryState(
         generation=generation,
         kind="dense",

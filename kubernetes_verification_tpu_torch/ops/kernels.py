@@ -28,6 +28,12 @@ hook flushes a segment at the 64-column step that ends it; plain version
 
 The TPU kernels' pack matrices (``_pack_matrices``) have no counterpart: they
 exist only because Mosaic cannot do a lane-splitting reshape.
+
+Each kernel's exact operation and byte counts stand next to its wrapper
+(``packed_dir_allow_cost``, ``fused_ports_reach_cost``): the wrappers
+publish them as ``KernelCostReport``s (engine ``cuda``) while introspection
+is on (``observe/introspect.py``), and ``introspect.analytic_bound`` turns
+them into the least time the card could take.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import ctypes
 
 import torch
 
+from ..observe.introspect import maybe_publish
 from ..resilience.errors import BackendError, ConfigError
 from .bits import or_diagonal, pack_bool_cols
 from .match import exact_fp32
@@ -48,6 +55,8 @@ __all__ = [
     "launch",
     "fused_ports_reach",
     "fused_ports_reach_reference",
+    "packed_dir_allow_cost",
+    "fused_ports_reach_cost",
     "check_mask_count",
     "N_TILE",
     "K_STEP",
@@ -89,6 +98,35 @@ def _check(a, b, not_iso, default_allow_axis):
         raise ConfigError("a, b and not_iso must be on one device")
     if not (a.is_contiguous() and b.is_contiguous() and not_iso.is_contiguous()):
         raise ConfigError("packed_dir_allow takes contiguous tensors")
+
+
+def packed_dir_allow_cost(p: int, n: int, niso_numel: int) -> dict:
+    """Exact counts of one ``packed_dir_allow`` over ``p`` policies and
+    ``n`` pods: ``2·P·N·N`` int8 operations; bytes ``2·P·N`` (each map read
+    once) ``+ 4·|niso|`` ``+ N·N/8`` (the packed words written once)."""
+    args = 2 * p * n + 4 * niso_numel
+    out = n * n // 8
+    return {"flops": 2 * p * n * n, "bytes_accessed": args + out,
+            "argument_bytes": args, "output_bytes": out}
+
+
+def fused_ports_reach_cost(
+    n: int, k: int, kp: int, plan_numel: int, ov_numel: int
+) -> dict:
+    """Exact counts of one ``fused_ports_reach`` over ``n`` pods with ``k``
+    real virtual-policy rows in a K layout of ``kp`` columns: ``2·K·N·N``
+    int8 operations; bytes ``2·N·K'`` (both operands read once) ``+
+    4·|plan| + 8·|ov| + 8·N`` (the two isolation vectors) ``+ N·N/8``."""
+    args = 2 * n * kp + 4 * plan_numel + 8 * ov_numel + 8 * n
+    out = n * n // 8
+    return {"flops": 2 * k * n * n, "bytes_accessed": args + out,
+            "argument_bytes": args, "output_bytes": out}
+
+
+def _publish(fn: str, cost, operands: tuple) -> None:
+    """The kernel's cost report, keyed by its operands' shapes and device
+    (a no-op while introspection is off)."""
+    maybe_publish("cuda", fn, cost, operands + (operands[0].device.type,))
 
 
 def k_major(x: torch.Tensor) -> torch.Tensor:
@@ -141,6 +179,11 @@ def packed_dir_allow(
     the plain version; a CUDA tensor launches the kernel, counted in ``packed_dir_allow.launches``, on the
     K-contiguous copies ``k_major`` makes of the two maps."""
     _check(a, b, not_iso, default_allow_axis)
+    _publish(
+        "packed_dir_allow",
+        lambda: packed_dir_allow_cost(a.shape[0], a.shape[1], not_iso.numel()),
+        (a, b, not_iso),
+    )
     if a.device.type == "cpu":
         return packed_dir_allow_reference(
             a, b, not_iso, default_allow_axis=default_allow_axis
@@ -212,6 +255,11 @@ def packed_dir_allow_pod_major(
     kernel reads: a CUDA tensor launches it on the maps themselves when P
     is a positive multiple of ``K_STEP`` (else on zero-padded copies); a
     CPU tensor takes the plain version on the transposes."""
+    _publish(
+        "packed_dir_allow",
+        lambda: packed_dir_allow_cost(at.shape[1], at.shape[0], not_iso.numel()),
+        (at.t(), bt.t(), not_iso),
+    )
     if at.device.type == "cpu":
         return packed_dir_allow_reference(
             at.t().contiguous(), bt.t().contiguous(), not_iso,
@@ -377,6 +425,7 @@ def fused_ports_reach(
     niso_e: torch.Tensor,  # int32 [N]: 1 where the src is not egress-isolated
     *,
     default_allow: bool,
+    k_rows=None,
 ) -> torch.Tensor:
     """int32 [N, N/32]: the port-bitmap reach words (the reference's uint32
     bit pattern), before the self-traffic diagonal and ``col_mask``.
@@ -394,8 +443,17 @@ def fused_ports_reach(
     CPU tensors take the plain version; a CUDA tensor launches the kernel,
     counted in ``fused_ports_reach.launches``. R above ``FUSED_MAX_MASKS``,
     or a plan that does not tile ``[0, K')`` in whole non-empty K steps,
-    raises ``ConfigError`` on either."""
+    raises ``ConfigError`` on either. ``k_rows`` (an int, or a zero-arg
+    function evaluated only for the cost report) is the number of real
+    virtual-policy rows among the K' columns; the report counts K' without
+    it."""
     _check_fused(at, bt, plan, ov, niso_i, niso_e)
+
+    def cost():
+        k = at.shape[1] if k_rows is None else int(k_rows() if callable(k_rows) else k_rows)
+        return fused_ports_reach_cost(at.shape[0], k, at.shape[1], plan.numel(), ov.numel())
+
+    _publish("fused_ports_reach", cost, (at, bt, plan, ov, niso_i, niso_e))
     if at.device.type == "cpu":
         return fused_ports_reach_reference(
             at, bt, plan, ov, niso_i, niso_e, default_allow=default_allow

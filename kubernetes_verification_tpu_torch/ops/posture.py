@@ -133,3 +133,24 @@ def changed_columns(word_row, cap: int) -> np.ndarray:
     row = np.ascontiguousarray(np.asarray(word_row), dtype="<u4")
     bits = np.unpackbits(row.view(np.uint8), bitorder="little")
     return np.flatnonzero(bits)[:cap]
+
+
+# Kernel-manifest registration (observe/aot.py): rebind the dispatch
+# functions so their dispatch keys reach the warm pack's manifest; call
+# sites above are unchanged (late binding).
+from ..observe.aot import register_kernel as _register_kernel  # noqa: E402
+
+packed_xor_popcount = _register_kernel(
+    "posture", "packed_xor_popcount", packed_xor_popcount
+)
+packed_row_popcount = _register_kernel(
+    "posture", "packed_row_popcount", packed_row_popcount
+)
+topk_changed_rows = _register_kernel(
+    "posture", "topk_changed_rows", topk_changed_rows,
+    static_argnames=("k",),
+)
+ns_pair_counts = _register_kernel(
+    "posture", "ns_pair_counts", ns_pair_counts,
+    static_argnames=("num_groups",),
+)

@@ -849,3 +849,28 @@ def policy_sets_sharded(
         (all_gather(mesh, x, POD_AXIS, dim=1)[:, :n] > 0).cpu().numpy()
         for x in (src8, dst8)
     )
+
+
+# Kernel-manifest registration (observe/aot.py): rebind the dispatch
+# functions so their dispatch keys reach the warm pack's manifest; call
+# sites above are unchanged (late binding).
+from ..observe.aot import register_kernel as _register_kernel  # noqa: E402
+
+_tiled_step = _register_kernel(
+    "tiled", "_tiled_step", _tiled_step,
+    static_argnames=(
+        "tile", "chunk", "self_traffic", "default_allow_unselected",
+        "direction_aware_isolation", "use_kernel",
+    ),
+)
+_device_word_reduce = _register_kernel(
+    "tiled", "_device_word_reduce", _device_word_reduce,
+    static_argnames=("op",),
+)
+_policy_sets_step = _register_kernel(
+    "tiled", "_policy_sets_step", _policy_sets_step,
+    static_argnames=("chunk",),
+)
+_policy_sets = _register_kernel(
+    "tiled", "_policy_sets", _policy_sets, static_argnames=("chunk",)
+)

@@ -550,15 +550,16 @@ def _tiled_ports_fused_step(
     self_traffic: bool,
     default_allow_unselected: bool,
     direction_aware_isolation: bool,
+    k_rows=None,
 ):
     """The fused route (JAX ``_tiled_ports_fused_step``): one
     ``fused_ports_reach`` over all N, then the diagonal and ``col_mask`` on
-    the words."""
+    the words. ``k_rows`` goes to the kernel's cost report."""
     args, ing_iso, eg_iso, selected8 = _fused_inputs(
         a, vp, layout=layout, chunk=chunk,
         direction_aware_isolation=direction_aware_isolation,
     )
-    out = fused_ports_reach(*args, default_allow=default_allow_unselected)
+    out = fused_ports_reach(*args, default_allow=default_allow_unselected, k_rows=k_rows)
     del args  # the two [N, K'] operands
     if self_traffic:
         or_diagonal(out)
@@ -673,7 +674,12 @@ def ports_step(
     )
     a, vp = _put(pro.host, dev), _put(pro.vp, dev)
     if use_kernel:
-        return (*_tiled_ports_fused_step(a, vp, **flags), "fused_ports_reach")
+        # the real VP rows, counted on the host only for a cost report
+        k_rows = lambda: _stats(enc, pro)["K"]  # noqa: E731
+        return (
+            *_tiled_ports_fused_step(a, vp, k_rows=k_rows, **flags),
+            "fused_ports_reach",
+        )
     return (*_tiled_ports_step(a, vp, tile=pro.tile, **flags), "torch-ports-sweep")
 
 

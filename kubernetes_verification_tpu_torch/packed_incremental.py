@@ -37,8 +37,11 @@ Differences from the JAX engine, none of which changes a bit of state:
 * a diff is a short sequence of eager calls instead of one fused jitted
   dispatch, so nothing is prewarmed and no index group is padded to a fixed
   size; the engine still grows its slot axis where the JAX prewarm does
-  (no free slot left after a build, a resume or a pod-axis growth);
-* the ``kvtpu_*`` metrics and the dispatch tracker are ROADMAP §1 item 14.
+  (no free slot left after a build, a resume or a pod-axis growth).
+
+The JAX engine's ``kvtpu_*`` metrics, dispatch tracker (a first dispatch
+at a new signature counts where JAX counts a recompile) and kernel-manifest
+registrations (``observe/aot.py``) are kept, at the same call sites.
 
 ``mesh=`` shards the state over a ``(pods, grants)`` mesh
 (``parallel/mesh.py``), in the JAX engine's layout: the maps' slots over
@@ -67,6 +70,8 @@ from .encode.encoder import (
 )
 from .encode.ports import ALL_ATOM
 from .models.core import Cluster, Namespace, NetworkPolicy, Pod
+from .observe import DispatchTracker
+from .observe.metrics import INCREMENTAL_OPS, STRIPE_WIDTH, STRIPES_SOLVED
 from .ops.bits import or_diagonal, pack_bool_cols, to_host_words
 from .ops.closure import _words, bool_dot
 from .ops.kernels import packed_dir_allow_pod_major
@@ -78,6 +83,9 @@ from .resilience.retry import RetryPolicy, retry_transient
 from .runtime import resolve_device
 
 __all__ = ["PackedIncrementalVerifier", "PolicyVectorizer", "pod_policy_flags"]
+
+#: first dispatches per abstract signature (kvtpu_jit_recompiles_total)
+_TRACKER = DispatchTracker("packed")
 
 _I8 = torch.int8
 _I32 = torch.int32
@@ -756,6 +764,9 @@ class PackedIncrementalVerifier:
     #: a tuned RetryPolicy on the instance to change it
     retry_policy = RetryPolicy()
 
+    def _count_op(self, op: str) -> None:
+        INCREMENTAL_OPS.labels(engine=self.metrics_engine, op=op).inc()
+
     def __init__(
         self,
         cluster: Cluster,
@@ -1100,10 +1111,16 @@ class PackedIncrementalVerifier:
             return
         new4 = self._put(new4_padded)
         if self._packed is None:
+            _TRACKER.track("_slot_write", self._maps)
             _slot_write(self._maps, slot, new4)
             self.dirty_rows[rows] = True
             self.dirty_cols[cols] = True
             return
+        _TRACKER.track(
+            "_diff_step", self._packed, self._maps,
+            static=(bool(len(rows)), bool(len(cols)))
+            + tuple(sorted(self._flags.items())),
+        )
         _diff_step(
             self._packed, self._maps, self._col_mask, self._row_valid, slot, new4,
             [self._put(g) for g in _groups(rows, _ROW_GROUP)],
@@ -1172,6 +1189,7 @@ class PackedIncrementalVerifier:
         self.policies[key] = pol
         self._slot[key] = slot
         self._set_slot(slot, None, vecs)
+        self._count_op("policy_add")
 
     def remove_policy(self, namespace: str, name: str) -> None:
         key = f"{namespace}/{name}"
@@ -1181,6 +1199,7 @@ class PackedIncrementalVerifier:
         zero = np.zeros(self.n_pods, dtype=np.int8)
         self._set_slot(slot, old, (zero, zero, zero, zero))
         self._free.append(slot)
+        self._count_op("policy_remove")
 
     def update_policy(self, pol: NetworkPolicy) -> None:
         key = self._key(pol)
@@ -1189,6 +1208,7 @@ class PackedIncrementalVerifier:
         vecs = self._vectorizer.vectors(pol)
         self.policies[key] = pol
         self._set_slot(slot, old, vecs)
+        self._count_op("policy_update")
 
     def _pod_cols(self, pod: Pod) -> np.ndarray:
         """int8 [4, C]: one pod's (sel_ing, sel_eg, ing_peer, eg_peer) flag
@@ -1223,6 +1243,7 @@ class PackedIncrementalVerifier:
         else:
             self._patch(np.asarray([idx]), np.asarray([idx]))
         self.update_count += 1
+        self._count_op("pod_relabel")
 
     # ------------------------------------------------------------ pod churn
     def _dispatch_pod(self, idx: int, cols4: np.ndarray, active: bool) -> None:
@@ -1237,10 +1258,15 @@ class PackedIncrementalVerifier:
             return
         cols = self._put(cols4)
         if self._packed is None:
+            _TRACKER.track("_pod_step_mf", self._maps)
             _pod_step_mf(self._maps, self._col_mask, self._row_valid, idx, cols, active)
             self.dirty_rows[idx] = True
             self.dirty_cols[idx] = True
         else:
+            _TRACKER.track(
+                "_pod_step", self._packed, self._maps,
+                static=tuple(sorted(self._flags.items())),
+            )
             _pod_step(self._packed, self._maps, self._col_mask, self._row_valid,
                       idx, cols, active, **self._flags)
         self.update_count += 1
@@ -1259,6 +1285,7 @@ class PackedIncrementalVerifier:
         self.namespaces.append(Namespace(ns.name, dict(ns.labels)))
         vz = self._vectorizer
         vz.ns_index.setdefault(ns.name, len(vz.ns_index))
+        self._count_op("namespace_add")
         return True
 
     def _ns_pod_slots(self, name: str) -> np.ndarray:
@@ -1296,6 +1323,7 @@ class PackedIncrementalVerifier:
         if dict(self._ns_labels[name]) == dict(labels):
             return
         self._set_ns_labels(name, labels)
+        self._count_op("namespace_relabel")
         idx_arr = self._ns_pod_slots(name)
         if not len(idx_arr):
             return
@@ -1337,6 +1365,7 @@ class PackedIncrementalVerifier:
             )
         del self._ns_labels[name]
         self.namespaces = [ns for ns in self.namespaces if ns.name != name]
+        self._count_op("namespace_remove")
 
     def add_pod(self, pod: Pod) -> int:
         """Add a pod in O(P + N). Returns the pod's slot index (its row and
@@ -1379,6 +1408,7 @@ class PackedIncrementalVerifier:
         self._h_ing_cnt[idx] = int(cols4[0].sum())
         self._h_eg_cnt[idx] = int(cols4[1].sum())
         self._dispatch_pod(idx, cols4, active=True)
+        self._count_op("pod_add")
         return idx
 
     def remove_pod(self, namespace: str, name: str) -> int:
@@ -1395,6 +1425,7 @@ class PackedIncrementalVerifier:
         self._h_eg_cnt[idx] = 0
         self._dispatch_pod(idx, np.zeros((4, self._capacity), dtype=np.int8),
                            active=False)
+        self._count_op("pod_remove")
         return idx
 
     @property
@@ -1450,11 +1481,17 @@ class PackedIncrementalVerifier:
                 f"stripe [{d0}, {d0 + width}) outside the padded pod range "
                 f"{self._n_padded}"
             )
+        STRIPE_WIDTH.labels(engine=self.metrics_engine).set(width)
+        STRIPES_SOLVED.labels(engine=self.metrics_engine).inc()
         if self._shards is not None:
             # SPMD: a retry on one rank alone would strand the others in a
             # collective, so a mesh re-solve is not retried
             out = self._shards.stripe(self, d0, width, self._flags)
             return to_host_words(out[: self.n_pods])
+        _TRACKER.track(
+            "_stripe_step", self._maps,
+            static=(width,) + tuple(sorted(self._flags.items())),
+        )
         out = retry_transient(
             lambda: _stripe_step(
                 self._maps, self._col_mask, self._row_valid, d0, width=width,
@@ -1482,6 +1519,10 @@ class PackedIncrementalVerifier:
         if self._shards is not None:
             return to_host_words(self._shards.solve_rows(self, rows, self._flags))
         idx = self._put(rows)
+        _TRACKER.track(
+            "_rows_step", self._maps, idx,
+            static=tuple(sorted(self._flags.items())),
+        )
         out = retry_transient(
             lambda: _rows_step(
                 self._maps, self._col_mask, self._row_valid, idx, **self._flags
@@ -1704,3 +1745,46 @@ class PackedIncrementalVerifier:
         }
         self.init_time = 0.0
         return self
+
+
+# Kernel-manifest registration (observe/aot.py): rebind the dispatch
+# functions so their dispatch keys reach the warm pack's manifest; call
+# sites above are unchanged (late binding).
+from .observe.aot import register_kernel as _register_kernel  # noqa: E402
+
+_slot_write = _register_kernel("packed", "_slot_write", _slot_write)
+_stripe_step = _register_kernel(
+    "packed", "_stripe_step", _stripe_step,
+    static_argnames=("width", "self_traffic", "default_allow"),
+)
+_rows_step = _register_kernel(
+    "packed", "_rows_step", _rows_step,
+    static_argnames=("self_traffic", "default_allow"),
+)
+_apply_pod_col = _register_kernel("packed", "_apply_pod_col", _apply_pod_col)
+_apply_pod_cols_group = _register_kernel(
+    "packed", "_apply_pod_cols_group", _apply_pod_cols_group
+)
+_pod_step = _register_kernel(
+    "packed", "_pod_step", _pod_step,
+    static_argnames=("self_traffic", "default_allow"),
+)
+_pod_step_mf = _register_kernel("packed", "_pod_step_mf", _pod_step_mf)
+_patch_rows = _register_kernel(
+    "packed", "_patch_rows", _patch_rows,
+    static_argnames=("self_traffic", "default_allow"),
+)
+_patch_cols = _register_kernel(
+    "packed", "_patch_cols", _patch_cols,
+    static_argnames=("self_traffic", "default_allow"),
+)
+_diff_step = _register_kernel(
+    "packed", "_diff_step", _diff_step,
+    static_argnames=("self_traffic", "default_allow"),
+)
+_build_maps = _register_kernel(
+    "packed", "_build_maps", _build_maps,
+    static_argnames=("chunk", "direction_aware"),
+)
+_build_packed = _register_kernel("packed", "_build_packed", _build_packed)
+_mask_rows = _register_kernel("packed", "_mask_rows", _mask_rows)

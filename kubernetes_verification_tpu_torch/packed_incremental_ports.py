@@ -50,11 +50,12 @@ Differences from the JAX engine, none of which changes a byte of state:
   card, ``_GATHER_PAD``), and the per-diff VP-row values travel unpacked
   (the JAX ``_vals_cap`` ladder and its bit-packed transfer only avoid XLA
   recompiles);
-* the ``kvtpu_*`` metrics, the dispatch tracker and ``register_kernel``
-  are ROADMAP §1 item 14;
 * the number of ported masks is capped by ``fused_ports_reach``
   (``ops/kernels.py::FUSED_MAX_MASKS``), where JAX has a ``max_port_masks``
   option (default 32).
+
+The JAX engine's ``kvtpu_*`` metrics, dispatch tracker and kernel-manifest
+registrations (``observe/aot.py``) are kept, at the same call sites.
 
 ``mesh=`` shards the state over a ``(pods, grants)`` mesh as the JAX engine
 does: each direction's VP axis over ``grants`` (padded to a multiple of the
@@ -85,6 +86,8 @@ from .encode.encoder import (
 )
 from .encode.ports import named_resolution
 from .models.core import Cluster, NetworkPolicy, Pod
+from .observe import DispatchTracker
+from .observe.metrics import INCREMENTAL_OPS
 from .ops.bits import or_diagonal, pack_bool_cols
 from .ops.closure import _words, bool_dot
 from .ops.kernels import FUSED_MAX_MASKS, fused_ports_reach
@@ -117,6 +120,9 @@ from .resilience.retry import RetryPolicy, retry_transient
 from .runtime import resolve_device
 
 __all__ = ["PackedPortsIncrementalVerifier", "PortUniverseChanged"]
+
+#: first dispatches per abstract signature (kvtpu_jit_recompiles_total)
+_TRACKER = DispatchTracker("packed-ports")
 
 _I8 = torch.int8
 _I32 = torch.int32
@@ -412,6 +418,9 @@ class PackedPortsIncrementalVerifier:
     #: transient-failure budget around the pod steps; assign a tuned
     #: RetryPolicy on the instance to change it
     retry_policy = RetryPolicy()
+
+    def _count_op(self, op: str) -> None:
+        INCREMENTAL_OPS.labels(engine=self.metrics_engine, op=op).inc()
 
     def __init__(
         self,
@@ -944,6 +953,7 @@ class PackedPortsIncrementalVerifier:
         if self._shards is not None:
             self._shards.vp_write(self, locs, vals, d_ing, d_eg)
         else:
+            _TRACKER.track("_vp_write", self._src, self._dst, vals)
             _vp_write(
                 self._src, self._dst, self._ing_cnt, self._eg_cnt, locs,
                 {d: self._put(v) for d, v in vals.items()},
@@ -999,6 +1009,7 @@ class PackedPortsIncrementalVerifier:
         self.policies[key] = pol
         zeros = np.zeros(self.n_pods, dtype=bool)
         self._apply((zeros, zeros), (new_si, new_se), assigned_i, assigned_e, [], [])
+        self._count_op("policy_add")
 
     def remove_policy(self, namespace: str, name: str) -> None:
         key = f"{namespace}/{name}"
@@ -1010,6 +1021,7 @@ class PackedPortsIncrementalVerifier:
         del self._pol_rows[key]  # no leak under add/remove churn
         zeros = np.zeros(self.n_pods, dtype=bool)
         self._apply((old_si, old_se), (zeros, zeros), {}, {}, freed_i, freed_e)
+        self._count_op("policy_remove")
 
     def update_policy(self, pol: NetworkPolicy) -> None:
         key = self._key(pol)
@@ -1027,6 +1039,7 @@ class PackedPortsIncrementalVerifier:
         self.policies[key] = pol
         self._apply((old_si, old_se), (new_si, new_se), assigned_i, assigned_e,
                     freed_i, freed_e)
+        self._count_op("policy_update")
 
     # ------------------------------------------------------------ pod churn
     def _pod_bank_col(self, pod: Pod, strict: bool = False) -> np.ndarray:
@@ -1130,6 +1143,10 @@ class PackedPortsIncrementalVerifier:
 
     def _pod_step_one_device(self, idx, ci, ce, cnt_i, cnt_e, active) -> None:
         ci_t, ce_t = self._put(ci), self._put(ce)
+        _TRACKER.track(
+            "_ports_pod_step", self._packed, self._src, self._dst,
+            static=tuple(sorted(self._flags.items())),
+        )
         retry_transient(
             lambda: _ports_pod_step(
                 self._packed, self._src, self._dst, self._ing_cnt, self._eg_cnt,
@@ -1162,6 +1179,7 @@ class PackedPortsIncrementalVerifier:
         if dict(self._ns_labels[name]) == dict(labels):
             return
         self._set_ns_labels(name, labels)
+        self._count_op("namespace_relabel")
         idx_arr = self._ns_pod_slots(name)
         if not len(idx_arr):
             return
@@ -1228,6 +1246,7 @@ class PackedPortsIncrementalVerifier:
         self._h_ing_cnt[idx] = cnt_i
         self._h_eg_cnt[idx] = cnt_e
         self._dispatch_pod(idx, ci, ce, cnt_i, cnt_e, active=True)
+        self._count_op("pod_add")
         return idx
 
     def remove_pod(self, namespace: str, name: str) -> int:
@@ -1248,6 +1267,7 @@ class PackedPortsIncrementalVerifier:
             np.zeros((2, self._total_rows["e"]), dtype=np.int8),
             0, 0, active=False,
         )
+        self._count_op("pod_remove")
         return idx
 
     def update_pod_labels(self, idx: int, labels: Dict[str, str]) -> None:
@@ -1266,6 +1286,7 @@ class PackedPortsIncrementalVerifier:
         self._h_ing_cnt[idx] = cnt_i
         self._h_eg_cnt[idx] = cnt_e
         self._dispatch_pod(idx, ci, ce, cnt_i, cnt_e, active=True)
+        self._count_op("pod_relabel")
 
     def _grow_pods(self, min_extra: int = 1) -> None:
         """Grow the pod axis by at least ``min_extra`` slots, keeping the
@@ -1560,3 +1581,27 @@ class PackedPortsIncrementalVerifier:
         }
         self.init_time = 0.0
         return self
+
+
+# Kernel-manifest registration (observe/aot.py): rebind the dispatch
+# functions so their dispatch keys reach the warm pack's manifest; call
+# sites above are unchanged (late binding).
+from .observe.aot import register_kernel as _register_kernel  # noqa: E402
+
+_ports_patch_rows = _register_kernel(
+    "packed-ports", "_ports_patch_rows", _ports_patch_rows,
+    static_argnames=("layout", "self_traffic", "default_allow"),
+)
+_ports_patch_cols = _register_kernel(
+    "packed-ports", "_ports_patch_cols", _ports_patch_cols,
+    static_argnames=("layout", "self_traffic", "default_allow"),
+)
+_build_packed = _register_kernel("packed-ports", "_build_packed", _build_packed)
+_vp_write = _register_kernel("packed-ports", "_vp_write", _vp_write)
+_ports_pod_step = _register_kernel(
+    "packed-ports", "_ports_pod_step", _ports_pod_step,
+    static_argnames=("layout", "self_traffic", "default_allow"),
+)
+_ports_apply_pod_cols_group = _register_kernel(
+    "packed-ports", "_ports_apply_pod_cols_group", _ports_apply_pod_cols_group
+)

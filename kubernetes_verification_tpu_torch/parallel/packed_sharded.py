@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..encode.encoder import EncodedCluster, GrantBlock
+from ..observe.introspect import maybe_publish
 from ..ops.bits import pack_bool_cols, unpack_cols, unpack_words_i8
 from ..ops.closure import bool_dot
 from ..ops.match import as_tensors, match_selectors
@@ -619,6 +620,9 @@ def sharded_packed_reach(
         acc_col = np.zeros(Np, dtype=np.int64)
         acc_grp = np.zeros((grp8.shape[0], Np), dtype=np.int64) if grp8 is not None else None
         chunk_times: List[float] = []
+        # the JAX package's publish site: the sweep has no cost function of
+        # its own (its int8 products publish theirs through bool_dot)
+        maybe_publish("sharded-packed", "packed_sweep", None, (enc, sweep_chunk_tiles))
         for s0 in range(0, n_tiles_total, sweep_chunk_tiles):
             c0 = time.perf_counter()
             width = min(sweep_chunk_tiles, n_tiles_total - s0)
@@ -651,6 +655,7 @@ def sharded_packed_reach(
                 "chunk_s_max": ct[-1],
             },
         )
+    maybe_publish("sharded-packed", "packed_stripe", None, (enc, t1 - t0))
     packed, row_deg, col_deg, grp_deg = local.sweep(t0, (t1 - t0) // mp)
     del local
     _sync(mesh)

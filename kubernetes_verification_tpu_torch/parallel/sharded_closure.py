@@ -287,6 +287,16 @@ def sharded_packed_closure(
             limit_bytes=hbm_limit, device=mesh.device,
         )
     CLOSURE_STRIPE_ROWS.set(n_loc)
+    # the manifest entry is shared; the key carries this call's geometry
+    # (observe/aot.py warm pack)
+    from ..observe.aot import transient_kernel
+
+    square = transient_kernel(
+        "sharded",
+        "_sharded_square_local",
+        _sharded_square_local,
+        key_extras=(Np, t, dt, dp, mp),
+    )
     start_pass = 0
     cm = None
     if checkpoint_dir:
@@ -328,9 +338,7 @@ def sharded_packed_closure(
         for done in range(start_pass, max_iter):
             CLOSURE_ITERATIONS.inc()
             CLOSURE_SHARDED_ITERATIONS.inc()
-            cur, changed = _sharded_square_local(
-                mesh, cur, n_total=Np, row_tile=t, dst_tile=dt
-            )
+            cur, changed = square(mesh, cur, n_total=Np, row_tile=t, dst_tile=dt)
             ticker.tick()
             if cm is not None and checkpoint_every > 0 and (done + 1) % checkpoint_every == 0:
                 commit(done + 1)

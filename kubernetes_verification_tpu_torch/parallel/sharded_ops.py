@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..encode.encoder import EncodedCluster, EncodedKano, GrantBlock
+from ..observe.introspect import maybe_publish
 from ..ops.closure import bool_dot
 from ..ops.match import as_tensors, match_selectors, subset_match
 from ..ops.padding import pad_grants, pad_pods, pad_rows, pad_selector_rows
@@ -225,6 +226,10 @@ def sharded_k8s_reach(
         bank_full = np.ones((1, Np), dtype=bool)
 
     rows = rank_slice(mesh, POD_AXIS, Np)
+    # the JAX package's publish site: a rank's sweep has no cost function
+    # of its own (its int8 products publish their exact counts through
+    # bool_dot), so no report is published for it
+    maybe_publish("sharded", "k8s_reach", None, (enc, rows))
     out = _k8s_local(
         mesh,
         _t(pod_kv[rows], mesh), _t(pod_key[rows], mesh), _t(pod_ns[rows], mesh),
@@ -241,6 +246,7 @@ def sharded_k8s_reach(
     )
     closure = None
     if with_closure:
+        maybe_publish("sharded", "closure", None, (out.reach,))
         closed = _closure_local(mesh, out.reach, _closure_steps(Np))
         closure = _host(all_gather(mesh, closed, POD_AXIS, dim=0))[:n, :n]
 
@@ -291,6 +297,7 @@ def sharded_kano_reach(
     valid = np.arange(Np) < n
     rows = rank_slice(mesh, POD_AXIS, Np)
     pols = rank_slice(mesh, GRANT_AXIS, p + p_pad)
+    maybe_publish("sharded", "kano_reach", None, (enc, rows, pols))
     out = _kano_local(
         mesh,
         _t(pod_kv[rows], mesh), _t(valid[rows], mesh),
@@ -301,6 +308,7 @@ def sharded_kano_reach(
     )
     closure = None
     if with_closure:
+        maybe_publish("sharded", "closure", None, (out.reach,))
         closed = _closure_local(mesh, out.reach, _closure_steps(Np))
         closure = _host(all_gather(mesh, closed, POD_AXIS, dim=0))[:n, :n]
 
@@ -324,5 +332,6 @@ def sharded_closure(mesh: Mesh, reach: np.ndarray) -> np.ndarray:
     n_pad = pad_amount(n, dp)
     padded = np.pad(np.asarray(reach, dtype=bool), ((0, n_pad), (0, n_pad)))
     rows = rank_slice(mesh, POD_AXIS, n + n_pad)
+    maybe_publish("sharded", "closure", None, (padded,))
     closed = _closure_local(mesh, _t(padded[rows], mesh), _closure_steps(n + n_pad))
     return _host(all_gather(mesh, closed, POD_AXIS, dim=0))[:n, :n]

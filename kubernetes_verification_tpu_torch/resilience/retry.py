@@ -3,8 +3,8 @@
 The port's copy of ``kubernetes_verification_tpu.resilience.retry``: the
 packed incremental engine wraps its stripe and row re-solves in
 :func:`retry_transient`, so a transient device failure does not kill a
-long-lived serving verifier mid-query. The retry counter metric of the JAX
-package is not part of the port (ROADMAP §1 item 14).
+long-lived serving verifier mid-query. Each retry increments
+``kvtpu_retries_total``, as in the JAX package.
 
 Jitter is seeded (``random.Random(seed)`` per call), so a given failure
 sequence produces the same delay schedule on every run.
@@ -16,6 +16,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Iterator, Optional, TypeVar
 
+from ..observe.metrics import RETRIES_TOTAL
 from .errors import BackendError, classify_exception
 
 __all__ = ["RetryPolicy", "retry_transient"]
@@ -62,7 +63,7 @@ def retry_transient(
     :func:`classify_exception`), back off and retry up to
     ``policy.max_retries`` times. Non-transient errors and exhausted
     budgets raise the classified error (original exception chained as
-    ``__cause__``).
+    ``__cause__``). Each retry increments ``kvtpu_retries_total``.
     """
     delays = policy.delays()
     attempt = 0
@@ -77,6 +78,7 @@ def retry_transient(
                 delay = None
             if not err.transient or delay is None:
                 raise err from e
+            RETRIES_TOTAL.labels(backend=backend, kind=err.kind).inc()
             if on_retry is not None:
                 on_retry(err, attempt)
             sleep(delay)

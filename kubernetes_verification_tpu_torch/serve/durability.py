@@ -5,10 +5,12 @@ checkpoint written by either package is recovered by the other: the
 snapshot trees are ``utils/persist``'s (file for file the JAX package's),
 the manifests and the WAL are byte-compatible.
 
-One part of the JAX module is not here: there is no warm executable pack
-to ship beside a checkpoint or to load before recovery. The port's warm
-start is the build cache of ``ops/cuda_build.py``, so ``inspect`` (and a
-replica's ``/healthz``) reports the pack as absent, with that reason.
+Every checkpoint ships the warm kernel pack (``observe/aot.py``: the built
+CUDA kernel libraries and the recorded dispatch keys) into ``aot-pack/``
+beside its generations, and ``recover()`` installs it before any engine is
+built, so a recovered service or a promoted follower launches the kernels
+without running ``nvcc``. ``inspect`` (and a replica's ``/healthz``)
+reports the pack's validity.
 
 The serving loop's contract is: kill the process at any instant and a
 restart recovers to exactly the state a from-scratch verification of the
@@ -80,14 +82,16 @@ _GEN_RE = re.compile(r"^gen-(\d{8})$")
 _MANIFEST_RE = re.compile(r"^manifest-(\d{8})\.json$")
 
 
-def aot_pack_status() -> dict:
+def aot_pack_status(directory: str) -> dict:
     """What ``inspect`` and a replica's ``/healthz`` report for the warm
-    executable pack: absent, with the reason (the port ships none)."""
-    return {
-        "present": False,
-        "reason": "no AOT pack: the warm start is the kernel build cache "
-        "of ops/cuda_build.py",
-    }
+    kernel pack of checkpoint directory ``directory`` (read-only, no
+    loads); a failed inspection is reported, never raised."""
+    try:
+        from ..observe import aot
+
+        return aot.pack_status(aot.pack_dir(directory))
+    except Exception as e:  # noqa: BLE001 — report, don't die
+        return {"present": False, "error": f"{type(e).__name__}: {e}"}
 
 
 def _fsync_file(path: str) -> None:
@@ -302,6 +306,7 @@ class CheckpointManager:
             log_offset=int(log_offset), last_seq=int(last_seq),
         )
         self._rotate()
+        self._ship_pack()
         return CheckpointInfo(
             generation=gen,
             manifest_path=self.manifest_path(gen),
@@ -457,6 +462,23 @@ class CheckpointManager:
             log_offset=int(log_offset),
             last_seq=int(last_seq),
         )
+
+    def _ship_pack(self) -> None:
+        """Ship the warm kernel pack alongside the ``gen-N/`` snapshots
+        (``aot-pack/`` is invisible to :meth:`_rotate` — it is not a
+        generation). Incremental and fail-open: a pack failure can cost a
+        warm start, never a checkpoint."""
+        try:
+            from ..observe import aot
+
+            if aot.aot_enabled():
+                aot.save_pack(aot.pack_dir(self.directory))
+        except Exception as e:  # noqa: BLE001 — durability never rides on AOT
+            log_event(
+                "aot_pack_ship_failed",
+                directory=self.directory,
+                error=f"{type(e).__name__}: {e}",
+            )
 
     def _rotate(self) -> None:
         """Keep the newest ``retain`` committed generations; delete the
@@ -632,7 +654,8 @@ class RecoveryManager:
         lp = lease_path(self.directory)
         if os.path.exists(lp):
             report["lease"] = LeaseFile(lp).describe()
-        report["aot_pack"] = aot_pack_status()
+        # warm-pack validity rides the same report (read-only, no loads)
+        report["aot_pack"] = aot_pack_status(self.directory)
         return report
 
     def recover(
@@ -669,6 +692,20 @@ class RecoveryManager:
         from .service import VerificationService
 
         device = resolve_device(device)
+        # install the warm kernel pack before any engine is built, so the
+        # snapshot load / replay / first answer launch the packed libraries
+        # (fail-open: a bad pack is misses + warnings, then an nvcc build)
+        try:
+            from ..observe import aot
+
+            if aot.aot_enabled():
+                aot.load_pack(aot.pack_dir(self.directory))
+        except Exception as e:  # noqa: BLE001 — recovery never rides on AOT
+            log_event(
+                "aot_pack_load_failed",
+                directory=self.directory,
+                error=f"{type(e).__name__}: {e}",
+            )
 
         errors: List[Tuple[int, str]] = []
         chosen: Optional[dict] = None

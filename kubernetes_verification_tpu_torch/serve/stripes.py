@@ -94,6 +94,22 @@ __all__ = [
 #: owner (same set the load balancer ejects on)
 _EJECTABLE = (ReplicationError, ConnectionError, OSError)
 
+
+def _stripe_col_patch(count: torch.Tensor, idx: int, d_col_stripe) -> None:
+    """count[:, idx] += d_col_stripe, in place — the column slice of a
+    relabel delta that lands on EVERY stripe (bounded to the owned range by
+    the caller slicing ``d_col[lo:hi]`` before the call)."""
+    count[:, idx] += torch.as_tensor(
+        np.asarray(d_col_stripe, dtype=np.int32), device=count.device
+    )
+
+
+def _stripe_row_patch(count: torch.Tensor, loc: int, d_row) -> None:
+    """count[loc, :] += d_row, in place — the row half of a relabel delta,
+    applied only on the one stripe whose ``[lo, hi)`` holds the global row
+    (``loc`` is already the local row)."""
+    count[loc] += torch.as_tensor(np.asarray(d_row, dtype=np.int32), device=count.device)
+
 #: cells of one int32 slab of the build's contraction (a [rows, N] product)
 _SLAB_CELLS = 1 << 24
 #: on a CUDA device a slab's rows are padded with zero rows to a multiple
@@ -219,21 +235,16 @@ class StripeEngine(IncrementalVerifier):
 
     def _patch_row_col(self, idx, d_ing_row, d_ing_col, d_eg_row, d_eg_col):
         lo, hi = self._lo, self._hi
-        dev = self._ing_count.device
         for count, d_row, d_col in (
             (self._ing_count, d_ing_row, d_ing_col),
             (self._eg_count, d_eg_row, d_eg_col),
         ):
             # the column slice lands on every stripe (bounded to [lo, hi))
-            count[:, idx] += torch.as_tensor(
-                np.asarray(d_col[lo:hi], dtype=np.int32), device=dev
-            )
+            _stripe_col_patch(count, idx, d_col[lo:hi])
             # the row half lands only on the owning stripe, at its local
             # offset (the (idx, idx) corner rides d_row: d_col[idx] == 0)
             if lo <= idx < hi:
-                count[idx - lo] += torch.as_tensor(
-                    np.asarray(d_row, dtype=np.int32), device=dev
-                )
+                _stripe_row_patch(count, idx - lo, d_row)
 
     # --------------------------------------------------------------- query
     @property
@@ -914,3 +925,15 @@ class StripeCoordinator:
             ],
             "coverage_gaps": self.coverage_gaps(),
         }
+
+
+# Kernel-manifest registration (observe/aot.py): rebind the dispatch
+# functions so their dispatch keys reach the warm pack's manifest.
+from ..observe.aot import register_kernel as _register_kernel  # noqa: E402
+
+_stripe_col_patch = _register_kernel(
+    "stripe", "_stripe_col_patch", _stripe_col_patch
+)
+_stripe_row_patch = _register_kernel(
+    "stripe", "_stripe_row_patch", _stripe_row_patch
+)

@@ -557,8 +557,7 @@ class ReplicationServer:
                 out["lease"] = LeaseFile(lp, clock=self._clock).describe()
             except (OSError, ValueError):
                 out["lease"] = None
-        # the port ships no AOT pack: absent, with the reason
-        out["aot"] = aot_pack_status()
+        out["aot"] = aot_pack_status(self.directory)
         # live progress plane: every in-flight long job in this process
         # (closure passes, bootstrap shipping, WAL replay, …) plus the
         # newest crash flight dumps — so one /healthz answers "what is

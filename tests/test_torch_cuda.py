@@ -830,3 +830,91 @@ def test_datalog_backend_on_card_matches_torch(cuda_device, compute_ports):
     kw = kvt.verify_kano(*kvt.random_kano(400, 40, seed=2), kvt.VerifyConfig(backend="torch"))
     np.testing.assert_array_equal(kg.reach, kw.reach)
     np.testing.assert_array_equal(kg.src_sets, kw.src_sets)
+
+
+def test_sentinel_suite_runs_on_the_card(cuda_device):
+    """``run_calibration`` on ``cuda:0``: the three chains at the card's
+    size, timed with CUDA events, and the dispatch probe."""
+    from kubernetes_verification_tpu_torch.observe.sentinel import run_calibration
+
+    ctx = run_calibration(cuda_device, reps=3)
+    assert ctx["platform"] == "gpu" and ctx["device"] == torch.cuda.get_device_name(0)
+    assert set(ctx["kernels"]) == {"mxu_int8", "mxu_f32", "vpu_bitops"}
+    assert ctx["kernels"]["mxu_int8"]["config"] == {"n": 8192, "loops": 64}
+    assert all(k["median_s"] > 0 for k in ctx["kernels"].values())
+    assert ctx["dispatch_s"] > 0 and ctx["calibrated_peak_macs_per_s"] > 0
+
+
+_WARM_CHILD = r"""
+import json, os, sys
+import numpy as np, torch
+from kubernetes_verification_tpu_torch.observe import aot
+from kubernetes_verification_tpu_torch.ops import cuda_build
+from kubernetes_verification_tpu_torch.ops.kernels import (
+    packed_dir_allow, packed_dir_allow_reference)
+
+cuda_build.BUILD_DIR = sys.argv[2]
+assert not os.listdir(sys.argv[2]) and cuda_build.nvcc_version() is None
+summary = aot.load_pack(sys.argv[1])
+rng = np.random.default_rng(7)
+a, b = ((rng.random((77, 384)) < 0.05).astype(np.int8) for _ in range(2))
+niso = np.broadcast_to((rng.random(384) < 0.5).astype(np.int32), (8, 384)).copy()
+ta, tb, tn = (torch.as_tensor(x, device="cuda") for x in (a, b, niso))
+got = packed_dir_allow(ta, tb, tn, default_allow_axis=1)
+want = packed_dir_allow_reference(ta, tb, tn, default_allow_axis=1)
+print(json.dumps({"loaded": summary["loaded"], "hits": aot.hit_total(),
+                  "misses": aot.miss_total(), "nvcc": cuda_build.counts()["nvcc_runs"],
+                  "launches": packed_dir_allow.launches,
+                  "equal": bool(torch.equal(got, want))}))
+"""
+
+
+def test_pack_loads_in_a_process_without_nvcc(cuda_device, tmp_path):
+    """A pack saved here, loaded in a process with an empty build directory,
+    no ``nvcc`` on its ``PATH`` and ``CUDA_HOME`` at an empty directory:
+    both libraries load from the pack (no compiler run) and
+    ``packed_dir_allow`` equals its plain version."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from kubernetes_verification_tpu_torch.observe import aot
+    from kubernetes_verification_tpu_torch.ops import cuda_build
+
+    cuda_build.build_all()
+    saved = aot.save_pack(str(tmp_path / "pack"))
+    assert saved["libraries"] == ["fused_ports_reach", "packed_dir_allow"]
+    (tmp_path / "build").mkdir()
+    (tmp_path / "no-cuda").mkdir()
+    env = dict(os.environ, CUDA_HOME=str(tmp_path / "no-cuda"), PATH=os.pathsep.join(
+        d for d in os.environ.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc"))))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join([root, env.get("PYTHONPATH", "")])
+    proc = subprocess.run(
+        [sys.executable, "-c", _WARM_CHILD, str(tmp_path / "pack"), str(tmp_path / "build")],
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got == {"loaded": 2, "hits": 2, "misses": 0, "nvcc": 0, "launches": 1,
+                   "equal": True}
+
+
+def test_native_backend_matches_torch_on_card(cuda_device):
+    """``verify(backend="native")`` (host C++) equals ``torch`` on the card
+    at 2,000 pods, any-port with closure and with port bitmaps."""
+    if "native" not in kvt.available_backends():
+        pytest.skip("the native backend needs a C++ compiler")
+    c = kvt.random_cluster(kvt.GeneratorConfig(
+        n_pods=2_000, n_policies=200, n_namespaces=10, seed=1))
+    for flags in (dict(closure=True), dict(compute_ports=True)):
+        got = kvt.verify(c, kvt.VerifyConfig(backend="native", **flags))
+        want = kvt.verify(c, kvt.VerifyConfig(backend="torch", **flags))
+        for f in ("reach", "reach_ports", "closure", "selected", "src_sets", "dst_sets",
+                  "ingress_isolated", "egress_isolated"):
+            g, w = getattr(got, f), getattr(want, f)
+            assert (g is None) == (w is None), f
+            if g is not None:
+                np.testing.assert_array_equal(g, w, err_msg=f)

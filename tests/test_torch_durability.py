@@ -130,7 +130,15 @@ def test_inspect_reports_alike_with_the_two_gaps(served):
     assert mine_g == theirs_g and mine["usable"] and theirs["usable"]
     assert {k: v for k, v in strip(mine)["wal"].items() if k != "path"} == \
         {k: v for k, v in strip(theirs)["wal"].items() if k != "path"}
-    assert mine["aot_pack"]["present"] is False and "build cache" in mine["aot_pack"]["reason"]
+    # each package shipped its own warm pack: the port's holds the recorded
+    # dispatch keys and, on the CPU, no kernel library; each reads the
+    # other's as foreign
+    assert mine["aot_pack"]["present"] and mine["aot_pack"]["env_match"]
+    assert mine["aot_pack"]["libraries"] == [] and mine["aot_pack"]["corrupt"] == 0
+    assert mine["aot_pack"]["matching"] == mine["aot_pack"]["entries"]
+    assert theirs["aot_pack"]["present"]
+    foreign = pdur.RecoveryManager(os.path.join(jdir, "ck")).inspect()["aot_pack"]
+    assert foreign["present"] and not foreign["env_match"] and foreign["matching"] == 0
     # the lease triage is the JAX package's: a damaged lease and a live
     # one are described alike, and inspect goes on
     ck = os.path.join(pdir, "ck")

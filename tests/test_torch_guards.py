@@ -2,6 +2,7 @@
 its entry points refuse to fall back to the CPU when no GPU is present."""
 import ast
 import os
+import shutil
 import subprocess
 import sys
 
@@ -10,6 +11,11 @@ import torch
 
 import kubernetes_verification_tpu_torch as kvt
 from kubernetes_verification_tpu_torch.resilience.errors import BackendError, ConfigError
+
+#: the port's backends: the JAX package's with ``torch`` for ``tpu``, and
+#: ``native`` only where a C++ compiler can build the bitset engine
+_BACKENDS = sorted(["cpu", "datalog", "sharded", "sharded-packed", "torch"]
+                   + (["native"] if shutil.which("g++") else []))
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_ROOT, "kubernetes_verification_tpu_torch")
@@ -308,7 +314,7 @@ def test_sharded_paths_refuse_the_cpu_without_a_gpu(monkeypatch):
             call()
     assert not dist.is_initialized()
     assert {"sharded", "sharded-packed"} <= set(kvt.available_backends())
-    assert kvt.available_backends() == ["cpu", "datalog", "sharded", "sharded-packed", "torch"]
+    assert kvt.available_backends() == _BACKENDS
 
 
 def test_a_mesh_that_is_not_the_world_raises():
@@ -366,3 +372,43 @@ def test_top_level_namespace_covers_the_jax_package():
     assert kvt.resilient_verify is wrapper.resilient_verify
     with pytest.raises(AttributeError):
         kvt.no_such_name  # noqa: B018
+    # and the observe layer's: every name of the JAX package's observe.__all__
+    import kubernetes_verification_tpu.observe as jobs
+
+    from kubernetes_verification_tpu_torch import observe
+
+    assert set(jobs.__all__) - set(observe.__all__) == set()
+    for name in observe.__all__:
+        assert getattr(observe, name) is not None, name
+
+
+def test_scan_covers_the_native_and_observe_modules():
+    """The AST scan reaches every new module of the port, the C++ engine's
+    binding included; the engine's source is the JAX package's byte for
+    byte, read here and never imported by the port."""
+    rel = {os.path.relpath(p, _PKG) for p in _port_files()}
+    for name in ("native/__init__.py", "native/binding.py", "backends/native.py",
+                 "observe/aot.py", "observe/jit.py", "observe/sentinel.py",
+                 "observe/introspect.py", "observe/telemetry.py", "observe/history.py",
+                 "utils/observe.py"):
+        assert name in rel, name
+    jax_src = os.path.join(_ROOT, "kubernetes_verification_tpu", "native", "bitset.cpp")
+    with open(jax_src, "rb") as a, open(os.path.join(_PKG, "native", "bitset.cpp"), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_observe_tooling_refuses_the_cpu_without_a_gpu(monkeypatch):
+    """The sentinel suite runs on the card unless the caller passes
+    ``device="cpu"``: without a GPU it raises and never calibrates on the
+    CPU in its place; a sample of the memory telemetry never initialises
+    CUDA."""
+    from kubernetes_verification_tpu_torch.observe import sentinel, telemetry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (sentinel.run_calibration, sentinel.SentinelSuite,
+                 sentinel.default_suite, lambda: sentinel.run_calibration("cuda")):
+        with pytest.raises(BackendError, match="no CUDA device"):
+            call()
+    was = torch.cuda.is_initialized()
+    telemetry.sample_once()
+    assert torch.cuda.is_initialized() == was

@@ -284,7 +284,9 @@ def test_inspect_lease_triage_equals_jax(churn, tmp_path, monkeypatch):
     theirs = jdur.RecoveryManager(ck).inspect(log_path=log)
     assert drop(mine["lease"]) == drop(theirs["lease"])
     assert mine["lease"]["epoch"] == 1 and mine["lease"]["holder"] == "leader-0"
-    assert mine["aot_pack"]["present"] is False
+    # the JAX leader shipped its pack: the port reads it as foreign
+    assert mine["aot_pack"]["present"] and not mine["aot_pack"]["env_match"]
+    assert mine["aot_pack"]["matching"] == 0
     with open(prep.lease_path(ck), "w") as fh:
         fh.write("[]")
     assert pdur.RecoveryManager(ck).inspect()["lease"] == \

@@ -125,9 +125,12 @@ def test_both_servers_serve_the_same_bytes(churn, tmp_path, monkeypatch):
                     c._request("raw", path)
                 errs.append(str(ei.value).replace(c.base_url, "URL"))
             assert errs[0] == errs[1]
-        # the AOT pack is reported absent, with the reason; no JAX tooling
+        # the JAX leader's checkpoint shipped its warm pack: the port's
+        # server reports it present and foreign, the JAX server its own
         health = pc.healthz()
-        assert health["aot"]["present"] is False and "build cache" in health["aot"]["reason"]
+        assert health["aot"]["present"] and not health["aot"]["env_match"]
+        assert health["aot"]["matching"] == 0
+        assert jc.healthz()["aot"]["env_match"]
         assert health["role"] == "leader" and health["last_seq"] == 59
         assert "kvtpu_" in pc.metrics_text()
         # /profile is the port's torch.profiler capture into the server's

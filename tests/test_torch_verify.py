@@ -1,5 +1,7 @@
 """``verify(backend="torch")`` on the CPU against the JAX package's
 ``verify(backend="tpu")``, every ``VerifyResult`` array (exact: boolean)."""
+import shutil
+
 import numpy as np
 import pytest
 
@@ -13,6 +15,11 @@ from kubernetes_verification_tpu.harness.generate import (
 )
 from kubernetes_verification_tpu_torch.resilience.errors import ConfigError
 from torch_parity import words  # noqa: F401  (also caps torch's threads)
+
+#: the port's backends: the JAX package's with ``torch`` for ``tpu``, and
+#: ``native`` only where a C++ compiler can build the bitset engine
+_BACKENDS = sorted(["cpu", "datalog", "sharded", "sharded-packed", "torch"]
+                   + (["native"] if shutil.which("g++") else []))
 
 _ARRAYS = (
     "reach", "reach_ports", "src_sets", "dst_sets", "selected",
@@ -94,4 +101,4 @@ def test_unported_paths_name_the_roadmap():
             label_relation=kvt.DefaultEqualityLabelRelation(), backend_options=cpu))
     with pytest.raises(KeyError):
         kvt.verify(cluster, kvt.VerifyConfig(backend="tpu"))
-    assert kvt.available_backends() == ["cpu", "datalog", "sharded", "sharded-packed", "torch"]
+    assert kvt.available_backends() == _BACKENDS
