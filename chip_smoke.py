@@ -252,6 +252,22 @@ Phases; any failure exits non-zero before a result line is printed:
     namespaces, seed 0)``, any-port) == ``verify(backend="torch")`` on
     every field, and the kano program at ``random_kano(10,000, 1,000)`` ==
     ``verify_kano(backend="torch")``, with their ``timings``.
+33.–35. the ``native`` backend, the observe tooling and the warm start
+    (``native_phase``, ``observe_phase``, ``warm_start_phase``).
+36. (run last) the command line at full width on the card, through
+    ``kubernetes_verification_tpu_torch.cli.main`` on phase 4's cluster
+    written as JSON manifests: ``snapshot`` (one ``fused_ports_reach``
+    launch) and ``snapshot --no-ports`` (two ``packed_dir_allow``) print
+    phases 6 and 4's aggregates and checkpoint their words (sha256);
+    ``diff`` (a policy added, a pod removed) launches no kernel and its
+    pairs equal ``verify --backend sharded-packed`` of the changed
+    manifests; ``serve`` of phase 22's first 32 events builds the packed
+    service (two launches) and its snapshot answers ``query --batch`` of
+    4,096 probes as its words do; ``warmup`` packs both libraries; in a
+    child process without ``--device``, ``verify`` at phase 8's size equals
+    the in-process ``--device cpu`` answer with ``"backend": "torch"`` and
+    ``backends`` prints ``available_backends()``. Each step prints its
+    seconds and peak device memory.
 
 Phases 9–13 launch neither hand-written kernel (their int8 products are
 ``torch._int_mm`` calls, as the JAX package leaves them to XLA): the counts
@@ -283,8 +299,10 @@ carries its engine build's launches, phase 14's and phase 16's, as
 18's checks as ``dense_check_launches`` and in phase 22's service build as
 ``serve_build_launches``, and its launches in phases 25–27, counted from
 0 at their start, as ``replica_launches``, and each kernel's launches in
-phases 28–29, the ranks' included, as ``sharded_launches``, and in
-phases 30–32 as ``mesh_engine_launches``); the last is
+phases 28–29, the ranks' included, as ``sharded_launches``, in
+phases 30–32 as ``mesh_engine_launches``, in phase 35's child as
+``warm_start_launches`` and in phase 36's in-process steps as
+``cli_launches``); the last is
 ``{"ok": true, "device": {...}}``. Tolerance everywhere: exact (every output
 is boolean or integer words).
 """
@@ -664,7 +682,8 @@ def ports_path(enc, dev) -> tuple:
     """The port-bitmap path at full width: one launch of fused_ports_reach,
     and the same words as the torch mask-group sweep. Returns the launches
     and the words over the real pods, on the host (phase 16 holds the ports
-    engine's build against them)."""
+    engine's build against them), and their ``words_reference`` (phase
+    36's)."""
     import kubernetes_verification_tpu_torch as kvt
     from kubernetes_verification_tpu_torch.ops.tiled_ports import port_layout_stats
 
@@ -709,7 +728,9 @@ def ports_path(enc, dev) -> tuple:
             and (res.egress_isolated == sweep.egress_isolated).all()):
         fail("isolation differs between the port routes")
     log("ports: kernel path == torch mask-group sweep, bit for bit")
-    return fused, res.packed[:, :w].cpu()
+    ref = words_reference(res.packed, enc.n_pods, res.timings["reachable_pairs"],
+                          res.ingress_isolated, res.egress_isolated)
+    return fused, res.packed[:, :w].cpu(), ref
 
 
 def fused_full(enc, dev, smi: str) -> dict:
@@ -4637,6 +4658,264 @@ def warm_start_phase(ctx: dict, build_s: float, dev, smi: str) -> int:
     return got["launches"][0]
 
 
+#: phase 36: the served stream's length (phase 22's first events; cut from
+#: 64 for the phase's time) and the query batch (phase 22's mix)
+CLI_EVENTS = 32
+CLI_PROBES = 4096
+
+
+def words_reference(words, n: int, pairs: int, ing_iso, eg_iso) -> dict:
+    """A flagship solve as phase 36 holds the CLI's checkpoints against it:
+    the sha256 of its host words over the real pods and columns (no words
+    stay on the card), its reachable pairs and isolation counts."""
+    import hashlib
+
+    import numpy as np
+
+    host = words[:n, : -(-n // 32)].contiguous().cpu().numpy()
+    return {
+        "digest": hashlib.sha256(host.tobytes()).hexdigest(),
+        "reachable_pairs": int(pairs),
+        "ingress_isolated": int(np.count_nonzero(np.asarray(ing_iso)[:n])),
+        "egress_isolated": int(np.count_nonzero(np.asarray(eg_iso)[:n])),
+    }
+
+
+def _cli(argv) -> tuple:
+    """One in-process ``kv-tpu-torch`` run: (exit code, standard output)."""
+    import contextlib
+    import io
+
+    from kubernetes_verification_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(list(argv))
+    return rc, buf.getvalue()
+
+
+def cli_phase(refs: dict, dev, smi: str) -> tuple:
+    """Phase 36: the command line at full width on the card, through
+    ``kubernetes_verification_tpu_torch.cli.main``. Phase 4's cluster goes to
+    JSON manifests (``generate`` cannot set ``p_ipblock_peer`` or
+    ``min_selector_labels``); both launch counters are set to 0 just before
+    each step and read just after. ``snapshot`` with port bitmaps (one
+    ``fused_ports_reach`` launch) and ``--no-ports`` (two ``packed_dir_allow``)
+    print phase 6's and phase 4's aggregates, and their checkpoints load on
+    the card with those words (sha256); ``diff`` (a new policy, a pod
+    removed) launches no kernel, its ``before`` is the any-port snapshot's
+    and its ``after`` pairs are ``verify --backend sharded-packed`` of the
+    changed manifests; ``serve`` (phase 22's first 32 events, its populated
+    relabels cut) builds the packed service (two launches) and snapshots it,
+    and ``query --from-snapshot --batch`` of 4,096 probes of phase 22's mix
+    answers the snapshot's words; ``warmup`` packs both built libraries.
+    Then the console entry in a child process, without ``--device``, at
+    phase 8's size: ``verify`` (with and without port bitmaps) prints the
+    in-process ``--device cpu`` answer with ``"backend": "torch"``, and
+    ``backends`` prints ``available_backends()``. Returns the launches of
+    the in-process steps."""
+    import dataclasses
+    import hashlib
+    import os
+    import tempfile
+
+    import numpy as np
+
+    import kubernetes_verification_tpu_torch as kvt
+    from kubernetes_verification_tpu_torch.harness.generate import random_event_stream
+    from kubernetes_verification_tpu_torch.ingest.yaml_io import _dump_cluster_json
+    from kubernetes_verification_tpu_torch.serve.events import write_events
+    from kubernetes_verification_tpu_torch.utils.persist import (
+        load_packed_incremental,
+        load_ports_incremental,
+    )
+
+    t_phase = time.perf_counter()
+    scratch = tempfile.TemporaryDirectory(prefix="kvt-cli-")
+    path = lambda *p: os.path.join(scratch.name, *p)  # noqa: E731
+    t0 = time.perf_counter()
+    cluster = kvt.random_cluster(kvt.GeneratorConfig(**MAIN))
+    _dump_cluster_json(cluster, path("main"))
+    log(f"cli: phase 4's cluster written as JSON manifests in "
+        f"{time.perf_counter() - t0:.2f} s")
+    total = [0, 0]
+    times = {}
+
+    def step(name: str, argv: list, want: tuple) -> dict:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, out = _cli(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"cli {name}: {secs:.2f} s, peak memory {peak:.1f} GiB, packed_dir_allow "
+            f"launches {launches[0]}, fused_ports_reach launches {launches[1]}")
+        if rc != 0:
+            fail(f"cli {name}: exit {rc}: {out[-2000:]}")
+        if launches != want:
+            fail(f"cli {name}: launched {launches}, not {want}")
+        total[0] += launches[0]
+        total[1] += launches[1]
+        times[name] = secs
+        return json.loads(out.strip().splitlines()[-1])
+
+    def digest(eng) -> str:
+        n = eng.n_pods
+        host = eng._packed[:n, : -(-n // 32)].contiguous().cpu().numpy()
+        return hashlib.sha256(host.tobytes()).hexdigest()
+
+    aggregates = ("reachable_pairs", "ingress_isolated", "egress_isolated")
+    # a. snapshot, port bitmaps (the default engine): one fused_ports_reach
+    snap = step("snapshot", ["snapshot", path("main"), path("ck-ports"), "--json"], (0, 1))
+    for key in aggregates:
+        if snap[key] != refs["ports"][key]:
+            fail(f"cli snapshot: {key} {snap[key]} != phase 6's {refs['ports'][key]}")
+    eng = load_ports_incremental(path("ck-ports"), device=dev)
+    if digest(eng) != refs["ports"]["digest"]:
+        fail("cli snapshot: the checkpoint's words differ from phase 6's")
+    del eng
+    # b. snapshot --no-ports: packed_dir_allow twice
+    snap = step("snapshot --no-ports",
+                ["snapshot", path("main"), path("ck-any"), "--no-ports", "--json"], (2, 0))
+    for key in aggregates:
+        if snap[key] != refs["any"][key]:
+            fail(f"cli snapshot --no-ports: {key} {snap[key]} != phase 4's {refs['any'][key]}")
+    eng = load_packed_incremental(path("ck-any"), device=dev)
+    if digest(eng) != refs["any"]["digest"]:
+        fail("cli snapshot --no-ports: the checkpoint's words differ from phase 4's")
+    del eng
+    log("cli: both checkpoints' words == phases 6 and 4 (sha256), aggregates equal")
+    # c. diff: one new policy, one pod removed; no hand-written kernel
+    added = dataclasses.replace(cluster.policies[0], name="cli-added",
+                                ingress=cluster.policies[1].ingress)
+    victim = cluster.pods[5]
+    _dump_cluster_json(kvt.Cluster(policies=[added]), path("delta"))
+    diff = step("diff", ["diff", path("ck-any"), "--apply", path("delta"), "--remove",
+                         f"pod/{victim.namespace}/{victim.name}", "--json"], (0, 0))
+    want_before = {k: snap[k] for k in diff["before"]}
+    if diff["before"] != want_before:
+        fail(f"cli diff: before {diff['before']} != the snapshot's {want_before}")
+    if [op for op, _ in diff["ops"]] != ["add-policy", "remove-pod"]:
+        fail(f"cli diff: ops {diff['ops']}")
+    changed = kvt.Cluster(
+        pods=[p for p in cluster.pods if p is not victim],
+        namespaces=list(cluster.namespaces),
+        policies=list(cluster.policies) + [added],
+    )
+    _dump_cluster_json(changed, path("changed"))
+    del changed
+    one_shot = step("verify --backend sharded-packed",
+                    ["verify", path("changed"), "--backend", "sharded-packed", "--no-ports",
+                     "--json"], (0, 0))
+    if diff["after"]["reachable_pairs"] != one_shot["reachable_pairs"]:
+        fail(f"cli diff: after {diff['after']['reachable_pairs']} pairs != the sharded "
+             f"verify's {one_shot['reachable_pairs']}")
+    log(f"cli diff: {diff['before']['reachable_pairs']} -> "
+        f"{diff['after']['reachable_pairs']} pairs == verify --backend sharded-packed of "
+        f"the changed manifests")
+    # d. serve phase 22's first events, then query its snapshot
+    events = random_event_stream(cluster, n_events=256 + 2 * SERVE_TAIL, seed=1)
+    stream, cut = cut_populated_relabels(events[:256], cluster)
+    write_events(stream[:CLI_EVENTS], path("events.jsonl"))
+    served = step("serve", ["serve", path("main"), "--events", path("events.jsonl"),
+                            "--snapshot-out", path("snap"), "--json"], (2, 0))
+    if served["events_seen"] != CLI_EVENTS or served["pods"] != MAIN["n_pods"]:
+        fail(f"cli serve: {served['events_seen']} events seen, {served['pods']} pods")
+    # the snapshot's words read on the host; its slots are the manifests'
+    # pods in order (the stream adds and removes none)
+    with np.load(path("snap", "state.npz")) as z:
+        host, active = z["packed"], z["pod_active"]
+    if not (active.shape == (len(cluster.pods),) and active.all()):
+        fail("cli serve: the snapshot's slots are not the manifests' pods")
+    probes, s_idx, d_idx, ported = query_mix(cluster.pods, 0, CLI_PROBES)
+    bits = ((host[s_idx, d_idx // 32] >> (d_idx % 32).astype(np.uint32)) & 1) > 0
+    del host
+    with open(path("probes.jsonl"), "w") as fh:
+        for pr in probes:
+            obj = {"src": pr[0], "dst": pr[1]}
+            if len(pr) > 2:
+                obj.update(port=pr[2], protocol=pr[3])
+            fh.write(json.dumps(obj) + "\n")
+    answered = step("query", ["query", "--from-snapshot", path("snap"), "--batch",
+                              path("probes.jsonl"), "--json"], (0, 0))
+    ans = np.array([r["allowed"] for r in answered["batch"]["results"]])
+    if ans.shape != bits.shape or not np.array_equal(ans[~ported], bits[~ported]):
+        fail("cli query: the any-port answers differ from the snapshot's words")
+    if (ans[ported] & ~bits[ported]).any():
+        fail("cli query: a port-refined probe is allowed where the words deny it")
+    log(f"cli serve: {served['reachable_pairs']} pairs after {CLI_EVENTS} events ({cut} "
+        f"populated relabels cut from phase 22's stream); query: {int(ans.sum())} of "
+        f"{CLI_PROBES} allowed, the any-port answers == the snapshot's words")
+    # e. warmup packs both built libraries
+    packed = step("warmup", ["warmup", path("main"), "--out", path("pack"), "--json"], (2, 0))
+    if packed["libraries"] != ["fused_ports_reach", "packed_dir_allow"]:
+        fail(f"cli warmup: the pack holds {packed['libraries']}")
+    scratch.cleanup()
+    del cluster, events, stream
+
+    # the console entry in a child process: no JAX, the card by default
+    scratch = tempfile.TemporaryDirectory(prefix="kvt-cli8-")
+    v8 = os.path.join(scratch.name, "v8")
+    root = os.path.dirname(os.path.abspath(__file__))
+    rc, _ = _cli(["generate", v8, "--pods", str(VERIFY["n_pods"]), "--policies",
+                  str(VERIFY["n_policies"]), "--namespaces", str(VERIFY["n_namespaces"]),
+                  "--seed", str(VERIFY["seed"])])
+    if rc != 0:
+        fail(f"cli generate: exit {rc}")
+    # the three children run at once, beside the in-process --device cpu runs
+    entry = [sys.executable, "-m", "kubernetes_verification_tpu_torch.cli"]
+    variants = ((), ("--no-ports",))
+    t0 = time.perf_counter()
+    children = [subprocess.Popen(entry + argv, cwd=root, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+                for argv in [["verify", v8, "--json", *f] for f in variants] + [["backends"]]]
+    try:
+        wants = []
+        for flags in variants:
+            rc, out = _cli(["verify", v8, "--json", "--device", "cpu", *flags])
+            if rc != 0:
+                fail(f"cli verify {flags} --device cpu: exit {rc}")
+            wants.append(json.loads(out))
+        done = [child.communicate(timeout=300) for child in children]
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+    secs = time.perf_counter() - t0
+    for flags, want, child, (out, err) in zip(variants, wants, children, done):
+        if child.returncode != 0:
+            fail(f"cli verify {flags}: the child exited {child.returncode}: {err[-2000:]}")
+        got = json.loads(out.strip().splitlines()[-1])
+        if got["backend"] != "torch":
+            fail(f"cli verify {flags}: the child ran backend {got['backend']}")
+        got.pop("timings"), want.pop("timings")
+        if got != want:
+            fail(f"cli verify {flags}: the child's answer differs from --device cpu")
+    # this process also holds the fault wrappers phase 27 registered
+    registered = [b for b in kvt.available_backends() if not b.startswith("faulty:")]
+    if children[-1].returncode != 0 or done[-1][0].split() != registered:
+        fail(f"cli backends: exit {children[-1].returncode}, {done[-1][0].split()} != "
+             f"{registered}")
+    log(f"cli: verify with and without port bitmaps and backends in child processes "
+        f"without --device: {secs:.2f} s of process wall for the three, backend torch, "
+        f"== --device cpu ({wants[0]['reachable_pairs']} / {wants[1]['reachable_pairs']} "
+        f"pairs); backends == available_backends()")
+    scratch.cleanup()
+    log(f"cli: phase 36 {time.perf_counter() - t_phase:.2f} s (snapshot "
+        f"{times['snapshot']:.2f} / {times['snapshot --no-ports']:.2f} s, diff "
+        f"{times['diff']:.2f} s, serve {times['serve']:.2f} s, query "
+        f"{times['query']:.2f} s, warmup {times['warmup']:.2f} s); {smi}")
+    SERVE_SUMMARY.append(
+        f"phase 36 cli: snapshot {times['snapshot']:.2f} / "
+        f"{times['snapshot --no-ports']:.2f} s, diff {times['diff']:.2f} s, serve "
+        f"{times['serve']:.2f} s, query {times['query']:.2f} s")
+    return tuple(total)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--warm-child"]:
         return warm_child(*sys.argv[2:6])
@@ -4659,12 +4938,15 @@ def main() -> int:
     log(f"main: generate {time.perf_counter() - t1:.2f} s")
     any_enc = encode_main(cluster, compute_ports=False)
     launches, reach = main_path(any_enc, dev)
+    cli_refs = {"any": words_reference(
+        reach.packed, any_enc.n_pods, reach.timings["reachable_pairs"],
+        reach.ingress_isolated, reach.egress_isolated)}
     torch.cuda.empty_cache()
     rows = kernel_full(any_enc, dev, smi)
     torch.cuda.empty_cache()
     enc = encode_main(cluster, compute_ports=True)
     torch.cuda.reset_peak_memory_stats()
-    fused_launches, ports_words = ports_path(enc, dev)
+    fused_launches, ports_words, cli_refs["ports"] = ports_path(enc, dev)
     torch.cuda.empty_cache()
     fused_row = fused_full(enc, dev, smi)
     torch.cuda.empty_cache()
@@ -4738,6 +5020,8 @@ def main() -> int:
     if replica_launches[0] < transport_build or replica_launches[1] != 0:
         fail(f"phases 25-27 launched {replica_launches}: packed_dir_allow fewer than the "
              f"transport leader's {transport_build} build launches, or fused_ports_reach")
+    torch.cuda.empty_cache()
+    cli_launches = cli_phase(cli_refs, dev, smi)
     worst = max([worst] + [r["err"] for r in rows])
     worst_fused = max(worst_fused, fused_row["err"])
 
@@ -4758,6 +5042,7 @@ def main() -> int:
         "sharded_launches": sharded_launches[0],
         "mesh_engine_launches": mesh_engine_launches[0],
         "warm_start_launches": warm_launches,
+        "cli_launches": cli_launches[0],
         "max_abs_err": worst,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
@@ -4774,6 +5059,7 @@ def main() -> int:
         "replica_launches": replica_launches[1],
         "sharded_launches": sharded_launches[1],
         "mesh_engine_launches": mesh_engine_launches[1],
+        "cli_launches": cli_launches[1],
         "max_abs_err": worst_fused,
         **{k: fused_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},

@@ -17,6 +17,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..models.core import Cluster, Container, KanoPolicy
+from ..observe import trace
+from ..observe.metrics import PAIRS_PER_SECOND, VERIFY_TOTAL
 from ..resilience.errors import ConfigError, UnknownBackendError
 
 __all__ = [
@@ -213,6 +215,17 @@ def get_backend(name: str) -> VerifierBackend:
     return _REGISTRY[name]()
 
 
+def _record_run(res: VerifyResult) -> None:
+    """Registry bookkeeping shared by both dispatchers: run counter plus the
+    roofline-style throughput gauge (decided pod pairs per solve second)."""
+    VERIFY_TOTAL.labels(backend=res.backend, mode=res.mode).inc()
+    solve = res.timings.get("solve", 0.0)
+    if solve > 0:
+        PAIRS_PER_SECOND.labels(backend=res.backend).set(
+            res.n_pods * res.n_pods / solve
+        )
+
+
 def verify(cluster: Cluster, config: Optional[VerifyConfig] = None) -> VerifyResult:
     """Verify a k8s-level cluster with the configured backend."""
     config = config or VerifyConfig()
@@ -222,7 +235,11 @@ def verify(cluster: Cluster, config: Optional[VerifyConfig] = None) -> VerifyRes
             "selectors follow the Kubernetes LabelSelector spec (use "
             "verify_kano)"
         )
-    return get_backend(config.backend).verify(cluster, config)
+    backend = get_backend(config.backend)
+    with trace("verify", backend=config.backend, mode="k8s"):
+        res = backend.verify(cluster, config)
+    _record_run(res)
+    return res
 
 
 def verify_kano(
@@ -238,4 +255,7 @@ def verify_kano(
             f"backend {config.backend!r} does not honor label_relation; "
             "use the torch backend for a custom kano matcher"
         )
-    return backend.verify_kano(containers, policies, config)
+    with trace("verify", backend=config.backend, mode="kano"):
+        res = backend.verify_kano(containers, policies, config)
+    _record_run(res)
+    return res

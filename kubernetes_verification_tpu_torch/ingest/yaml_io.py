@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Iterable, List, Optional, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 from ..models.core import (
     Cluster,
@@ -313,11 +313,21 @@ def load_cluster(
     document of a kind the verifier doesn't consume. ``strict=True`` raises
     on them instead.
     """
+    return _cluster_from_docs(_iter_docs(os.fspath(path)), strict)
+
+
+def _load_cluster_files(paths: Sequence[str]) -> Tuple[Cluster, List[str]]:
+    """``load_cluster`` over the given manifest files only (an engine
+    checkpoint's directory can hold two writers' sets)."""
+    return _cluster_from_docs((d for p in paths for d in _iter_docs(p)), False)
+
+
+def _cluster_from_docs(docs, strict: bool) -> Tuple[Cluster, List[str]]:
     pods: List[Pod] = []
     namespaces: List[Namespace] = []
     policies: List[NetworkPolicy] = []
     skipped: List[SkipDiagnostic] = []
-    for src, idx, doc in _iter_docs(os.fspath(path)):
+    for src, idx, doc in docs:
         kind = doc.get("kind")
         if kind == "Pod":
             pods.append(parse_pod(doc))

@@ -21,9 +21,16 @@ import dataclasses
 
 import torch
 
-from ..encode.encoder import SelectorEnc
+from ..encode.encoder import GrantBlock, SelectorEnc
 
-__all__ = ["match_selectors", "subset_match", "as_tensors", "exact_fp32"]
+__all__ = [
+    "match_selectors",
+    "subset_match",
+    "SelectorEnc",
+    "GrantBlock",
+    "as_tensors",
+    "exact_fp32",
+]
 
 _F = torch.float32
 

@@ -46,6 +46,7 @@ __all__ = [
     "mesh_for",
     "distributed_mesh",
     "init_distributed",
+    "leave_distributed",
     "all_gather",
     "gather_rows",
     "psum",
@@ -74,10 +75,13 @@ def _local_rank() -> int:
 
 
 def _mesh_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` is ``cuda:<local rank>``,
-    and a CUDA device raises ``BackendError`` without a GPU
-    (``runtime.resolve_device``)."""
-    return resolve_device(f"cuda:{_local_rank()}" if device is None else device)
+    """``device`` as a ``torch.device``; ``None`` or ``cuda`` without an
+    index is ``cuda:<local rank>``, and a CUDA device raises
+    ``BackendError`` without a GPU (``runtime.resolve_device``)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", _local_rank())
+    return dev
 
 
 def init_distributed(
@@ -126,6 +130,14 @@ def init_distributed(
             backend, store=dist.HashStore(), world_size=1, rank=0, timeout=timeout
         )
     return dist.get_world_size() > 1
+
+
+def leave_distributed() -> None:
+    """Leave this process's group and forget the meshes made on it (a
+    later ``mesh_for`` joins a new group)."""
+    _MESHES.clear()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _world_size() -> int:

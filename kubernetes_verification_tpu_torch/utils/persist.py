@@ -58,6 +58,8 @@ __all__ = [
     "load_packed",
     "save_incremental",
     "load_incremental",
+    "save_stripe_incremental",
+    "load_stripe_incremental",
     "save_packed_incremental",
     "load_packed_incremental",
     "save_ports_incremental",
@@ -306,13 +308,46 @@ def load_packed(path: str):
         )
 
 
+#: an engine checkpoint's manifest files under ``<dir>/cluster``, one per kind
+_MANIFEST_STEMS = ("namespaces", "networkpolicies", "pods")
+
+
+def _write_manifests(cluster, directory: str) -> None:
+    """An engine checkpoint's JSON manifests. A directory the JAX package's
+    writer saved into holds its YAML set; that set goes first, or it would
+    load beside this one."""
+    from ..ingest.yaml_io import _dump_cluster_json
+
+    for stem in _MANIFEST_STEMS:
+        stale = os.path.join(directory, stem + ".yaml")
+        if os.path.exists(stale):
+            os.remove(stale)
+    _dump_cluster_json(cluster, directory)
+
+
+def _read_manifests(directory: str):
+    """An engine checkpoint's cluster. Where the directory holds both
+    packages' manifest sets (the JAX package's writer saves its YAML set
+    beside this package's JSON one), the newer set is the checkpoint's."""
+    from ..ingest import load_cluster
+    from ..ingest.yaml_io import _load_cluster_files
+
+    sets = {
+        ext: [os.path.join(directory, stem + ext) for stem in _MANIFEST_STEMS
+              if os.path.exists(os.path.join(directory, stem + ext))]
+        for ext in (".json", ".yaml")
+    }
+    if not (sets[".json"] and sets[".yaml"]):
+        return load_cluster(directory)[0]
+    newest = max(sets, key=lambda ext: max(os.stat(f).st_mtime_ns for f in sets[ext]))
+    return _load_cluster_files(sets[newest])[0]
+
+
 def save_incremental(inc, directory: str) -> None:
     """Checkpoint an :class:`~..incremental.IncrementalVerifier` — including
     its semantic config, so a resume can't silently flip flags."""
-    from ..ingest.yaml_io import _dump_cluster_json
-
     os.makedirs(directory, exist_ok=True)
-    _dump_cluster_json(inc.as_cluster(), os.path.join(directory, "cluster"))
+    _write_manifests(inc.as_cluster(), os.path.join(directory, "cluster"))
     keys = list(inc.policies)
     vec = {
         f"vec_{i}": np.stack(inc._vectors[k]) for i, k in enumerate(keys)
@@ -336,10 +371,9 @@ def load_incremental(directory: str, config: Optional[VerifyConfig] = None,
     """Resume an :class:`~..incremental.IncrementalVerifier` from a
     checkpoint without re-solving."""
     from ..incremental import IncrementalVerifier
-    from ..ingest import load_cluster
     from ..models.core import Cluster
 
-    cluster, _ = load_cluster(os.path.join(directory, "cluster"))
+    cluster = _read_manifests(os.path.join(directory, "cluster"))
     state_path = os.path.join(directory, "state.npz")
     with _load_npz(state_path) as z:
         saved = _json_member(z, state_path, "__config__")
@@ -387,10 +421,8 @@ def save_stripe_incremental(inc, directory: str) -> None:
     (or a drifted pod count) is refused instead of landing rows off by
     one. File for file the JAX package's (the cluster manifest is JSON,
     which it reads too)."""
-    from ..ingest.yaml_io import _dump_cluster_json
-
     os.makedirs(directory, exist_ok=True)
-    _dump_cluster_json(inc.as_cluster(), os.path.join(directory, "cluster"))
+    _write_manifests(inc.as_cluster(), os.path.join(directory, "cluster"))
     keys = list(inc.policies)
     vec = {
         f"vec_{i}": np.stack(inc._vectors[k]) for i, k in enumerate(keys)
@@ -432,12 +464,11 @@ def load_stripe_incremental(
     count rows are positional, so any drift is refused as
     :class:`PersistError`, never reinterpreted. ``device=None`` means
     ``"cuda"``; a checkpoint of either package loads here."""
-    from ..ingest import load_cluster
     from ..models.core import Cluster
     from ..serve.stripes import StripeEngine
 
     k, count = int(stripe[0]), int(stripe[1])
-    cluster, _ = load_cluster(os.path.join(directory, "cluster"))
+    cluster = _read_manifests(os.path.join(directory, "cluster"))
     state_path = os.path.join(directory, "state.npz")
     with _load_npz(state_path) as z:
         saved = _json_member(z, state_path, "__config__")
@@ -510,15 +541,13 @@ def save_packed_incremental(inc, directory: str) -> None:
     bit-packing. An engine on a mesh is saved by every rank together (its
     ``state_dict`` gathers the shards): rank 0 writes the files, and no
     rank returns before they exist."""
-    from ..ingest.yaml_io import _dump_cluster_json
-
     state = inc.state_dict()
     if _writes(inc):
         os.makedirs(directory, exist_ok=True)
         # include_inactive: the manifest's pod list position IS the slot
         # index, so tombstoned pod slots must keep their place
         # (state["pod_active"] marks them on resume)
-        _dump_cluster_json(
+        _write_manifests(
             inc.as_cluster(include_inactive=True), os.path.join(directory, "cluster")
         )
         _savez(
@@ -560,10 +589,9 @@ def load_packed_incremental(
     calls this; a checkpoint saved on one factorisation resumes on another,
     or on one device, and the reverse); only the host vectorizer re-freezes
     on the manifest's labels."""
-    from ..ingest import load_cluster
     from ..packed_incremental import PackedIncrementalVerifier
 
-    cluster, _ = load_cluster(os.path.join(directory, "cluster"))
+    cluster = _read_manifests(os.path.join(directory, "cluster"))
     state_path = os.path.join(directory, "state.npz")
     with _load_npz(state_path) as z:
         saved = _json_member(z, state_path, "__config__")
@@ -585,15 +613,13 @@ def save_ports_incremental(inc, directory: str) -> None:
     PackedPortsIncrementalVerifier`: cluster manifest + bit-packed VP
     operands + counts + packed matrix + frozen layout/universe metadata. On
     a mesh every rank saves together, as ``save_packed_incremental``."""
-    from ..ingest.yaml_io import _dump_cluster_json
-
     arrays, meta = inc.state_dict()
     if _writes(inc):
         os.makedirs(directory, exist_ok=True)
         # slot-ordered manifest: tombstoned pods stay in place so list
         # position == slot index on resume (paired with the saved pod_active
         # map)
-        _dump_cluster_json(
+        _write_manifests(
             inc.as_cluster(include_inactive=True), os.path.join(directory, "cluster")
         )
         _savez(
@@ -616,10 +642,9 @@ def load_ports_incremental(
     """Resume a port-bitmap incremental verifier without re-solving (onto
     ``mesh`` as ``load_packed_incremental`` does); the frozen universe
     re-derives deterministically from the manifest."""
-    from ..ingest import load_cluster
     from ..packed_incremental_ports import PackedPortsIncrementalVerifier
 
-    cluster, _ = load_cluster(os.path.join(directory, "cluster"))
+    cluster = _read_manifests(os.path.join(directory, "cluster"))
     state_path = os.path.join(directory, "state.npz")
     with _load_npz(state_path) as z:
         saved = _json_member(z, state_path, "__config__")

@@ -918,3 +918,51 @@ def test_native_backend_matches_torch_on_card(cuda_device):
             assert (g is None) == (w is None), f
             if g is not None:
                 np.testing.assert_array_equal(g, w, err_msg=f)
+
+
+def test_cli_runs_on_the_card_by_default(cuda_device, tmp_path, capsys):
+    """``kv-tpu-torch verify`` without ``--device`` runs on the card and
+    prints what ``--device cpu`` prints (up to timings), the sharded
+    backend on a 1-rank NCCL group included; ``snapshot
+    --no-ports`` launches ``packed_dir_allow`` exactly twice, with port
+    bitmaps ``fused_ports_reach`` once, and its checkpoint loads back on
+    the card with the host run's words."""
+    import json
+
+    from kubernetes_verification_tpu_torch.cli import _load_incremental, main
+
+    d = str(tmp_path / "c")
+    assert main(["generate", d, "--pods", "300", "--policies", "30"]) == 0
+    outs = {}
+    for dev in ((), ("--device", "cpu")):
+        for flags in ((), ("--no-ports", "--closure")):
+            capsys.readouterr()
+            assert main(["verify", d, "--json", *flags, *dev]) == 0
+            out = json.loads(capsys.readouterr().out)
+            out.pop("timings")
+            outs[(dev, flags)] = out
+    for flags in ((), ("--no-ports", "--closure")):
+        assert outs[((), flags)] == outs[(("--device", "cpu"), flags)]
+        assert outs[((), flags)]["backend"] == "torch"
+    # a bare "cuda" names this rank's card to the sharded backends' mesh
+    for dev in ((), ("--device", "cpu")):
+        capsys.readouterr()
+        assert main(["verify", d, "--json", "--backend", "sharded-packed", "--no-ports",
+                     *dev]) == 0
+        out = json.loads(capsys.readouterr().out)
+        out.pop("timings")
+        outs[dev] = out
+    assert outs[()] == outs[("--device", "cpu")]
+    assert not torch.distributed.is_initialized()  # the command left its group
+    for flags, launches in ((("--no-ports",), (2, 0)), ((), (0, 1))):
+        before = (packed_dir_allow.launches, fused_ports_reach.launches)
+        ck = str(tmp_path / f"ck{len(flags)}")
+        assert main(["snapshot", d, ck, "--json", *flags]) == 0
+        after = (packed_dir_allow.launches, fused_ports_reach.launches)
+        assert (after[0] - before[0], after[1] - before[1]) == launches
+        cpu_ck = ck + "-cpu"
+        assert main(["snapshot", d, cpu_ck, "--json", "--device", "cpu", *flags]) == 0
+        card, host = _load_incremental(ck), _load_incremental(cpu_ck, device="cpu")
+        assert card._packed.device.type == "cuda"
+        w = -(-300 // 32)
+        assert torch.equal(card._packed[:300, :w].cpu(), host._packed[:300, :w])

@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it never imports JAX nor the JAX package, and
 its entry points refuse to fall back to the CPU when no GPU is present."""
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -412,3 +413,155 @@ def test_observe_tooling_refuses_the_cpu_without_a_gpu(monkeypatch):
     was = torch.cuda.is_initialized()
     telemetry.sample_once()
     assert torch.cuda.is_initialized() == was
+
+
+# ------------------------------------------------------------ namespaces
+
+#: names of a JAX module's ``__all__`` that its port counterpart does not
+#: export, each with its reason
+_JAX_ONLY = {
+    "kubernetes_verification_tpu.parallel.mesh": {
+        "shard_map": "a JAX primitive; the port's sharded bodies are per-rank "
+        "torch code over the named collectives of parallel/mesh.py",
+    },
+}
+#: JAX modules whose counterpart has another name, with the renamed exports
+_REPLACED = {
+    "kubernetes_verification_tpu.ops.pallas_kernels": (
+        "kubernetes_verification_tpu_torch.ops.kernels",
+        {"fused_ports_stripe": "fused_ports_reach"},
+    ),
+    "kubernetes_verification_tpu.backends.tpu": (
+        "kubernetes_verification_tpu_torch.backends.device",
+        {"TpuBackend": "TorchBackend"},
+    ),
+}
+_JAX_PKG = os.path.join(_ROOT, "kubernetes_verification_tpu")
+
+
+def _jax_modules_with_all():
+    """Every JAX module whose top level assigns ``__all__`` (read from its
+    source, not imported)."""
+    out = []
+    for dirpath, dirnames, names in os.walk(_JAX_PKG):
+        dirnames[:] = sorted(d for d in dirnames if not d.startswith(("_", ".")))
+        for n in sorted(names):
+            if not n.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, n)
+            tree = ast.parse(open(path, encoding="utf-8").read())
+            if any(isinstance(node, ast.Assign)
+                   and any(getattr(t, "id", None) == "__all__" for t in node.targets)
+                   for node in tree.body):
+                rel = os.path.relpath(path, _ROOT)[:-3].split(os.sep)
+                if rel[-1] == "__init__":
+                    rel = rel[:-1]
+                out.append(".".join(rel))
+    return sorted(out)
+
+
+def _counterpart(jax_name):
+    if jax_name in _REPLACED:
+        return _REPLACED[jax_name][0]
+    port = "kubernetes_verification_tpu_torch" + jax_name[len("kubernetes_verification_tpu"):]
+    rel = port.split(".")[1:]
+    base = os.path.join(_PKG, *rel)
+    return port if (os.path.isdir(base) or os.path.exists(base + ".py")) else None
+
+
+_WITH_PORT = [m for m in _jax_modules_with_all() if _counterpart(m)]
+
+
+def test_every_jax_namespace_has_a_counterpart_or_is_queued():
+    """A JAX module with an ``__all__`` and no port counterpart is under
+    ``analysis/`` (ROADMAP §1 item 14b), nothing else."""
+    missing = [m for m in _jax_modules_with_all() if not _counterpart(m)]
+    assert missing and all(m.startswith("kubernetes_verification_tpu.analysis")
+                           for m in missing), missing
+    assert len(_WITH_PORT) >= 70
+
+
+@pytest.mark.parametrize("jax_name", _WITH_PORT)
+def test_module_namespace_covers_the_jax_module(jax_name):
+    """The port module's ``__all__`` holds every name of the JAX module's,
+    less the named JAX-only ones (and under the names of a replaced
+    module), and each resolves."""
+    import importlib
+
+    jmod = importlib.import_module(jax_name)
+    pmod = importlib.import_module(_counterpart(jax_name))
+    renames = _REPLACED.get(jax_name, (None, {}))[1]
+    want = {renames.get(n, n) for n in jmod.__all__} - set(_JAX_ONLY.get(jax_name, {}))
+    assert want - set(pmod.__all__) == set()
+    for name in pmod.__all__:
+        assert getattr(pmod, name) is not None, name
+    for name in _JAX_ONLY.get(jax_name, {}):
+        assert name in jmod.__all__ and not hasattr(pmod, name)
+
+
+# ---------------------------------------------------------------- the CLI
+
+
+def test_scan_covers_the_cli():
+    """The no-JAX scan reaches ``cli.py`` and sees its nested imports: the
+    eleven in-function imports of the package resolve to the port."""
+    path = os.path.join(_PKG, "cli.py")
+    assert path in _port_files()
+    roots = list(_imported_roots(path))
+    assert roots.count("kubernetes_verification_tpu_torch") == 11
+    assert not set(roots) & set(_FORBIDDEN)
+    src = open(path, encoding="utf-8").read()
+    assert "import jax" not in src and "jax." not in src.replace("jax.profiler", "")
+
+
+def test_cli_refuses_the_cpu_without_a_gpu(monkeypatch, tmp_path, capsys):
+    """Without a GPU and without ``--device cpu`` every subcommand that
+    builds tensors exits 3 with the device error, before it loads or builds
+    anything; with ``--device cpu`` it runs."""
+    from kubernetes_verification_tpu_torch import cli
+    from kubernetes_verification_tpu_torch.resilience.errors import EXIT_BACKEND_FAILED
+    from kubernetes_verification_tpu_torch.serve import VerificationService
+
+    d = str(tmp_path / "c")
+    ck = str(tmp_path / "ck")
+    assert cli.main(["generate", d, "--pods", "12", "--policies", "3"]) == 0
+    assert cli.main(["snapshot", d, ck, "--no-ports", "--device", "cpu"]) == 0
+    snap = str(tmp_path / "snap")
+    assert cli.main(["serve", d, "--snapshot-out", snap, "--device", "cpu"]) == 0
+    refs = kvt.load_cluster(d)[0].pods
+    a = f"{refs[0].namespace}/{refs[0].name}"
+    argvs = [
+        ["verify", d, "--json"],
+        ["verify", d, "--backend", "cpu"],
+        ["snapshot", d, str(tmp_path / "new-ck")],
+        ["diff", ck, "--json"],
+        ["explain", "--pods", "12"],
+        ["serve", d],
+        ["serve", "--from-snapshot", snap],
+        ["serve", d, "--resume", "--checkpoint-dir", str(tmp_path / "sv")],
+        ["serve", d, "--stripe", "1/2"],
+        ["serve", "--follow", ck],
+        ["warmup", d, "--out", str(tmp_path / "pack")],
+        ["query", d, "--who-can-reach", a],
+        ["query", "--from-snapshot", snap, "--who-can-reach", a],
+        ["lb", "--replica", ck, "--batch", str(tmp_path / "b.jsonl")],
+    ]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def built(*a, **k):
+        raise AssertionError("built on the CPU")
+
+    monkeypatch.setattr(kvt, "load_cluster", built)
+    monkeypatch.setattr(kvt, "PackedIncrementalVerifier", built)
+    monkeypatch.setattr(VerificationService, "from_snapshot", built)
+    before = sorted(os.listdir(tmp_path))
+    for argv in argvs:
+        capsys.readouterr()
+        assert cli.main(argv) == EXIT_BACKEND_FAILED, argv
+        err = capsys.readouterr().err
+        assert "BackendError: no CUDA device" in err, (argv, err)
+    assert sorted(os.listdir(tmp_path)) == before
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(["verify", d, "--json", "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out)["backend"] == "torch"

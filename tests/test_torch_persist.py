@@ -267,3 +267,34 @@ def test_json_manifests_round_trip_across_the_packages(tmp_path, monkeypatch):
     jback, jskipped = jax_ingest.load_cluster(str(tmp_path / "m"))
     assert skipped == jskipped == []
     assert to_jax(back) == jback == to_jax(c)
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_a_checkpoint_saved_over_the_other_packages_loads_in_both(tmp_path, first):
+    """Each package saves into the directory the other saved: the port's
+    save replaces the JAX package's YAML manifests with its JSON ones (both
+    packages resume it), and where the JAX package's save leaves the port's
+    JSON set beside its YAML one, the port reads the newer set (the JAX
+    package reads both sets there, a fault of the reference: ROADMAP §3).
+    The resumed state is the last save's (the engines after one more op)."""
+    c = _cluster(seed=74)
+    port, jax_ = _packed_pair(c)
+    pol = c.policies[0]
+    d = str(tmp_path / "ck")
+    saves = {"jax": lambda: jax_persist.save_packed_incremental(jax_, d),
+             "port": lambda: persist.save_packed_incremental(port, d)}
+    second = "port" if first == "jax" else "jax"
+    saves[first]()
+    for eng in (port, jax_):
+        eng.remove_policy(pol.namespace, pol.name)
+    saves[second]()
+    want = jax_.state_dict()
+    assert_same_state(want, persist.load_packed_incremental(d, device="cpu").state_dict(),
+                      "port resumed")
+    names = sorted(os.listdir(os.path.join(d, "cluster")))
+    if second == "port":
+        assert names == ["namespaces.json", "networkpolicies.json", "pods.json"]
+        assert_same_state(want, jax_persist.load_packed_incremental(d).state_dict(),
+                          "JAX resumed")
+    else:
+        assert len(names) == 6  # the JAX package's writer left the port's set
