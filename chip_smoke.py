@@ -165,7 +165,9 @@ Phases; any failure exits non-zero before a result line is printed:
     event kind): after each batch of 50, ``reach``, the packed words,
     ``can_reach_batch`` (512 probes), the posture records, the violations
     and ``ServeStats`` equal; then three ``BackendError``s forced into the
-    card's dense engine: each reaches the caller (a service on the card
+    card's dense engine where a posture service's ``reach`` does its device
+    work (its engine adopts the words each publish packs and unpacks them
+    on demand): each reaches the caller (a service on the card
     never answers from the host), the breaker opens and fails fast with
     kind ``"breaker_open"`` without running the engine, and past the
     cooldown one probe on the card closes it with ``reach`` == the CPU
@@ -268,6 +270,15 @@ Phases; any failure exits non-zero before a result line is printed:
     the in-process ``--device cpu`` answer with ``"backend": "torch"`` and
     ``backends`` prints ``available_backends()``. Each step prints its
     seconds and peak device memory.
+37. the static analysis on the card's host: ``python -m
+    kubernetes_verification_tpu_torch.analysis --format json --no-cache``
+    (every rule over the port's package, against its own
+    ``LINT_BASELINE.json``) and ``--check-docs
+    kubernetes_verification_tpu_torch/LINTS.md`` in child processes; both
+    must exit 0. Prints the finding, grandfathered and suppressed counts and
+    each child's wall time (a host time on that machine; the lint runs no
+    device code and launches neither kernel: the counts are set to 0 before
+    it and must read 0 after).
 
 Phases 9–13 launch neither hand-written kernel (their int8 products are
 ``torch._int_mm`` calls, as the JAX package leaves them to XLA): the counts
@@ -301,8 +312,8 @@ carries its engine build's launches, phase 14's and phase 16's, as
 0 at their start, as ``replica_launches``, and each kernel's launches in
 phases 28–29, the ranks' included, as ``sharded_launches``, in
 phases 30–32 as ``mesh_engine_launches``, in phase 35's child as
-``warm_start_launches`` and in phase 36's in-process steps as
-``cli_launches``); the last is
+``warm_start_launches``, in phase 36's in-process steps as
+``cli_launches`` and in phase 37 as ``lint_launches``); the last is
 ``{"ok": true, "device": {...}}``. Tolerance everywhere: exact (every output
 is boolean or integer words).
 """
@@ -3133,7 +3144,9 @@ def serve_card_vs_cpu_phase(dev) -> None:
     # three forced BackendErrors in the card's dense engine: each reaches the
     # caller, the breaker opens, an open breaker fails fast without touching
     # the engine, and past the cooldown one probe on the card closes it; no
-    # answer is ever taken from the host
+    # answer is ever taken from the host. Posture stays attached, so each
+    # apply's publish hands the engine its packed words and ``reach`` unpacks
+    # them on the card instead of deriving: the faults sit on that unpack
     (g, _), (c, _) = svcs[("dense", "card")], svcs[("dense", "cpu")]
     engine_calls = [0]
 
@@ -3145,7 +3158,9 @@ def serve_card_vs_cpu_phase(dev) -> None:
         batch = extra[20 * k : 20 * (k + 1)]
         g.apply(batch)
         c.apply(batch)
-        g.engine._iso_tensors = lost  # after the apply: a resync replaces the engine
+        if not (g.engine.reach_clean and g.engine._reach is None):
+            fail(f"serve card vs cpu: batch {k}'s publish left no posture words to unpack")
+        g.engine._unpack_reach_words = lost  # after the apply: a resync replaces the engine
         try:
             g.reach()
         except BackendError as e:
@@ -3164,7 +3179,7 @@ def serve_card_vs_cpu_phase(dev) -> None:
         fail("serve card vs cpu: the open breaker answered")
     if engine_calls[0] != 3:
         fail(f"serve card vs cpu: the engine ran {engine_calls[0]} times, not 3")
-    del g.engine._iso_tensors
+    del g.engine._unpack_reach_words
     prev_clock = get_clock()
 
     class AfterCooldown(Clock):
@@ -4916,6 +4931,53 @@ def cli_phase(refs: dict, dev, smi: str) -> tuple:
     return tuple(total)
 
 
+def lint_phase(smi: str) -> tuple:
+    """Phase 37: ``kv-tpu-torch lint``'s headless driver over the port's
+    package, and its catalog check, each in a child process on the card's
+    host. Both must exit 0; the lint's JSON must report no finding. Host
+    wall times only: linting reads source and runs no device code."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    mod = "kubernetes_verification_tpu_torch.analysis"
+    reset_counts()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", mod, "--format", "json", "--no-cache"],
+        capture_output=True, text=True, cwd=root, timeout=600,
+    )
+    lint_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"lint: exit {proc.returncode}\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    try:
+        result = json.loads(proc.stdout)
+    except ValueError:
+        fail(f"lint: no JSON result: {proc.stdout[-2000:]!r}")
+    if not result.get("ok") or result.get("findings"):
+        fail(f"lint: findings {result.get('findings')}")
+    t0 = time.perf_counter()
+    docs = subprocess.run(
+        [sys.executable, "-m", mod, "--check-docs",
+         os.path.join("kubernetes_verification_tpu_torch", "LINTS.md")],
+        capture_output=True, text=True, cwd=root, timeout=120,
+    )
+    docs_s = time.perf_counter() - t0
+    if docs.returncode != 0:
+        fail(f"lint --check-docs: exit {docs.returncode}: {docs.stdout} {docs.stderr}")
+    launches = launch_counts()
+    if launches != (0, 0):
+        fail(f"lint: a hand-written kernel ran: {launches}")
+    log(f"lint: {len(result['findings'])} findings, {result['grandfathered']} "
+        f"grandfathered, {result['suppressed']} suppressed inline over "
+        f"{sum(sum(v.values()) for v in result['counts'].values())} counted sites; "
+        f"the lint child {lint_s:.2f} s and the catalog check {docs_s:.2f} s of "
+        f"host wall time on this machine (no device code); launches "
+        f"packed_dir_allow 0, fused_ports_reach 0; {smi}")
+    SERVE_SUMMARY.append(f"phase 37 lint: {lint_s:.2f} s host wall, "
+                         f"{result['grandfathered']} grandfathered")
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--warm-child"]:
         return warm_child(*sys.argv[2:6])
@@ -5022,6 +5084,7 @@ def main() -> int:
              f"transport leader's {transport_build} build launches, or fused_ports_reach")
     torch.cuda.empty_cache()
     cli_launches = cli_phase(cli_refs, dev, smi)
+    lint_launches = lint_phase(smi)
     worst = max([worst] + [r["err"] for r in rows])
     worst_fused = max(worst_fused, fused_row["err"])
 
@@ -5043,6 +5106,7 @@ def main() -> int:
         "mesh_engine_launches": mesh_engine_launches[0],
         "warm_start_launches": warm_launches,
         "cli_launches": cli_launches[0],
+        "lint_launches": lint_launches[0],
         "max_abs_err": worst,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
@@ -5060,6 +5124,7 @@ def main() -> int:
         "sharded_launches": sharded_launches[1],
         "mesh_engine_launches": mesh_engine_launches[1],
         "cli_launches": cli_launches[1],
+        "lint_launches": lint_launches[1],
         "max_abs_err": worst_fused,
         **{k: fused_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},

@@ -13,7 +13,8 @@ defaults to ``torch``; ``--profile`` and ``profile`` capture
 ``torch.profiler`` traces; ``explain --pods`` prints the analytic cost
 reports the backend's path publishes; ``warmup`` packs the built kernel
 libraries; above ``_DENSE_SERVE_LIMIT`` pods a service built from manifests
-serves from the packed engine; ``lint`` is not ported yet.
+serves from the packed engine; ``lint`` lints this package against its own
+baseline (``LINT_BASELINE.json`` inside the package).
 
 * ``kv-tpu-torch verify PATH``   — load manifests, verify, print queries/summary;
 * ``kv-tpu-torch snapshot PATH DIR`` — build a packed incremental verifier from
@@ -2738,19 +2739,17 @@ def cmd_metrics(args) -> int:
 
 
 def cmd_lint(args) -> int:
-    """``kv-tpu-torch lint``: the static analysis is not ported yet
-    (ROADMAP §1 item 14b), so the verb exits through the error contract
-    (exit 2) instead of linting anything."""
-    from .resilience.errors import ConfigError
+    """``kv-tpu-torch lint``: the analysis framework's driver behind the
+    shared KvTpuError → exit-code contract (a bad --rules id is exit 2,
+    like any other input error). Linting reads source on the host: no
+    ``--device``."""
+    from .analysis import run_from_args
+    from .resilience.errors import KvTpuError
 
-    return _diagnose(
-        args,
-        ConfigError(
-            "lint is not ported to the PyTorch package yet: the analysis "
-            "framework is ROADMAP §1 item 14b (use the JAX package's "
-            "kv-tpu lint meanwhile)"
-        ),
-    )
+    try:
+        return run_from_args(args)
+    except KvTpuError as e:
+        return _diagnose(args, e)
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -3416,16 +3415,16 @@ def main(argv: Optional[list] = None) -> int:
 
     p = sub.add_parser(
         "lint",
-        help="the flow-aware static analysis (not ported yet: exits 2; "
-        "ROADMAP item 14b)",
+        help="run the flow-aware static analysis over the package "
+        "(rule catalog: kubernetes_verification_tpu_torch/LINTS.md; "
+        "budgets: kubernetes_verification_tpu_torch/LINT_BASELINE.json)",
     )
+    from .analysis import add_lint_arguments
+
+    add_lint_arguments(p)
     p.set_defaults(fn=cmd_lint)
 
-    args, extra = ap.parse_known_args(argv)
-    # lint is not ported yet (ROADMAP §1 item 14b): it takes any arguments
-    # and exits 2 naming the item
-    if extra and args.cmd != "lint":
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = ap.parse_args(argv)
     with _own_process_group():
         return args.fn(args)
 

@@ -41,6 +41,7 @@ from .encode.encoder import cluster_vocab, encode_cluster
 from .models.core import Cluster, NetworkPolicy, Pod
 from .observe import DispatchTracker
 from .observe.metrics import INCREMENTAL_OPS
+from .ops.bits import unpack_words_i8
 from .ops.closure import bool_dot
 from .ops.padding import pad_grants
 from .ops.tiled import HostArgs, _policy_maps, _put
@@ -159,6 +160,9 @@ class IncrementalVerifier:
         self._vectors: Dict[str, Tuple[np.ndarray, ...]] = {}
         self._reach_dirty = True
         self._reach = None
+        #: the current generation's reach as packed int32 words, when the
+        #: posture plane packed them (``adopt_reach_words``)
+        self._reach_words: Optional[torch.Tensor] = None
         self.update_count = 0
         self._batch_init(cluster)
 
@@ -456,10 +460,44 @@ class IncrementalVerifier:
             torch.as_tensor(self._eg_iso.astype(np.int32), device=self.device),
         )
 
+    def adopt_reach_words(self, words: torch.Tensor) -> None:
+        """Take the current generation's reach as packed int32 words
+        ``[N, ceil32(N)]`` (the reference's little bit order), packed from
+        the counts by the posture plane (``ops/device_state.py``): ``reach``
+        is then clean and unpacks them on demand instead of deriving — the
+        counterpart of the JAX package deriving ``reach`` while it packs
+        the posture words. The next mutation makes it dirty again."""
+        self._reach_words = words
+        self._reach = None
+        self._reach_dirty = False
+
+    def _unpack_reach_words(self) -> np.ndarray:
+        """The adopted words unpacked where they live, then one bool copy to
+        the host (the derivation's own transfer)."""
+        n, w = self._reach_words.shape
+        bits = unpack_words_i8(self._reach_words, 32 * int(w))[:, :n]
+        return bits.to(torch.bool).cpu().numpy()
+
+    @property
+    def reach_clean(self) -> bool:
+        """``reach`` needs no derivation: the host matrix, or the posture
+        words of the current generation, is at hand."""
+        return not self._reach_dirty and (
+            self._reach is not None or self._reach_words is not None
+        )
+
     @property
     def reach(self) -> np.ndarray:
         """Current reachability matrix, bool [N, N] on the host (derived
-        from the counts on the device on demand, then copied)."""
+        from the counts on the device on demand, then copied; or unpacked
+        from adopted posture words)."""
+        if not self._reach_dirty and self._reach is None and self._reach_words is not None:
+            # device work like the derivation's, so under the same retry and
+            # classification: a fault reaches the caller as a BackendError
+            self._reach = retry_transient(
+                self._unpack_reach_words, policy=self.retry_policy, backend="dense"
+            )
+            self._reach_words = None
         if self._reach_dirty:
             t0 = time.perf_counter()
             _TRACKER.track(
@@ -484,6 +522,7 @@ class IncrementalVerifier:
             )
             self._derive_time = time.perf_counter() - t0
             self._reach_dirty = False
+            self._reach_words = None
         return self._reach
 
     def as_cluster(self) -> Cluster:

@@ -550,7 +550,7 @@ def dump_cluster(cluster: Cluster, directory: Union[str, os.PathLike]) -> List[s
     written = []
     for stem, docs in _cluster_docs(cluster):
         p = os.path.join(directory, f"{stem}.yaml")
-        with open(p, "w") as fh:  # a fresh directory, not durable state
+        with open(p, "w") as fh:  # kvtpu: ignore[atomic-write] manifest export into a fresh directory, not durable state
             yaml.safe_dump_all(docs, fh, sort_keys=False)
         written.append(p)
     return written
@@ -565,7 +565,7 @@ def _dump_cluster_json(cluster: Cluster, directory: Union[str, os.PathLike]) -> 
     written = []
     for stem, docs in _cluster_docs(cluster):
         p = os.path.join(directory, f"{stem}.json")
-        with open(p, "w") as fh:  # a fresh directory, not durable state
+        with open(p, "w") as fh:  # kvtpu: ignore[atomic-write] manifest export into a fresh directory, not durable state
             # one dumps: json.dump streams through the pure-Python encoder
             fh.write(json.dumps({"apiVersion": "v1", "kind": "List", "items": docs}))
         written.append(p)

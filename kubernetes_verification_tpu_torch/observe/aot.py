@@ -562,7 +562,7 @@ def load_pack(directory: str) -> dict:
         try:
             digest, nbytes = _sha256_file(path)
             if digest != ent.get("payload_sha256"):
-                raise ValueError("payload digest mismatch")
+                raise PersistenceDamage("payload digest mismatch")
             _install(fn, path)
         except Exception as e:
             summary["corrupt"] += 1
@@ -587,6 +587,10 @@ def load_pack(directory: str) -> dict:
         AOT_PACK_BYTES.set(summary["bytes"])
     log_event("aot_pack_load", **summary)
     return summary
+
+
+class PersistenceDamage(Exception):
+    """Internal marker for a pack entry that failed its digest check."""
 
 
 def pack_status(directory: str) -> dict:

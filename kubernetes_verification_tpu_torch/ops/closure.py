@@ -382,6 +382,7 @@ def _delta_seed(prev, base, suspect: torch.Tensor) -> torch.Tensor:
 
 
 def _any_removed(prev_base, new_base) -> bool:
+    # kvtpu: ignore[jit-host-sync] the eager driver branches on this flag next; read here or in the caller, it is the same one sync
     return bool((prev_base & ~new_base).any())
 
 

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from ..observe.metrics import DEVICE_STATE_FLIPS_TOTAL, QUERY_H2D_BYTES_TOTAL
 from ..resilience.errors import ServeError
+from ..resilience.retry import retry_transient
 from .batched import _reach_rows_kernel
 from .bits import pack_bool_cols
 
@@ -170,7 +171,9 @@ def dense_query_state(
 
     With ``with_reach_words`` the state also owns the generation's reach as
     packed words (``_dense_reach_words``), so the retired slot of the double
-    buffer holds the previous generation's exact posture."""
+    buffer holds the previous generation's exact posture; the engine adopts
+    the same words as its clean reach (``adopt_reach_words``), as the JAX
+    package's engine holds the reach it derived for them."""
     h2d = 0
     ing_iso, nb = _upload_i32(engine._ing_iso, engine.device)
     h2d += nb
@@ -184,8 +187,15 @@ def dense_query_state(
     }
     owned = ["ing_iso", "eg_iso"]
     if with_reach_words:
-        arrays["reach_words"] = _dense_reach_words(engine, ing_iso, eg_iso)
+        # the JAX package's words come from the engine's retried
+        # derivation: a fault here is classified and retried the same way
+        arrays["reach_words"] = retry_transient(
+            lambda: _dense_reach_words(engine, ing_iso, eg_iso),
+            policy=engine.retry_policy,
+            backend="dense",
+        )
         owned.append("reach_words")
+        engine.adopt_reach_words(arrays["reach_words"])
     if h2d:
         QUERY_H2D_BYTES_TOTAL.labels(kind="dense").inc(h2d)
     return DeviceQueryState(

@@ -213,6 +213,7 @@ def _sharded_square_local(
     new = stripe | sq
     changed = (new != stripe).any().to(_I32).reshape(1)
     psum(mesh, changed, BOTH)
+    # kvtpu: ignore[jit-host-sync] the eager loop decides convergence on this flag next; read here or in the caller, it is the same one sync
     return new, int(changed.item())
 
 

@@ -384,4 +384,5 @@ def exit_code_for(exc: BaseException) -> int:
         return EXIT_BACKEND_FAILED
     if isinstance(exc, KvTpuError):
         return EXIT_INPUT_ERROR
+    # kvtpu: ignore[error-taxonomy] API-misuse guard on the taxonomy's own entry point — a foreign exception here is a caller bug, not an input error
     raise TypeError(f"not a KvTpuError: {type(exc).__name__}")

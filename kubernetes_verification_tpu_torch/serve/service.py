@@ -585,6 +585,10 @@ class VerificationService:
                 return self._solve_packed(trigger)
             if not eng._reach_dirty and eng._reach is not None:
                 return np.asarray(eng.reach)
+            # a clean reach still in the adopted posture words: unpacking
+            # them is device work, so it runs behind the breaker, but it
+            # counts no solve (the JAX service derived it while publishing)
+            adopted = eng.reach_clean
             staleness = (
                 _now() - self._dirty_since
                 if self._dirty_since is not None
@@ -608,8 +612,6 @@ class VerificationService:
             else:
                 try:
                     reach = np.asarray(eng.reach)
-                    if br is not None:
-                        br.record_success()
                 except BackendError:
                     if br is not None:
                         br.record_failure()
@@ -617,6 +619,11 @@ class VerificationService:
                         raise
                     reach = self._solve_fallback()
                     trigger = "fallback"
+                else:
+                    if br is not None:
+                        br.record_success()
+                    if adopted:
+                        return reach
             SERVE_SOLVES_TOTAL.labels(trigger=trigger).inc()
             self.stats.solves[trigger] = (
                 self.stats.solves.get(trigger, 0) + 1

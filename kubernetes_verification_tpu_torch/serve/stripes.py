@@ -95,19 +95,21 @@ __all__ = [
 _EJECTABLE = (ReplicationError, ConnectionError, OSError)
 
 
-def _stripe_col_patch(count: torch.Tensor, idx: int, d_col_stripe) -> None:
+def _stripe_col_patch(count: torch.Tensor, idx: int, d_col_stripe: np.ndarray) -> None:
     """count[:, idx] += d_col_stripe, in place — the column slice of a
     relabel delta that lands on EVERY stripe (bounded to the owned range by
     the caller slicing ``d_col[lo:hi]`` before the call)."""
+    # kvtpu: ignore[stripe-locality] column index is the global dst axis (full width on every stripe); the row operand arrives pre-sliced to [lo, hi) by _patch_row_col
     count[:, idx] += torch.as_tensor(
         np.asarray(d_col_stripe, dtype=np.int32), device=count.device
     )
 
 
-def _stripe_row_patch(count: torch.Tensor, loc: int, d_row) -> None:
+def _stripe_row_patch(count: torch.Tensor, loc: int, d_row: np.ndarray) -> None:
     """count[loc, :] += d_row, in place — the row half of a relabel delta,
     applied only on the one stripe whose ``[lo, hi)`` holds the global row
     (``loc`` is already the local row)."""
+    # kvtpu: ignore[stripe-locality] `loc` is already the local row (idx - lo): _patch_row_col owns()-gates and rebases before dispatch
     count[loc] += torch.as_tensor(np.asarray(d_row, dtype=np.int32), device=count.device)
 
 #: cells of one int32 slab of the build's contraction (a [rows, N] product)

@@ -707,6 +707,6 @@ def export_encoding(enc, path_prefix: str) -> str:
             f"named-port restriction bank: {enc.restrict_bank.shape[0]} rows"
         )
     txt = path_prefix + ".txt"
-    with open(txt, "w") as fh:  # a summary, regenerated on demand
+    with open(txt, "w") as fh:  # kvtpu: ignore[atomic-write] human-readable export summary, regenerated on demand
         fh.write("\n".join(lines) + "\n")
     return txt

@@ -214,6 +214,25 @@ def test_corrupt_pack_entry_is_a_counted_miss_then_a_build(fresh_aot, tmp_path):
     assert _word() == cold_word and len(runs) == 2  # built from the sources
 
 
+def test_a_digest_mismatch_is_the_jax_packages_internal_marker(fresh_aot, tmp_path):
+    """A pack entry whose bytes fail their digest is reported as the JAX
+    package reports it (its ``PersistenceDamage`` marker, not a builtin
+    ``ValueError``: ROADMAP §3 F6), and stays a counted miss."""
+    build, _runs = fresh_aot
+    _word()
+    pack = str(tmp_path / "pack")
+    aot.save_pack(pack)
+    path = _packed_library(pack)
+    blob = open(path, "rb").read()
+    with open(path, "wb") as fh:
+        fh.write(blob[:-8] + b"XXXXXXXX")
+    _fresh_process(build)
+    with pytest.warns(RuntimeWarning,
+                      match=r"unusable \(PersistenceDamage: payload digest mismatch\)"):
+        loaded = aot.load_pack(pack)
+    assert loaded["corrupt"] == 1 and issubclass(aot.PersistenceDamage, Exception)
+
+
 def test_truncated_entry_and_manifest_never_raise(fresh_aot, tmp_path):
     build, runs = fresh_aot
     cold_word = _word()

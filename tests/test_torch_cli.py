@@ -1,6 +1,6 @@
 """The port's command line (``kv-tpu-torch``) against the JAX package's
 ``kv-tpu``: the one-shot and engine commands (generate, verify, explain,
-history, backends, snapshot, diff, lint) and the exit-code contract.
+history, backends, snapshot, diff) and the exit-code contract.
 
 Every case runs the same argv through both packages' ``main`` (the port's
 with ``--device cpu``) and compares the exit codes and the outputs as parsed
@@ -444,12 +444,9 @@ def test_the_parsers_have_the_same_subcommands():
 @pytest.mark.parametrize("cmd", sorted(_JAX_SUBS))
 def test_the_parsers_take_the_same_options(cmd):
     """Equal option sets, up to the recorded differences: ``--device`` on
-    the commands that build tensors, ``verify --backend`` defaulting to
-    ``torch``, and ``lint`` a stub until ROADMAP item 14b."""
+    the commands that build tensors and ``verify --backend`` defaulting to
+    ``torch``."""
     want, got = _options(_JAX_SUBS[cmd]), _options(_PORT_SUBS[cmd])
-    if cmd == "lint":
-        assert got == {} and want
-        return
     if cmd in _DEVICE_CMDS:
         assert got.pop(("--device",))[:3] == ("device", None, "'cuda'")
     if cmd == "verify":
@@ -524,13 +521,6 @@ def test_diff_of_a_corrupt_checkpoint_exits_2(pair):
     runs = pair.run(["diff", "{root}/ckpt"])
     assert runs["jax"].rc == runs["port"].rc == EXIT_INPUT_ERROR
     assert "PersistError" in runs["port"].err
-
-
-def test_lint_names_the_roadmap_item(capsys):
-    r = run(port_main, ["lint"], capsys)
-    assert r.rc == EXIT_INPUT_ERROR and "14b" in r.err and "ConfigError" in r.err
-    r = run(port_main, ["lint", "--rules", "x", "kubernetes_verification_tpu_torch"], capsys)
-    assert r.rc == EXIT_INPUT_ERROR and "14b" in r.err
 
 
 # ------------------------------------------------------- explain, history

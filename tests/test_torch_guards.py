@@ -473,12 +473,11 @@ _WITH_PORT = [m for m in _jax_modules_with_all() if _counterpart(m)]
 
 
 def test_every_jax_namespace_has_a_counterpart_or_is_queued():
-    """A JAX module with an ``__all__`` and no port counterpart is under
-    ``analysis/`` (ROADMAP §1 item 14b), nothing else."""
+    """Every JAX module with an ``__all__`` has a port counterpart (the
+    last ones, under ``analysis/``, are ported too): nothing is queued."""
     missing = [m for m in _jax_modules_with_all() if not _counterpart(m)]
-    assert missing and all(m.startswith("kubernetes_verification_tpu.analysis")
-                           for m in missing), missing
-    assert len(_WITH_PORT) >= 70
+    assert missing == []
+    assert len(_WITH_PORT) >= 78
 
 
 @pytest.mark.parametrize("jax_name", _WITH_PORT)

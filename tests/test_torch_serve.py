@@ -297,6 +297,105 @@ def test_card_service_raises_instead_of_falling_back(setup, monkeypatch):
     assert port_metrics.FALLBACKS_TOTAL.labels(**fb).value == f0
 
 
+def test_posture_service_reach_counts_no_solve_like_the_jax_service(setup):
+    """With posture on, each publish packs the generation's reach words; the
+    port's dense engine adopts them where the JAX engine derives ``reach``,
+    so ``reach`` counts no solve in either package and the answers agree."""
+    pcluster, jcluster, pevents, jevents = setup
+    psvc, jsvc = dense_services(pcluster, jcluster)
+    psvc.enable_posture()
+    jsvc.enable_posture()
+    for i in range(0, 120, 30):
+        psvc.apply(pevents[i:i + 30])
+        jsvc.apply(jevents[i:i + 30])
+        assert psvc.engine.reach_clean and psvc.engine._reach is None, i
+        np.testing.assert_array_equal(psvc.reach(), jsvc.reach())
+        assert psvc.stats.solves == jsvc.stats.solves == {}, i
+    psvc.close()
+    jsvc.close()
+
+
+def test_card_posture_service_raises_from_the_words_unpack(setup, monkeypatch):
+    """A posture service's ``reach`` unpacks the adopted words on its
+    engine's device: a fault there reaches the caller as a ``BackendError``
+    through the breaker, which opens after three and then fails fast
+    without touching the engine; past the cooldown a probe closes it, and
+    no solve is counted. The service is told its CPU engine is on the card,
+    as in ``test_card_service_raises_instead_of_falling_back``."""
+    pcluster, _, pevents, _ = setup
+    psvc = port_service.VerificationService(
+        pcluster, kvt.VerifyConfig(compute_ports=False),
+        serve_config=port_service.ServeConfig(breaker_threshold=3, breaker_cooldown=30.0),
+        device="cpu")
+    psvc._host_fallback = False
+    psvc.enable_posture()
+    clock = install_clock(monkeypatch)
+    calls = [0]
+
+    def lost():
+        calls[0] += 1
+        raise DeviceLost("forced device loss", backend="dense")
+
+    for k in range(3):
+        psvc.apply(pevents[30 * k:30 * (k + 1)])
+        assert psvc.engine.reach_clean and psvc.engine._reach is None
+        psvc.engine._unpack_reach_words = lost  # after the apply: a resync replaces the engine
+        with pytest.raises(DeviceLost):
+            psvc.reach()
+        assert calls[0] == k + 1
+    assert psvc._breaker.state == "open"
+    with pytest.raises(BackendError) as e:
+        psvc.reach()
+    assert e.value.kind == "breaker_open" and calls[0] == 3
+    del psvc.engine._unpack_reach_words
+    clock.advance(31.0)
+    np.testing.assert_array_equal(
+        psvc.reach(),
+        kvt.verify(psvc.engine.as_cluster(),
+                   kvt.VerifyConfig(backend="cpu", compute_ports=False)).reach)
+    assert psvc._breaker.transitions == ["open", "half_open", "closed"]
+    assert psvc.stats.solves == {} and psvc._fallback_reach is None
+    psvc.close()
+
+
+def test_posture_words_faults_are_classified_and_transients_retried(setup, monkeypatch):
+    """The words' device work runs under the engine's retry policy, as the
+    JAX engine's derivation does: a transient fault in the unpack is retried
+    and answers, and a fault packing the words at publish reaches the caller
+    of ``apply`` classified."""
+    import kubernetes_verification_tpu_torch.ops.device_state as port_device_state
+
+    pcluster, _, pevents, _ = setup
+    psvc = port_service.VerificationService(
+        pcluster, kvt.VerifyConfig(compute_ports=False), device="cpu")
+    psvc.enable_posture()
+    psvc.apply(pevents[:30])
+    real, calls = psvc.engine._unpack_reach_words, [0]
+
+    def flaky():
+        calls[0] += 1
+        if calls[0] == 1:
+            raise RuntimeError("CUDA error: unspecified launch failure")
+        return real()
+
+    psvc.engine._unpack_reach_words = flaky
+    r0 = port_metrics.RETRIES_TOTAL.labels(backend="dense", kind="error").value
+    np.testing.assert_array_equal(
+        psvc.reach(),
+        kvt.verify(psvc.engine.as_cluster(),
+                   kvt.VerifyConfig(backend="cpu", compute_ports=False)).reach)
+    assert calls[0] == 2 and psvc.stats.solves == {}
+    assert port_metrics.RETRIES_TOTAL.labels(backend="dense", kind="error").value == r0 + 1
+
+    def gone(*_a, **_k):
+        raise RuntimeError("device is lost")
+
+    monkeypatch.setattr(port_device_state, "_dense_reach_words", gone)
+    with pytest.raises(DeviceLost):
+        psvc.apply(pevents[30:60])
+    psvc.close()
+
+
 def test_snapshot_restarts_warm_in_either_package(setup, tmp_path):
     """``snapshot`` of one package restarts with ``from_snapshot`` in the
     other, dense and packed, and both go on equal."""
