@@ -279,6 +279,25 @@ Phases; any failure exits non-zero before a result line is printed:
     each child's wall time (a host time on that machine; the lint runs no
     device code and launches neither kernel: the counts are set to 0 before
     it and must read 0 after).
+38. the port's benchmark entry point: ``python -m
+    kubernetes_verification_tpu_torch.bench`` in child processes on the
+    card, without ``--device`` (``BENCH_STAGES``: its first stage starts
+    before phase 36 and runs beside phases 36–37, three lanes at once;
+    then ``posture`` alone), with ``KVTPU_BENCH_HISTORY`` in a temporary
+    directory: ``sentinel``; ``tiled`` at the flagship,
+    any-port and with port bitmaps (their reachable pairs == phases 4 and
+    6's, their solves on ``packed_dir_allow`` / ``fused_ports_reach``);
+    ``headtohead`` with port bitmaps (``--repeats 3``); ``incremental`` and
+    ``closure`` at the flagship; ``k8s``, ``kano``, ``stripe``,
+    ``stripes``, ``serve``, ``query``, ``replicate`` and ``posture`` at
+    the JAX bench's default sizes with ``--repeats 2`` (``serve``,
+    ``replicate``, ``stripes`` and ``posture`` cut for the time limit;
+    ``ingress`` not run: its overload gate is sensitive to the host's
+    speed). Every child must exit 0, every record name the card and carry
+    ``sentinel``, every cold first call a ``compile_warm_s`` and a true
+    ``warm_parity``, and the history must read back through
+    ``observe/history.py::load_runs``. Prints each run's seconds, peak
+    device memory and launches.
 
 Phases 9–13 launch neither hand-written kernel (their int8 products are
 ``torch._int_mm`` calls, as the JAX package leaves them to XLA): the counts
@@ -313,7 +332,8 @@ carries its engine build's launches, phase 14's and phase 16's, as
 phases 28–29, the ranks' included, as ``sharded_launches``, in
 phases 30–32 as ``mesh_engine_launches``, in phase 35's child as
 ``warm_start_launches``, in phase 36's in-process steps as
-``cli_launches`` and in phase 37 as ``lint_launches``); the last is
+``cli_launches``, in phase 37 as ``lint_launches`` and in phase 38's
+children, summed, as ``bench_launches``); the last is
 ``{"ok": true, "device": {...}}``. Tolerance everywhere: exact (every output
 is boolean or integer words).
 """
@@ -4978,6 +4998,201 @@ def lint_phase(smi: str) -> tuple:
     return launches
 
 
+#: phase 38: the port's benchmark entry point, one child process per run, in
+#: stages run one after another; a stage's lanes run at once, a lane's
+#: children one after another. The first stage runs beside phases 36-37
+#: (the script's 1,200 s limit leaves no room for it after them): the
+#: flagship runs (100,000 pods / 10,000 policies, uncut) in two lanes, so
+#: that at most two of them (13-22 GiB each) share the card beside phase
+#: 36, and the other modes at the JAX bench's default sizes with
+#: --repeats 2 in the third. posture, whose 5 % budget is a timing gate,
+#: runs alone after it. The serving modes are cut for the time limit:
+#: serve and replicate to 512 events, stripes to 256, posture to 2,048
+#: pods / 256 policies / 512 events. ingress is not run here: its
+#: post-knee hold (0.8 of the knee) held 1.0 on the card in two runs and
+#: 0.68 in a third, where the host ran the whole sweep 3x slower.
+BENCH_STAGES = [
+    [
+        [["--mode", "closure"], ["--mode", "tiled"]],
+        [["--mode", "headtohead", "--repeats", "3"], ["--mode", "tiled", "--no-ports"],
+         ["--mode", "incremental"], ["--mode", "stripe", "--repeats", "2"],
+         ["--mode", "sentinel"]],
+        [["--mode", "k8s", "--repeats", "2"], ["--mode", "kano", "--repeats", "2"],
+         ["--mode", "serve", "--repeats", "2", "--n-events", "512"],
+         ["--mode", "query", "--repeats", "2"],
+         ["--mode", "stripes", "--repeats", "2", "--n-events", "256"],
+         ["--mode", "replicate", "--repeats", "2", "--n-events", "512"]],
+    ],
+    [
+        [["--mode", "posture", "--repeats", "2", "--pods", "2048", "--policies", "256",
+          "--n-events", "512"]],
+    ],
+]
+BENCH_TIMEOUT_S = 600
+#: the launches a run of a flagship mode must show, at least: (packed_dir_allow,
+#: fused_ports_reach); the other modes' are counted, not required
+BENCH_MIN_LAUNCHES = {
+    ("tiled", True): (2, 0), ("tiled", False): (0, 1),
+    ("headtohead", False): (0, 1), ("incremental", False): (0, 1),
+    ("closure", False): (2, 0),
+}
+
+
+def _bench_lane(runs, env, root: str, device_args, results: list, procs: list) -> None:
+    """One lane of phase 38: its children one after another (a thread)."""
+    for argv in runs:
+        cmd = [sys.executable, "-m", "kubernetes_verification_tpu_torch.bench",
+               *argv, *device_args]
+        t0 = time.perf_counter()
+        child = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        procs.append(child)
+        try:
+            out, err = child.communicate(timeout=BENCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            out, err = child.communicate()
+        results.append((argv, child.returncode, out, err, time.perf_counter() - t0))
+
+
+def _bench_stage(ctx: dict, stage) -> list:
+    """Start one stage's lanes (threads); returns them."""
+    import threading
+
+    threads = [threading.Thread(target=_bench_lane, daemon=True, args=(
+        lane, ctx["env"], ctx["root"], ctx["device_args"], ctx["results"], ctx["procs"]))
+        for lane in stage]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def bench_start(stages=None, device_args=()) -> dict:
+    """Phase 38's first stage, started in the background (it runs beside
+    phases 36-37); ``bench_phase`` waits for it and runs the rest."""
+    import os
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory(prefix="kvt-bench-")
+    hist = os.path.join(tmp.name, "history.jsonl")
+    env = dict(os.environ, KVTPU_BENCH_HISTORY=hist)
+    env.pop("KVTPU_BENCH_NO_SENTINEL", None)
+    ctx = {"tmp": tmp, "hist": hist, "env": env, "results": [], "procs": [],
+           "root": os.path.dirname(os.path.abspath(__file__)),
+           "device_args": list(device_args), "t0": time.perf_counter(),
+           "stages": BENCH_STAGES if stages is None else stages}
+    ctx["threads"] = _bench_stage(ctx, ctx["stages"][0])
+    return ctx
+
+
+def bench_stop(ctx: dict) -> None:
+    """End every child phase 38 started that still runs."""
+    for child in ctx["procs"]:
+        if child.poll() is None:
+            child.kill()
+
+
+def bench_phase(ctx: dict, refs: dict, kind: str, smi: str) -> tuple:
+    """Phase 38: ``python -m kubernetes_verification_tpu_torch.bench`` in
+    child processes on the card (``BENCH_STAGES``: stages one after
+    another, a stage's lanes at once, a lane's children one after
+    another; ``bench_start`` started the first), with
+    ``KVTPU_BENCH_HISTORY`` in a temporary directory. Fails on a child's
+    non-zero exit, a record whose ``device`` is not the card's name or
+    without ``sentinel``, a record with a cold first call but no
+    ``compile_warm_s``, a ``warm_parity`` false, a ``tiled`` run whose
+    reachable pairs differ from phase 4's / 6's or whose solve did not run
+    the hand-written kernel (``kernel=`` in its log), a ``headtohead``
+    whose ``kernels`` do not name ``fused_ports_reach`` and the torch
+    sweep, a flagship run with fewer launches than ``BENCH_MIN_LAUNCHES``,
+    or a history that ``observe/history.py::load_runs`` cannot read.
+    Prints each run's seconds, peak device memory and launches (each
+    child's ``bench-summary``). Returns the children's launches, summed."""
+    import re
+
+    from kubernetes_verification_tpu_torch.observe.history import load_runs
+
+    t_wait = time.perf_counter()
+    try:
+        for t in ctx["threads"]:
+            t.join()
+        log(f"bench: the first stage ended {time.perf_counter() - ctx['t0']:.2f} s after "
+            f"its start beside phases 36-37, {time.perf_counter() - t_wait:.2f} s after "
+            f"phase 37")
+        for stage in ctx["stages"][1:]:
+            for t in _bench_stage(ctx, stage):
+                t.join()
+    finally:
+        bench_stop(ctx)
+    results, stages, hist, tmp = ctx["results"], ctx["stages"], ctx["hist"], ctx["tmp"]
+    total = [0, 0]
+    n_records = 0
+    for argv, rc, out, err, wall in sorted(results, key=lambda r: r[0]):
+        name = " ".join(argv)
+        if rc != 0:
+            fail(f"bench {name}: exit {rc}\n{out[-2000:]}\n{err[-4000:]}")
+        summary = [ln for ln in err.splitlines() if ln.startswith("bench-summary ")]
+        if not summary:
+            fail(f"bench {name}: no bench-summary line")
+        summ = json.loads(summary[-1].split(" ", 1)[1])
+        launches = (summ["launches"]["packed_dir_allow"], summ["launches"]["fused_ports_reach"])
+        total[0] += launches[0]
+        total[1] += launches[1]
+        records = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+        if not records:
+            fail(f"bench {name}: no record")
+        n_records += len(records)
+        mode, any_port = argv[1], "--no-ports" in argv
+        for rec in records:
+            if rec.get("device") != kind or "sentinel" not in rec:
+                fail(f"bench {name}: device {rec.get('device')!r}, sentinel "
+                     f"{'sentinel' in rec} in {rec['metric']!r}")
+            if "compile_cold_s" in rec and "compile_warm_s" not in rec:
+                fail(f"bench {name}: {rec['metric']!r} has no compile_warm_s")
+            if rec.get("warm_parity", True) is not True:
+                fail(f"bench {name}: warm_parity false in {rec['metric']!r}")
+        want = BENCH_MIN_LAUNCHES.get((mode, any_port))
+        if want is not None and (launches[0] < want[0] or launches[1] < want[1]):
+            fail(f"bench {name}: launched {launches}, fewer than {want}")
+        if mode == "tiled":
+            ref = refs["any" if any_port else "ports"]["reachable_pairs"]
+            pairs = {int(m) for m in re.findall(r"(\d+) reachable pairs", err)}
+            route = set(re.findall(r"kernel=(\S+)", err))
+            if pairs != {ref}:
+                fail(f"bench {name}: reachable pairs {pairs} != phase {4 if any_port else 6}'s {ref}")
+            if route != {"packed_dir_allow" if any_port else "fused_ports_reach"}:
+                fail(f"bench {name}: the solve ran {route}")
+            if records[0].get("warm_parity") is not True:
+                fail(f"bench {name}: no warm_parity")
+        if mode == "headtohead" and records[0]["kernels"] != {
+                "torch": "torch-sweep" if any_port else "torch-ports-sweep",
+                "kernel": "packed_dir_allow" if any_port else "fused_ports_reach"}:
+            fail(f"bench {name}: kernels {records[0]['kernels']}")
+        peak = summ["peak_device_bytes"]
+        head = records[0]
+        band = head.get("band") or head.get("batch_band") or head.get("sync_band") or {}
+        log(f"bench {name}: {wall:.2f} s of process wall ({summ['seconds']:.2f} s in the "
+            f"mode), peak device memory "
+            f"{'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}, launches "
+            f"packed_dir_allow {launches[0]}, fused_ports_reach {launches[1]}, nvcc runs "
+            f"{summ['nvcc_runs']}; {len(records)} records, first {head['metric']!r} = "
+            f"{head['value']} {head['unit']}"
+            + (f" (median {band['median_s']} s, {band['min_s']}-{band['max_s']} s, n "
+               f"{band['n']})" if band else ""))
+    runs = load_runs([hist])
+    if len(runs) != n_records:
+        fail(f"bench: the history holds {len(runs)} runs, the children printed {n_records}")
+    tmp.cleanup()
+    secs = time.perf_counter() - ctx["t0"]
+    log(f"bench: {len(results)} runs in {sum(map(len, stages))} lanes over {len(stages)} "
+        f"stages, {n_records} records, history "
+        f"read back by load_runs; launches packed_dir_allow {total[0]}, fused_ports_reach "
+        f"{total[1]}; phase 38 {secs:.2f} s from the first stage's start, "
+        f"{time.perf_counter() - t_wait:.2f} s after phase 37; {smi}")
+    SERVE_SUMMARY.append(f"phase 38 bench: {len(results)} runs, {secs:.2f} s")
+    return tuple(total)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--warm-child"]:
         return warm_child(*sys.argv[2:6])
@@ -5083,8 +5298,16 @@ def main() -> int:
         fail(f"phases 25-27 launched {replica_launches}: packed_dir_allow fewer than the "
              f"transport leader's {transport_build} build launches, or fused_ports_reach")
     torch.cuda.empty_cache()
-    cli_launches = cli_phase(cli_refs, dev, smi)
-    lint_launches = lint_phase(smi)
+    # phase 38's first stage runs in child processes beside phases 36-37
+    bench = bench_start()
+    try:
+        cli_launches = cli_phase(cli_refs, dev, smi)
+        lint_launches = lint_phase(smi)
+    except BaseException:
+        bench_stop(bench)
+        raise
+    torch.cuda.empty_cache()
+    bench_launches = bench_phase(bench, cli_refs, kind, smi)
     worst = max([worst] + [r["err"] for r in rows])
     worst_fused = max(worst_fused, fused_row["err"])
 
@@ -5107,6 +5330,7 @@ def main() -> int:
         "warm_start_launches": warm_launches,
         "cli_launches": cli_launches[0],
         "lint_launches": lint_launches[0],
+        "bench_launches": bench_launches[0],
         "max_abs_err": worst,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
@@ -5125,6 +5349,7 @@ def main() -> int:
         "mesh_engine_launches": mesh_engine_launches[1],
         "cli_launches": cli_launches[1],
         "lint_launches": lint_launches[1],
+        "bench_launches": bench_launches[1],
         "max_abs_err": worst_fused,
         **{k: fused_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},

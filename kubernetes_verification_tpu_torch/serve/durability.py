@@ -329,7 +329,10 @@ class CheckpointManager:
         it as a serving snapshot, and :func:`load_closure_checkpoint` walks
         the same ladder to resume the loop at the recorded pass. ``packed``
         is an int32 tensor (the port's words) or host uint32 words; it is
-        saved as the reference's uint32."""
+        saved as the reference's uint32, stored rather than deflated as the
+        JAX package's is (``np.load`` reads both): packed words barely
+        compress, and deflating the flagship's 1.25 GB costs tens of seconds
+        a pass."""
         gen = self._next_generation()
         snap_dir = self.snapshot_dir(gen)
         tmp_dir = os.path.join(self.directory, f".tmp-gen-{gen:08d}")
@@ -340,7 +343,7 @@ class CheckpointManager:
             arr = packed.cpu().numpy().view("<u4")
         else:
             arr = np.asarray(packed)
-        np.savez_compressed(os.path.join(tmp_dir, "packed.npz"), packed=arr)
+        np.savez(os.path.join(tmp_dir, "packed.npz"), packed=arr)
         state = {
             "format": CLOSURE_FORMAT,
             "passes": int(passes),

@@ -966,3 +966,37 @@ def test_cli_runs_on_the_card_by_default(cuda_device, tmp_path, capsys):
         assert card._packed.device.type == "cuda"
         w = -(-300 // 32)
         assert torch.equal(card._packed[:300, :w].cpu(), host._packed[:300, :w])
+
+
+def test_bench_runs_on_the_card_by_default(cuda_device, tmp_path, capsys, monkeypatch):
+    """The port's bench entry point without ``--device`` solves on the card
+    through the hand-written kernels (any-port and port bitmaps), its
+    records name the card, and the solve's pairs equal ``--device cpu``'s."""
+    import json
+    import re
+
+    from kubernetes_verification_tpu_torch import bench
+
+    monkeypatch.setenv("KVTPU_BENCH_NO_SENTINEL", "1")
+    monkeypatch.setenv("KVTPU_BENCH_HISTORY", str(tmp_path / "h.jsonl"))
+    small = ["--mode", "tiled", "--pods", "2048", "--policies", "128", "--repeats", "2"]
+
+    def run(argv):
+        capsys.readouterr()
+        try:
+            assert bench.main(argv) == 0
+        finally:
+            bench._BENCH_MODE = bench._SENTINEL_CTX = bench._DEVICE = None
+        out, err = capsys.readouterr()
+        rec = json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+        summary = json.loads(err.splitlines()[-1].split(" ", 1)[1])
+        return rec, err, summary
+
+    for ports, kernel in ((("--no-ports",), "packed_dir_allow"), ((), "fused_ports_reach")):
+        rec, err, summary = run([*small, *ports])
+        assert rec["device"] == torch.cuda.get_device_name(cuda_device)
+        assert rec["platform"] == "gpu" and rec["warm_parity"] is True
+        assert f"kernel={kernel}" in err and summary["launches"][kernel] > 0
+        _, cpu_err, _ = run([*small, *ports, "--device", "cpu"])
+        pairs = lambda e: re.findall(r"(\d+) reachable pairs", e)  # noqa: E731
+        assert pairs(err) == pairs(cpu_err) != []

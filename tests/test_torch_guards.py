@@ -564,3 +564,83 @@ def test_cli_refuses_the_cpu_without_a_gpu(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["verify", d, "--json", "--device", "cpu"]) == 0
     assert json.loads(capsys.readouterr().out)["backend"] == "torch"
+
+
+# ------------------------------------------------------ the bench entry point
+
+
+def test_scan_covers_the_bench():
+    """The no-JAX scan reaches the port's ``bench.py``: it reaches the port
+    through relative imports only, and imports nothing of JAX, of the JAX
+    package or of the repo's JAX bench ``bench.py``."""
+    path = os.path.join(_PKG, "bench.py")
+    assert path in _port_files()
+    roots = list(_imported_roots(path))
+    assert not set(roots) & set(_FORBIDDEN)
+    assert "bench" not in roots and "importlib" not in roots
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    relative = [n for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.level]
+    assert len(relative) >= 40
+    src = open(path, encoding="utf-8").read()
+    assert "import jax" not in src and "jax." not in src
+
+
+def _jax_bench_modes():
+    tree = ast.parse(open(os.path.join(_ROOT, "bench.py"), encoding="utf-8").read())
+    call = next(
+        n for n in ast.walk(tree)
+        if isinstance(n, ast.Call) and getattr(n.func, "attr", None) == "add_argument"
+        and n.args and getattr(n.args[0], "value", None) == "--mode"
+    )
+    choices = next(k.value for k in call.keywords if k.arg == "choices")
+    return {e.value for e in choices.elts}
+
+
+def test_bench_modes_match_the_jax_bench():
+    """The port's ``--mode`` choices are ``bench.py``'s, each with a mode
+    function, and the console script is registered."""
+    from kubernetes_verification_tpu_torch import bench
+
+    want = _jax_bench_modes()
+    assert len(want) == 14
+    assert set(bench.MODES) == want == set(bench._MODE_FNS)
+    action = next(a for a in bench.build_parser()._actions if "--mode" in a.option_strings)
+    assert set(action.choices) == want
+    toml = open(os.path.join(_ROOT, "pyproject.toml"), encoding="utf-8").read()
+    assert 'kv-tpu-torch-bench = "kubernetes_verification_tpu_torch.bench:main"' in toml
+
+
+def test_bench_refuses_the_cpu_without_a_gpu(monkeypatch, capsys):
+    """Without a GPU and without ``--device cpu`` every mode exits 3 with
+    the device error before it calibrates or generates anything."""
+    from kubernetes_verification_tpu_torch import bench
+    from kubernetes_verification_tpu_torch.harness import generate
+    from kubernetes_verification_tpu_torch.resilience.errors import EXIT_BACKEND_FAILED
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def made(*a, **k):
+        raise AssertionError("made something on the CPU")
+
+    for name in ("random_cluster", "random_kano", "random_event_stream"):
+        monkeypatch.setattr(generate, name, made)
+    monkeypatch.setattr(bench, "_calibrate", made)
+    monkeypatch.setattr(bench, "_DEVICE", None)
+    for mode in bench.MODES:
+        assert bench.main(["--mode", mode]) == EXIT_BACKEND_FAILED, mode
+        captured = capsys.readouterr()
+        assert "BackendError: no CUDA device" in captured.err, mode
+        assert captured.out == ""
+    assert bench._DEVICE is None and bench._BENCH_MODE is None
+
+
+def test_bench_console_entry_refuses_the_cpu_without_a_gpu(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               KVTPU_BENCH_HISTORY=str(tmp_path / "h.jsonl"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubernetes_verification_tpu_torch.bench", "--mode", "tiled"],
+        cwd=_ROOT, capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert proc.returncode == 3, proc.stderr
+    assert proc.stdout == "" and "BackendError: no CUDA device" in proc.stderr
+    assert not (tmp_path / "h.jsonl").exists()
