@@ -298,6 +298,20 @@ Phases; any failure exits non-zero before a result line is printed:
     ``warm_parity``, and the history must read back through
     ``observe/history.py::load_runs``. Prints each run's seconds, peak
     device memory and launches.
+39. the entry points of ``kubernetes_verification_tpu_torch/
+    graft_entry.py`` (the root ``__graft_entry__.py``'s counterpart):
+    ``entry()`` on the card == ``entry(device="cpu")`` in every argument and
+    every ``K8sOut`` field; ``python -m kubernetes_verification_tpu_torch.
+    graft_entry 4`` in a child process started with phase 38's first stage
+    (beside phases 36–37; waited for after phase 37, before phase 38's
+    rest): ``dryrun_multichip(4)``, four gloo ranks on the one card on a
+    2×2 mesh, the reference's eleven stages at its sizes (the sharded
+    verify, the packed solves, the 1M-pod stripe, the mesh engines, the
+    250,000-pod matrix-free engine, its bounded path query and its
+    follower), each held against the ``cpu`` oracle or the one-device path
+    by the ranks themselves. All eleven OK lines must be printed and the
+    child exit 0; each stage's seconds and each rank's peak device memory
+    are printed.
 
 Phases 9–13 launch neither hand-written kernel (their int8 products are
 ``torch._int_mm`` calls, as the JAX package leaves them to XLA): the counts
@@ -332,8 +346,11 @@ carries its engine build's launches, phase 14's and phase 16's, as
 phases 28–29, the ranks' included, as ``sharded_launches``, in
 phases 30–32 as ``mesh_engine_launches``, in phase 35's child as
 ``warm_start_launches``, in phase 36's in-process steps as
-``cli_launches``, in phase 37 as ``lint_launches`` and in phase 38's
-children, summed, as ``bench_launches``); the last is
+``cli_launches``, in phase 37 as ``lint_launches``, in phase 38's
+children, summed, as ``bench_launches`` and in phase 39 (``entry()`` and
+the dryrun's ranks, which launch neither: the mesh paths' products are
+``bool_dot`` calls, the forward step the dense torch path) as
+``graft_launches``); the last is
 ``{"ok": true, "device": {...}}``. Tolerance everywhere: exact (every output
 is boolean or integer words).
 """
@@ -5007,10 +5024,13 @@ def lint_phase(smi: str) -> tuple:
 #: 36, and the other modes at the JAX bench's default sizes with
 #: --repeats 2 in the third. posture, whose 5 % budget is a timing gate,
 #: runs alone after it. The serving modes are cut for the time limit:
-#: serve and replicate to 512 events, stripes to 256, posture to 2,048
-#: pods / 256 policies / 512 events. ingress is not run here: its
-#: post-knee hold (0.8 of the knee) held 1.0 on the card in two runs and
-#: 0.68 in a third, where the host ran the whole sweep 3x slower.
+#: serve and replicate to 512 events, stripes to 256, posture to 4,096
+#: pods / 512 policies / 1,024 events (at 2,048 / 256 / 512 an apply was
+#: ~0.5 s and one apply of a batch differed from its pair's by up to 45 %
+#: on the host's jitter, which a 5 % budget over 6 batch pairs cannot
+#: resolve; at 4,096 / 512 a ~2 s apply's pairs differ by ~10 %, over 15
+#: pairs). ingress is not run here: its open-loop generator sometimes
+#: offers less than its multiple of capacity (ROADMAP §3 F7).
 BENCH_STAGES = [
     [
         [["--mode", "closure"], ["--mode", "tiled"]],
@@ -5024,8 +5044,8 @@ BENCH_STAGES = [
          ["--mode", "replicate", "--repeats", "2", "--n-events", "512"]],
     ],
     [
-        [["--mode", "posture", "--repeats", "2", "--pods", "2048", "--policies", "256",
-          "--n-events", "512"]],
+        [["--mode", "posture", "--repeats", "2", "--pods", "4096", "--policies", "512",
+          "--n-events", "1024"]],
     ],
 ]
 BENCH_TIMEOUT_S = 600
@@ -5193,6 +5213,131 @@ def bench_phase(ctx: dict, refs: dict, kind: str, smi: str) -> tuple:
     return tuple(total)
 
 
+# ---------------------------------------------------------------------------
+# phase 39: graft_entry's entry points
+# ---------------------------------------------------------------------------
+
+#: phase 39: dryrun_multichip's ranks, all on the one card (gloo over CUDA
+#: tensors, as phase 29), at the reference's stage sizes
+GRAFT_RANKS = 4
+GRAFT_TIMEOUT_S = 600
+
+
+def graft_start() -> dict:
+    """Phase 39's child, started in the background beside phases 36-37:
+    ``python -m kubernetes_verification_tpu_torch.graft_entry 4`` (its four
+    ranks are its own children); ``graft_phase`` waits for it."""
+    import os
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory(prefix="kvt-graft-")
+    out = open(os.path.join(tmp.name, "out.log"), "w")
+    err = open(os.path.join(tmp.name, "err.log"), "w")
+    cmd = [sys.executable, "-m", "kubernetes_verification_tpu_torch.graft_entry",
+           str(GRAFT_RANKS)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.Popen(cmd, cwd=root, stdout=out, stderr=err, text=True,
+                             start_new_session=True)
+    return {"tmp": tmp, "files": (out, err), "child": child, "t0": time.perf_counter()}
+
+
+def graft_stop(ctx: dict) -> None:
+    """End phase 39's child and its ranks if they still run."""
+    import os
+    import signal
+
+    if ctx["child"].poll() is None:
+        os.killpg(ctx["child"].pid, signal.SIGKILL)
+        ctx["child"].wait()
+
+
+def graft_entry_check(dev) -> None:
+    """``entry()`` on the card (its default) against ``entry(device="cpu")``:
+    every argument and every ``K8sOut`` field equal, bit for bit."""
+    import dataclasses
+
+    from kubernetes_verification_tpu_torch.graft_entry import entry
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    fn_c, args_c = entry(device="cpu")
+
+    def leaves(x):
+        if dataclasses.is_dataclass(x):
+            return [v for f in dataclasses.fields(x) for v in leaves(getattr(x, f.name))]
+        return [] if x is None else [x]
+
+    for a, c in zip(args, args_c):
+        for x, y in zip(leaves(a), leaves(c)):
+            if x.device.type != "cuda" or not torch.equal(x.cpu(), y):
+                fail("graft: entry()'s arguments are not the CPU's on the card")
+    out, ref = fn(*args), fn_c(*args_c)
+    torch.cuda.synchronize(dev)
+    differ = [f for f in out._fields if not torch.equal(getattr(out, f).cpu(), getattr(ref, f))]
+    if differ:
+        fail(f"graft: entry() on the card differs from the CPU's in {differ}")
+    log(f"graft: entry() on {dev} == entry(device='cpu') in all {len(out._fields)} K8sOut "
+        f"fields (reach {tuple(out.reach.shape)}, reach_ports {tuple(out.reach_ports.shape)}), "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def graft_phase(ctx: dict, dev, smi: str) -> tuple:
+    """Phase 39: ``entry()`` on the card against ``entry(device="cpu")``
+    (counted), then the child ``graft_start`` started: every one of the
+    eleven ``dryrun_multichip OK`` lines, the ranks' reports (each stage's
+    seconds, each rank's peak device memory, launches), a zero exit within
+    ``GRAFT_TIMEOUT_S``. Returns the launches of both kernels, the child's
+    ranks' included (0 / 0: the mesh paths' products are ``bool_dot``, the
+    forward step the dense torch path)."""
+    t_wait = time.perf_counter()
+    try:
+        reset_counts()
+        graft_entry_check(dev)
+        launches = list(launch_counts())
+        child = ctx["child"]
+        try:
+            child.wait(timeout=max(1.0, GRAFT_TIMEOUT_S - (time.perf_counter() - ctx["t0"])))
+        except subprocess.TimeoutExpired:
+            graft_stop(ctx)
+            fail(f"graft: dryrun_multichip({GRAFT_RANKS}) did not end in {GRAFT_TIMEOUT_S} s")
+    finally:
+        graft_stop(ctx)
+        for fh in ctx["files"]:
+            fh.close()
+    wall = time.perf_counter() - ctx["t0"]
+    with open(ctx["files"][0].name) as fh:
+        out = fh.read()
+    with open(ctx["files"][1].name) as fh:
+        err = fh.read()
+    ctx["tmp"].cleanup()
+    if child.returncode != 0:
+        fail(f"graft: dryrun_multichip({GRAFT_RANKS}) exit {child.returncode}\n"
+             f"{out[-3000:]}\n{err[-6000:]}")
+    ok = [ln for ln in out.splitlines() if ln.startswith("dryrun_multichip OK: ")]
+    summ = [ln for ln in out.splitlines() if ln.startswith("dryrun_multichip summary ")]
+    if len(ok) != 11 or not summ:
+        fail(f"graft: {len(ok)} of 11 OK lines, {len(summ)} summary\n{out[-3000:]}")
+    for ln in ok:
+        log(f"graft: {ln}")
+    summary = json.loads(summ[-1].split(" ", 2)[2])
+    if len(summary["ranks"]) != GRAFT_RANKS:
+        fail(f"graft: {len(summary['ranks'])} rank reports")
+    for r in summary["ranks"]:
+        launches = [a + b for a, b in zip(launches, r["launches"])]
+        live = r["live"]
+        log(f"graft: rank {r['rank']} on {r['device']}: stage seconds "
+            + ", ".join(f"{k} {v:.2f}" for k, v in r["seconds"].items())
+            + f"; peak device {r['peak_device_gib']:.2f} GiB, peak host "
+            f"{r['peak_host_gib']:.2f} GiB; live {live['live_bytes'] / 2**20:.1f} MiB "
+            f"at the end (dense [N, N] int32 {live['dense_bytes'] / 2**30:.0f} GiB)")
+    log(f"graft: dryrun_multichip({GRAFT_RANKS}) on mesh {summary['mesh']}: "
+        f"{summary['seconds']:.2f} s inside the child, ended within {wall:.2f} s of its "
+        f"start, {time.perf_counter() - t_wait:.2f} s waited; launches packed_dir_allow "
+        f"{launches[0]}, fused_ports_reach {launches[1]}; {smi}")
+    SERVE_SUMMARY.append(f"phase 39 graft: {wall:.2f} s")
+    return tuple(launches)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--warm-child"]:
         return warm_child(*sys.argv[2:6])
@@ -5298,13 +5443,18 @@ def main() -> int:
         fail(f"phases 25-27 launched {replica_launches}: packed_dir_allow fewer than the "
              f"transport leader's {transport_build} build launches, or fused_ports_reach")
     torch.cuda.empty_cache()
-    # phase 38's first stage runs in child processes beside phases 36-37
+    # phase 38's first stage and phase 39's child (its own ranks, counted
+    # from 0) run in child processes beside phases 36-37; phase 39 ends
+    # before phase 38's rest, whose posture budget is a timing gate
     bench = bench_start()
+    graft = graft_start()
     try:
         cli_launches = cli_phase(cli_refs, dev, smi)
         lint_launches = lint_phase(smi)
+        graft_launches = graft_phase(graft, dev, smi)
     except BaseException:
         bench_stop(bench)
+        graft_stop(graft)
         raise
     torch.cuda.empty_cache()
     bench_launches = bench_phase(bench, cli_refs, kind, smi)
@@ -5331,6 +5481,7 @@ def main() -> int:
         "cli_launches": cli_launches[0],
         "lint_launches": lint_launches[0],
         "bench_launches": bench_launches[0],
+        "graft_launches": graft_launches[0],
         "max_abs_err": worst,
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
@@ -5350,6 +5501,7 @@ def main() -> int:
         "cli_launches": cli_launches[1],
         "lint_launches": lint_launches[1],
         "bench_launches": bench_launches[1],
+        "graft_launches": graft_launches[1],
         "max_abs_err": worst_fused,
         **{k: fused_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
@@ -5361,6 +5513,8 @@ def main() -> int:
         fail(f"phases 28-29 launched a hand-written kernel: {sharded_launches}")
     if mesh_engine_launches != (0, 0):
         fail(f"phases 30-32 launched a hand-written kernel: {mesh_engine_launches}")
+    if graft_launches != (0, 0):
+        fail(f"phase 39 launched a hand-written kernel: {graft_launches}")
     import torch.distributed as dist
 
     dist.destroy_process_group()  # phase 28's world-1 group

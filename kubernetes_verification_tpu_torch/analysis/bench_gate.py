@@ -4,9 +4,14 @@
 
 Compares the newest run of every metric series against the trailing median
 of the previous runs (``observe/history.py``) and exits 1 when a series
-slipped more than ``--tolerance`` (relative). Reads ``bench_history.jsonl``
-when present, else the committed ``BENCH_r*.json`` trajectory snapshots —
-so the gate runs out of the box on a fresh checkout. Throughput series are
+slipped more than ``--tolerance`` (relative). Reads the port's own
+``bench_history.jsonl`` (or the file ``KVTPU_BENCH_HISTORY`` names) when
+present, else nothing: the committed ``BENCH_r*.json`` snapshots are the JAX
+bench's runs on a TPU, so a fresh checkout gates no run (it says so and
+exits 0, as the JAX gate does on an empty path list); name them as
+``paths`` to gate them. A series is keyed on the record's device as well
+as its metric and unit, so a card's run never joins a TPU's series.
+Throughput series are
 gated higher-is-better: names with an explicit direction
 (``closure_pairs_per_second`` and ``aggregate_queries_per_second``, the
 ``bench.py --mode closure`` / ``--mode replicate`` headlines) plus
@@ -45,8 +50,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument(
         "paths", nargs="*",
         help="history files: JSONL (bench_history.jsonl) and/or whole-file "
-        "JSON snapshots (BENCH_r*.json); default: bench_history.jsonl when "
-        "present, else BENCH_r*.json next to the repo root",
+        "JSON snapshots (BENCH_r*.json); default: the port's "
+        "bench_history.jsonl next to the repo root (or $KVTPU_BENCH_HISTORY) "
+        "when present, else none",
     )
     ap.add_argument(
         "--tolerance", type=float, default=0.25,
@@ -94,6 +100,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.json:
         print(json.dumps({"ok": ok, "findings": findings}, sort_keys=True))
     else:
+        if not paths:
+            print(
+                "no bench history of the port (run kv-tpu-torch-bench, python -m "
+                "kubernetes_verification_tpu_torch.bench, to append to "
+                "bench_history.jsonl; BENCH_r*.json are read only when named)"
+            )
         print(
             f"{len(runs)} runs from {len(paths)} file(s), "
             f"tolerance {args.tolerance:g}, window {args.window}"

@@ -847,8 +847,9 @@ def _explain_roofline(args) -> int:
         return 0
     if not rows:
         print(
-            "no history record carries MAC accounting yet — run bench.py "
-            "(modes tiled/k8s/closure/stripe stamp `macs` + `steady_s`)"
+            "no history record carries MAC accounting yet — run "
+            "kv-tpu-torch-bench (python -m kubernetes_verification_tpu_torch.bench; "
+            "modes tiled/k8s/closure/stripe stamp `macs` + `steady_s`)"
         )
         return 0
     print(format_roofline_table(rows))
@@ -884,7 +885,8 @@ def cmd_history(args) -> int:
         return 0 if ok else 1
     if not runs:
         print(
-            "no bench history found (run bench.py to append to "
+            "no bench history found (run kv-tpu-torch-bench, python -m "
+            "kubernetes_verification_tpu_torch.bench, to append to "
             "bench_history.jsonl)"
         )
         return 0
@@ -2861,8 +2863,9 @@ def main(argv: Optional[list] = None) -> int:
     )
     p.add_argument(
         "paths", nargs="*",
-        help="history files (default: bench_history.jsonl, else the "
-        "committed BENCH_r*.json snapshots)",
+        help="history files (default: the port's bench_history.jsonl, or "
+        "$KVTPU_BENCH_HISTORY, when present; the committed BENCH_r*.json "
+        "TPU snapshots only when named)",
     )
     p.add_argument(
         "--tolerance", type=float, default=0.25,
@@ -2885,7 +2888,7 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument(
         "--events-out", metavar="FILE",
         help="also write a churn event stream (JSONL) valid against the "
-        "generated cluster, for kv-tpu-torch serve / bench.py --mode serve",
+        "generated cluster, for kv-tpu-torch serve / kv-tpu-torch-bench --mode serve",
     )
     p.add_argument(
         "--n-events", type=int, default=500,

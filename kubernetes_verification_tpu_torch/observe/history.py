@@ -1,8 +1,11 @@
 """Benchmark history: an append-only JSONL store plus a regression gate.
 
 The port's copy of ``kubernetes_verification_tpu.observe.history`` (pure
-Python; the default history file, the directions and the gate are the JAX
-package's).
+Python; the history file, the directions and the gate are the JAX
+package's). Two differences keep the TPU's records apart from the card's:
+``default_paths`` reads only the port's own history (never the committed
+``BENCH_r*.json``, the JAX bench's runs on a TPU), and a series is keyed on
+the record's ``device`` as well as its metric and unit.
 
 ``bench.py`` appends every result line (headline metric + compile/steady
 split + cost reports) to ``bench_history.jsonl``; the gate compares the
@@ -58,7 +61,6 @@ history — raw stays visible as an ungated context row.
 """
 from __future__ import annotations
 
-import glob
 import json
 import os
 import time
@@ -134,6 +136,10 @@ DEFLATED_SUFFIX = "_deflated"
 _COMPILE_SUFFIX = "compile_s"
 _COMPILE_FIELDS = ("compile_s", "compile_cold_s", "compile_warm_s")
 
+#: keys a derived record (compile series, deflated twin) keeps from its
+#: source; ``device`` keeps it in its source's series
+_CARRIED_KEYS = ("ts", "round", "mode", "origin", "device", "platform")
+
 #: latency units deflation understands, as seconds-per-unit
 _SECONDS_PER_UNIT = {"s": 1.0, "seconds": 1.0, "ms": 1e-3, "us": 1e-6}
 
@@ -203,12 +209,14 @@ def load_runs(paths: Iterable[str]) -> List[dict]:
 
 
 def default_paths(root: str = ".") -> List[str]:
-    """The history file when present, else the committed BENCH_r*.json
-    trajectory snapshots."""
-    hist = os.path.join(root, DEFAULT_HISTORY)
-    if os.path.exists(hist):
-        return [hist]
-    return sorted(glob.glob(os.path.join(root, "BENCH_r*.json")))
+    """The port's own bench history when it exists (the file
+    ``KVTPU_BENCH_HISTORY`` names, else ``bench_history.jsonl`` under
+    ``root``), else none. Unlike the JAX package's, it never falls back to
+    the committed ``BENCH_r*.json`` snapshots: those are the JAX bench's
+    runs on a TPU, not this port's; pass their paths explicitly to read
+    them."""
+    hist = os.environ.get("KVTPU_BENCH_HISTORY") or os.path.join(root, DEFAULT_HISTORY)
+    return [hist] if os.path.exists(hist) else []
 
 
 def _direction(unit: Optional[str], metric: Optional[str] = None) -> str:
@@ -300,7 +308,7 @@ def deflate_record(rec: dict) -> Optional[dict]:
         "dispatch_s": dispatch_s,
         "deflation_clamped": False,
     }
-    for key in ("ts", "round", "mode", "origin"):
+    for key in _CARRIED_KEYS:
         if key in rec:
             twin[key] = rec[key]
     if direction == "higher":
@@ -355,7 +363,7 @@ def expand_derived(runs: List[dict], deflate: bool = True) -> List[dict]:
                     "value": float(v),
                     "derived_from": metric,
                 }
-                for key in ("ts", "round", "mode", "origin"):
+                for key in _CARRIED_KEYS:
                     if key in rec:
                         derived[key] = rec[key]
                 out.append(derived)
@@ -372,7 +380,11 @@ def check_regression(
     window: int = 5,
     prefer_deflated: bool = False,
 ) -> Tuple[bool, List[dict]]:
-    """Group runs by (metric, unit) series; within each series with ≥ 2
+    """Group runs by (metric, unit, device) series — ``device`` is the
+    record's own (the card's name the port's ``bench.py`` stamps; ``None``
+    for a record without one, such as every ``BENCH_r*.json`` entry, so
+    those series are the JAX package's (metric, unit) ones and a card's
+    record never joins a TPU's series); within each series with ≥ 2
     entries, compare the newest value against the median of up to
     ``window`` preceding runs. A drop (throughput) or rise (latency) beyond
     ``tolerance`` (relative) regresses. Returns (ok, findings).
@@ -381,11 +393,13 @@ def check_regression(
     ``<metric>_deflated`` twin also has ≥ 2 entries is demoted to an
     ungated context row (``gated_via`` names the twin): the twin carries
     the verdict, the raw headline stays visible."""
-    series: Dict[Tuple[str, Optional[str]], List[dict]] = {}
+    series: Dict[Tuple[str, Optional[str], Optional[str]], List[dict]] = {}
     for r in runs:
-        series.setdefault((r["metric"], r.get("unit")), []).append(r)
+        series.setdefault((r["metric"], r.get("unit"), r.get("device")), []).append(r)
     findings: List[dict] = []
-    for (metric, unit), rs in sorted(series.items()):
+    for (metric, unit, device), rs in sorted(
+        series.items(), key=lambda kv: (kv[0][0], kv[0][1], kv[0][2] or "")
+    ):
         if len(rs) < 2:
             continue
         newest = rs[-1]
@@ -402,10 +416,12 @@ def check_regression(
             "n_previous": len(prev),
             "regressed": False,
         }
+        if device is not None:
+            finding["device"] = device
         gated_via = None
         if prefer_deflated and not metric.endswith(DEFLATED_SUFFIX):
             twin = metric + DEFLATED_SUFFIX
-            if len(series.get((twin, unit), [])) >= 2:
+            if len(series.get((twin, unit, device), [])) >= 2:
                 gated_via = twin
                 finding["gated_via"] = twin
         if median > 0 and direction != "unknown":
@@ -440,5 +456,6 @@ def format_findings(findings: List[dict]) -> str:
             f"-is-better): newest={f['newest']:.6g} vs median({f['n_previous']}"
             f" prev)={f['trailing_median']:.6g}"
             + (f" ratio={ratio:.3f}" if ratio is not None else "")
+            + (f" on {f['device']}" if f.get("device") else "")
         )
     return "\n".join(lines)

@@ -88,3 +88,33 @@ def test_posture_gate_fails_the_run(monkeypatch, tmp_path):
         run_port(["--mode", "posture", *TINY, *EVENTS], monkeypatch,
                  str(tmp_path / "h.jsonl"))
     assert not (tmp_path / "h.jsonl").exists()
+
+
+def test_posture_interleaves_its_two_services(monkeypatch, tmp_path):
+    """F9: the bare and the posture service take each timed batch in turn,
+    the first of the two alternating, and the gated overhead is the ratio
+    of their summed applies over an even number of batches (a fake clock:
+    every bare apply 1 s, every posture apply 1.02 s, so 2 %)."""
+    from kubernetes_verification_tpu_torch.serve import service as svc_mod
+
+    order, clock = [], {"t": 0.0}
+    real_apply = svc_mod.VerificationService.apply
+
+    def apply(self, batch):
+        out = real_apply(self, batch)
+        posture = self.posture is not None
+        order.append(posture)
+        clock["t"] += 1.02 if posture else 1.0
+        return out
+
+    monkeypatch.setattr(svc_mod.VerificationService, "apply", apply)
+    monkeypatch.setattr(port_bench.time, "perf_counter", lambda: clock["t"])
+    got, _ = run_port(["--mode", "posture", *TINY, *EVENTS], monkeypatch,
+                      str(tmp_path / "h.jsonl"))
+    timed = order[2:]  # each service's untimed first batch
+    assert len(timed) >= 4 and len(timed) % 2 == 0
+    pairs = [timed[i:i + 2] for i in range(0, len(timed), 2)]
+    assert pairs == [[False, True] if i % 2 == 0 else [True, False]
+                     for i in range(len(pairs))]
+    assert got[0]["metric"] == "posture_overhead_pct"
+    assert got[0]["value"] == pytest.approx(2.0, abs=1e-6)

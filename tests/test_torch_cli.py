@@ -609,7 +609,14 @@ def test_explain_roofline_and_history(pair, tmp_path):
     assert r.rc == 0 and "peak-table[NVIDIA H100 80GB HBM3]" in r.out
     empty = tmp_path / "empty.jsonl"
     empty.write_text("")
-    assert "no history record" in pair.same_text(["explain", "--roofline", str(empty)])
+    # the same exit and message, which names the port's bench, not the JAX
+    # package's bench.py (F8)
+    runs = pair.run(["explain", "--roofline", str(empty)])
+    assert runs["port"].rc == runs["jax"].rc == 0
+    assert "no history record" in runs["jax"].out and "bench.py" in runs["jax"].out
+    assert "no history record" in runs["port"].out
+    assert "kubernetes_verification_tpu_torch.bench" in runs["port"].out
+    assert "bench.py" not in runs["port"].out
 
     h = str(tmp_path / "hist.jsonl")
     for v in [10.0, 10.5, 9.8, 10.2, 10.1]:

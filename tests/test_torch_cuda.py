@@ -1000,3 +1000,33 @@ def test_bench_runs_on_the_card_by_default(cuda_device, tmp_path, capsys, monkey
         _, cpu_err, _ = run([*small, *ports, "--device", "cpu"])
         pairs = lambda e: re.findall(r"(\d+) reachable pairs", e)  # noqa: E731
         assert pairs(err) == pairs(cpu_err) != []
+
+
+def test_graft_entry_runs_on_the_card_by_default(cuda_device, tmp_path):
+    """``entry()`` defaults to the card and equals ``entry(device="cpu")``
+    in every ``K8sOut`` field; every dryrun stage runs on two gloo ranks
+    sharing the card (stages 4, 6, 10 and 11 at a cut base), launching
+    neither hand-written kernel."""
+    import dataclasses
+
+    from kubernetes_verification_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    fn_c, args_c = graft_entry.entry(device="cpu")
+    assert args[0].device.type == "cuda"
+    out, ref = fn(*args), fn_c(*args_c)
+    for name in out._fields:
+        assert torch.equal(getattr(out, name).cpu(), getattr(ref, name)), name
+    cut = dataclasses.replace(
+        graft_entry.Sizes(),
+        base_gen=(("n_pods", 200), ("n_policies", 24), ("n_namespaces", 4),
+                  ("p_ipblock_peer", 0.0), ("min_selector_labels", 1), ("seed", 55)),
+        # at 1,600 pods the allocator's live blocks (earlier stages' words
+        # and caches, ~35 MB) outweigh one dense [N, N] int32 (10 MB): the
+        # 1 % claim is the reference's at 250,000 pods, phase 39's to hold
+        stripe_reps=8, engine_reps=8, live_fraction=10.0)
+    reports = graft_entry._launch(2, "cuda", cut, None, str(tmp_path))
+    assert [r["device"] for r in reports] == [
+        f"cuda:{rank % torch.cuda.device_count()}" for rank in range(2)]
+    assert all(r["launches"] == [0, 0] and len(r["seconds"]) == 11 for r in reports)
+    assert all(r["peak_device_gib"] > 0 for r in reports)

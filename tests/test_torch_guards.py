@@ -644,3 +644,59 @@ def test_bench_console_entry_refuses_the_cpu_without_a_gpu(tmp_path):
     assert proc.returncode == 3, proc.stderr
     assert proc.stdout == "" and "BackendError: no CUDA device" in proc.stderr
     assert not (tmp_path / "h.jsonl").exists()
+
+
+# ------------------------------------- the root entry scripts' counterparts
+
+#: every entry script at the repo root, or under ``scripts/``, that imports
+#: the JAX package, with its counterpart in the port
+_ROOT_SCRIPTS = {
+    "bench.py": "kubernetes_verification_tpu_torch/bench.py",
+    "__graft_entry__.py": "kubernetes_verification_tpu_torch/graft_entry.py",
+    "scripts/check_bench_regression.py":
+        "kubernetes_verification_tpu_torch/scripts/check_bench_regression.py",
+    "scripts/check_error_taxonomy.py":
+        "kubernetes_verification_tpu_torch/scripts/check_error_taxonomy.py",
+    "scripts/check_metrics_names.py":
+        "kubernetes_verification_tpu_torch/scripts/check_metrics_names.py",
+}
+
+
+def test_every_root_entry_script_has_a_port_counterpart():
+    """Each root or ``scripts/`` file that imports the JAX package is a
+    script of the reference, and each has its port counterpart."""
+    found = []
+    for rel in sorted(os.listdir(_ROOT)) + [
+            os.path.join("scripts", n) for n in sorted(os.listdir(os.path.join(_ROOT, "scripts")))]:
+        path = os.path.join(_ROOT, rel)
+        if rel.endswith(".py") and os.path.isfile(path) and (
+                "kubernetes_verification_tpu" in set(_imported_roots(path))):
+            found.append(rel)
+    assert sorted(found) == sorted(_ROOT_SCRIPTS)
+    for rel, port in _ROOT_SCRIPTS.items():
+        assert os.path.exists(os.path.join(_ROOT, port)), port
+
+
+def test_scan_covers_the_graft_entry_and_the_shims():
+    """The no-JAX scan reaches ``graft_entry.py`` and the new ``scripts/``
+    modules; none imports JAX or the JAX package, nor loads a root file by
+    path."""
+    ports = [os.path.join(_ROOT, p) for p in _ROOT_SCRIPTS.values()]
+    for path in ports:
+        assert path in _port_files(), path
+        roots = set(_imported_roots(path))
+        assert not roots & set(_FORBIDDEN), path
+        src = open(path, encoding="utf-8").read()
+        assert "import jax" not in src and "spec_from_file_location" not in src, path
+    assert "importlib" not in set(_imported_roots(os.path.join(_PKG, "graft_entry.py")))
+
+
+def test_graft_entry_console_refuses_the_cpu_without_a_gpu():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubernetes_verification_tpu_torch.graft_entry", "2"],
+        cwd=_ROOT, capture_output=True, text=True, env=env, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "BackendError: no CUDA device" in proc.stderr
+    assert "dryrun_multichip OK" not in proc.stdout

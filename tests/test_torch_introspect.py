@@ -437,9 +437,10 @@ def test_regression_gate_lower_is_better_units():
 
 def test_regression_gate_passes_the_committed_trajectory():
     """The committed ``BENCH_r*.json`` (read only) parse and pass the gate,
-    exactly as in the JAX package."""
-    paths = default_paths(str(REPO))
-    assert paths == jhist.default_paths(str(REPO))
+    exactly as in the JAX package, when their paths are given: the port's
+    default paths never name them (F8)."""
+    paths = sorted(str(p) for p in REPO.glob("BENCH_r*.json"))
+    assert not any(Path(p).name.startswith("BENCH_r") for p in default_paths(str(REPO)))
     if not paths:
         pytest.skip("no committed BENCH_r*.json trajectory")
     runs = load_runs(paths)
@@ -447,6 +448,97 @@ def test_regression_gate_passes_the_committed_trajectory():
     ok, findings = check_regression(runs)
     assert ok, format_findings(findings)
     assert (ok, findings) == jhist.check_regression(jhist.load_runs(paths))
+
+
+def _tpu_tree(tmp_path):
+    """A fresh tree: the committed TPU snapshots and no port history."""
+    for p in sorted(REPO.glob("BENCH_r*.json")):
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    return sorted(str(p) for p in tmp_path.glob("BENCH_r*.json"))
+
+
+def test_a_fresh_tree_reads_no_tpu_history(tmp_path, monkeypatch, capsys):
+    """F8: without the port's own history the default paths are empty (the
+    JAX package's fall back to the TPU's ``BENCH_r*.json``), ``history``
+    says so and names the port's bench; the port's history file, or the
+    one ``KVTPU_BENCH_HISTORY`` names, is read when it exists."""
+    from kubernetes_verification_tpu_torch.cli import main
+
+    monkeypatch.delenv("KVTPU_BENCH_HISTORY", raising=False)
+    snaps = _tpu_tree(tmp_path)
+    assert snaps and jhist.default_paths(str(tmp_path)) == snaps
+    assert default_paths(str(tmp_path)) == []
+    monkeypatch.chdir(tmp_path)
+    assert main(["history"]) == 0
+    out = capsys.readouterr().out
+    assert "no bench history found" in out and "kv-tpu-torch-bench" in out
+    assert "pairs/s" not in out
+    assert main(["history", "--json"]) == 0
+    assert json.loads(capsys.readouterr().out) == {"ok": True, "runs": [], "findings": []}
+    own = tmp_path / history.DEFAULT_HISTORY
+    append_run({"metric": "m", "value": 1.0, "unit": "pairs/s"}, str(own))
+    assert default_paths(str(tmp_path)) == [str(own)]
+    other = tmp_path / "elsewhere.jsonl"
+    append_run({"metric": "m", "value": 2.0, "unit": "pairs/s"}, str(other))
+    monkeypatch.setenv("KVTPU_BENCH_HISTORY", str(other))
+    assert default_paths(str(tmp_path)) == [str(other)]
+
+
+def test_card_and_tpu_records_form_two_series():
+    """F8: a series is keyed on the record's device too, so a card's runs
+    and the TPU's (no device) under the same metric and unit are gated
+    apart, derived series included; the TPU's findings stay the JAX
+    package's."""
+    metric, unit = "all-pairs reachability (tiled, 1 chip)", "pairs/s"
+    tpu = [{"metric": metric, "unit": unit, "value": v, "compile_s": 1.0}
+           for v in (3.6e9, 3.5e9, 3.4e9)]
+    card = [{"metric": metric, "unit": unit, "value": v, "compile_s": 3.0,
+             "device": "NVIDIA H100 80GB HBM3", "platform": "gpu"}
+            for v in (1.83e10, 1.82e10)]
+    ok, findings = check_regression(history.expand_derived(tpu + card))
+    assert ok
+    rows = [(f["metric"], f.get("device"), f["n_previous"]) for f in findings]
+    assert rows == [
+        (metric, None, 2), (metric, "NVIDIA H100 80GB HBM3", 1),
+        (f"{metric} compile_s", None, 2),
+        (f"{metric} compile_s", "NVIDIA H100 80GB HBM3", 1),
+    ]
+    # keyed on (metric, unit) alone, a TPU run after the card's reads as a
+    # regression of the card's series
+    mixed = card + tpu[-1:]
+    assert not jhist.check_regression(mixed)[0]
+    ok, findings = check_regression(mixed)
+    assert ok
+    assert [(f.get("device"), f["n_previous"]) for f in findings] == [
+        ("NVIDIA H100 80GB HBM3", 1)]
+    mine = check_regression(history.expand_derived(tpu))
+    assert mine == jhist.check_regression(jhist.expand_derived(tpu))
+    assert " on NVIDIA H100" in format_findings(findings)
+    assert " on " not in format_findings(mine[1])
+
+
+def test_bench_gate_reads_no_tpu_snapshot_by_default(tmp_path, monkeypatch, capsys):
+    """F8: in a tree with only the committed ``BENCH_r*.json``, the port's
+    gate reads 0 runs, says so and exits 0 — as the JAX gate does on an
+    empty path list; named, the snapshots are gated as before."""
+    import kubernetes_verification_tpu.observe.history as jhist_mod
+    from kubernetes_verification_tpu.analysis import bench_gate as jax_gate
+    from kubernetes_verification_tpu_torch.analysis import bench_gate
+
+    monkeypatch.delenv("KVTPU_BENCH_HISTORY", raising=False)
+    snaps = _tpu_tree(tmp_path)
+    monkeypatch.setattr(bench_gate, "repo_root", lambda: str(tmp_path))
+    assert bench_gate.main([]) == 0
+    out = capsys.readouterr().out
+    assert "no bench history of the port" in out and "kv-tpu-torch-bench" in out
+    monkeypatch.setattr(jhist_mod, "default_paths", lambda root: [])
+    assert jax_gate.main([]) == 0
+    jax_out = capsys.readouterr().out
+    assert jax_out.startswith("0 runs from 0 file(s)") and out.endswith(jax_out)
+    assert bench_gate.main(["--json"]) == 0
+    assert json.loads(capsys.readouterr().out) == {"ok": True, "findings": []}
+    assert bench_gate.main(snaps + ["--raw"]) == 0
+    assert capsys.readouterr().out.startswith(f"{len(snaps)} runs from {len(snaps)} file(s)")
 
 
 # ------------------------------------------------------------- the shim
