@@ -29,6 +29,7 @@ import numpy as np
 from ..backends.base import PortAtom
 from ..resilience.errors import EncodeError
 from ..models.core import Cluster, Container, KanoPolicy, NetworkPolicy, Selector
+from ..observe.spans import trace
 from .ports import (
     ALL_ATOM,
     compute_port_atoms,
@@ -385,57 +386,67 @@ def cluster_vocab(pods: Sequence, namespaces: Sequence) -> Vocab:
 def encode_cluster(
     cluster: Cluster, compute_ports: bool = True
 ) -> EncodedCluster:
-    vocab = cluster_vocab(cluster.pods, cluster.namespaces)
-    resolution = None
-    bank = None
-    if compute_ports:
-        atoms = compute_port_atoms(cluster.policies, cluster.pods)
-        resolution = named_resolution(cluster.policies, atoms, cluster.pods)
-        if resolution:
-            bank = _RestrictBank(cluster.n_pods)
-    else:
-        atoms = [ALL_ATOM]
-    ns_index = cluster.namespace_index()
-
-    pod_kv, pod_key = vocab.encode_label_matrix(p.labels for p in cluster.pods)
-    ns_kv, ns_key = vocab.encode_label_matrix(ns.labels for ns in cluster.namespaces)
-    pod_ns = np.asarray([ns_index[p.namespace] for p in cluster.pods], dtype=np.int32)
-    pol_ns = np.asarray(
-        [ns_index[pol.namespace] for pol in cluster.policies], dtype=np.int32
-    )
-    return EncodedCluster(
-        n_pods=cluster.n_pods,
-        n_namespaces=len(cluster.namespaces),
-        n_policies=len(cluster.policies),
-        vocab=vocab,
-        atoms=list(atoms),
-        pod_kv=pod_kv,
-        pod_key=pod_key,
-        pod_ns=pod_ns,
-        ns_kv=ns_kv,
-        ns_key=ns_key,
-        pol_sel=_encode_selector_stack(
-            [pol.pod_selector for pol in cluster.policies], vocab
-        ),
-        pol_ns=pol_ns,
-        pol_affects_ingress=np.asarray(
-            [pol.affects_ingress for pol in cluster.policies], dtype=bool
-        ),
-        pol_affects_egress=np.asarray(
-            [pol.affects_egress for pol in cluster.policies], dtype=bool
-        ),
-        ingress=_encode_grants(
-            cluster.policies, cluster.pods, "ingress", atoms, vocab,
-            resolution, bank,
-        ),
-        egress=_encode_grants(
-            cluster.policies, cluster.pods, "egress", atoms, vocab,
-            resolution, bank,
-        ),
-        restrict_bank=bank.array() if bank is not None else None,
-        resolution=resolution,
-        restrict_bank_intern=bank,
-    )
+    """The cluster's arrays, in spans for the program's stages: ``encode``
+    over ``encode.labels`` (vocabulary, label matrices, namespace index,
+    the policies' selector stack), ``encode.ports`` (port atoms and named
+    resolution, with ``compute_ports``) and one ``encode.grants`` a
+    direction."""
+    policies = cluster.policies
+    with trace("encode"):
+        with trace("encode.labels"):
+            vocab = cluster_vocab(cluster.pods, cluster.namespaces)
+            ns_index = cluster.namespace_index()
+            pod_kv, pod_key = vocab.encode_label_matrix(p.labels for p in cluster.pods)
+            ns_kv, ns_key = vocab.encode_label_matrix(
+                ns.labels for ns in cluster.namespaces
+            )
+            pod_ns = np.asarray(
+                [ns_index[p.namespace] for p in cluster.pods], dtype=np.int32
+            )
+            pol_ns = np.asarray(
+                [ns_index[pol.namespace] for pol in policies], dtype=np.int32
+            )
+            pol_sel = _encode_selector_stack([pol.pod_selector for pol in policies], vocab)
+            aff_ing = np.asarray([pol.affects_ingress for pol in policies], dtype=bool)
+            aff_eg = np.asarray([pol.affects_egress for pol in policies], dtype=bool)
+        resolution = None
+        bank = None
+        if compute_ports:
+            with trace("encode.ports"):
+                atoms = compute_port_atoms(policies, cluster.pods)
+                resolution = named_resolution(policies, atoms, cluster.pods)
+                if resolution:
+                    bank = _RestrictBank(cluster.n_pods)
+        else:
+            atoms = [ALL_ATOM]
+        blocks = {}
+        for direction in ("ingress", "egress"):
+            with trace("encode.grants", direction=direction):
+                blocks[direction] = _encode_grants(
+                    policies, cluster.pods, direction, atoms, vocab, resolution,
+                    bank,
+                )
+        return EncodedCluster(
+            n_pods=cluster.n_pods,
+            n_namespaces=len(cluster.namespaces),
+            n_policies=len(policies),
+            vocab=vocab,
+            atoms=list(atoms),
+            pod_kv=pod_kv,
+            pod_key=pod_key,
+            pod_ns=pod_ns,
+            ns_kv=ns_kv,
+            ns_key=ns_key,
+            pol_sel=pol_sel,
+            pol_ns=pol_ns,
+            pol_affects_ingress=aff_ing,
+            pol_affects_egress=aff_eg,
+            ingress=blocks["ingress"],
+            egress=blocks["egress"],
+            restrict_bank=bank.array() if bank is not None else None,
+            resolution=resolution,
+            restrict_bank_intern=bank,
+        )
 
 
 @dataclass

@@ -2,11 +2,12 @@
 stream, and — while a ``torch.profiler`` capture runs — the profiler trace.
 
 The PyTorch port's copy of ``kubernetes_verification_tpu.observe.spans``.
-Only the three profiler hooks differ: the device annotation is
-``torch.profiler.record_function``, and ``profile_to`` / ``capture_profile``
+Only the profiler hooks differ: the annotation is a torch record function
+(``_device_annotation``), ``profile_to`` / ``capture_profile``
 run ``torch.profiler.profile`` and write a Chrome trace
 (``<host>.pt.trace.json``) where the JAX package's profiler writes its
-TensorBoard trace.
+TensorBoard trace, and spans closed while a profiler records are kept in
+``profiled_spans``.
 
 ``trace("solve", backend="tpu")`` is the one instrumentation primitive the
 rest of the codebase uses. Each span:
@@ -20,10 +21,20 @@ rest of the codebase uses. Each span:
   header), its own ``span_id``, and ``parent_id`` linking it to its caller
   — the caller may live in another process (``trace_context`` adopts the
   parsed wire context so server-side spans parent under the client span);
-* wraps ``torch.profiler.record_function`` while a profiler is enabled,
-  so the same names line up in a trace captured via ``profile_to``. torch
-  is looked up in ``sys.modules`` and the annotation is skipped when no
-  profiler runs, so an untraced span pays no profiler call.
+* records itself in the profiler's trace while a profiler is enabled (a
+  host-side record function: ``_device_annotation`` says why not a
+  user-scope ``record_function``), so the same names line up in a trace
+  captured via ``profile_to``. torch is looked up in ``sys.modules`` and
+  the annotation is skipped when no profiler runs, so an untraced span
+  pays no profiler call;
+* while a profiler records, is also kept in a bounded in-process log
+  (``profiled_spans``), stamped with ``time.time_ns()`` at open and close —
+  the clock of the profiler's own events — so a reader of the same profile
+  can put each device interval down to the program stage the host was in.
+
+``trace_if_read`` is ``trace`` for hot paths (an engine's change): it opens
+a full span only where something reads closed spans — a profiler, a span
+sink or the event log — and an unrecorded one otherwise.
 
 Timestamps come from the one injectable clock in ``observe.events``: event
 lines carry wall ``ts`` (cross-process orderable) and monotonic ``perf``
@@ -37,21 +48,24 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import signal
 import sys
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 from .events import get_clock, log_event, set_context_provider
+from .events import logger as _event_logger
 from .metrics import PROFILE_CAPTURES_TOTAL, SPAN_SECONDS
 from .registry import set_exemplar_provider
 
 __all__ = [
     "Span",
     "trace",
+    "trace_if_read",
     "current_span",
     "current_trace_id",
     "trace_context",
@@ -61,6 +75,11 @@ __all__ = [
     "parse_trace_header",
     "add_span_sink",
     "remove_span_sink",
+    "LoggedSpan",
+    "PROFILED_SPANS_MAX",
+    "profiled_spans",
+    "profiled_spans_dropped",
+    "clear_profiled_spans",
     "Phases",
     "profile_to",
     "trace_to_dir",
@@ -89,6 +108,58 @@ _memory_hook = None
 #: callables handed every closed Span — the flight recorder's ring and the
 #: bench stage collector subscribe here instead of parsing event lines
 _span_sinks: list = []
+
+
+#: the bound of the profile-bound span log; spans closed past it are counted
+#: in ``profiled_spans_dropped()`` instead
+PROFILED_SPANS_MAX = 1 << 18
+
+
+class LoggedSpan(NamedTuple):
+    """One span closed while a torch profiler recorded, stamped with
+    ``time.time_ns()`` at open and at close: the clock of the profiler's
+    events, so a reader can put each device interval of the same profile
+    down to the program stage the host was in."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    attrs: Dict[str, object]
+    span_id: str
+    parent_id: Optional[str]
+
+
+_profiled_lock = threading.Lock()
+_profiled_log: List[LoggedSpan] = []
+_profiled_dropped = 0
+
+
+def profiled_spans() -> List[LoggedSpan]:
+    """The spans closed while a profiler recorded, in closing order."""
+    with _profiled_lock:
+        return list(_profiled_log)
+
+
+def profiled_spans_dropped() -> int:
+    """Spans closed while a profiler recorded, past the log's bound."""
+    return _profiled_dropped
+
+
+def clear_profiled_spans() -> None:
+    """Empty the profile-bound span log and its dropped count."""
+    global _profiled_dropped
+    with _profiled_lock:
+        _profiled_log.clear()
+        _profiled_dropped = 0
+
+
+def _log_profiled(entry: LoggedSpan) -> None:
+    global _profiled_dropped
+    with _profiled_lock:
+        if len(_profiled_log) < PROFILED_SPANS_MAX:
+            _profiled_log.append(entry)
+        else:
+            _profiled_dropped += 1
 
 
 def set_memory_hook(hook) -> None:
@@ -238,16 +309,32 @@ set_context_provider(_trace_fields)
 set_exemplar_provider(current_trace_id)
 
 
-def _device_annotation(name: str):
-    # annotate only while a torch profiler runs, and never import torch
-    # ourselves
+def _profiling() -> bool:
+    """Whether a torch profiler records now; torch is looked up, never
+    imported here."""
     torch = sys.modules.get("torch")
     if torch is None:
+        return False
+    try:
+        return bool(torch.autograd._profiler_enabled())
+    except Exception:
+        return False
+
+
+def _device_annotation(name: str, profiling: Optional[bool] = None):
+    """The span's record in the profiler's trace while a profiler records,
+    else a null context. A function-scope record (``_RecordFunctionFast``;
+    a torch without it gets no record, and the span log still keeps the
+    span), never ``record_function``'s user scope: the profiler mirrors a
+    user-scope range onto the card as one interval from its first kernel to
+    its last, idle gaps included, which a reader of the device trace would
+    count as busy time."""
+    if not (_profiling() if profiling is None else profiling):
         return contextlib.nullcontext()
     try:
-        if not torch.autograd._profiler_enabled():
-            return contextlib.nullcontext()
-        return torch.profiler.record_function(name)
+        torch = sys.modules["torch"]
+        fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+        return fast(name) if fast is not None else contextlib.nullcontext()
     except Exception:
         return contextlib.nullcontext()
 
@@ -297,41 +384,76 @@ def trace(name: str, _event: str = "span", **attrs) -> Iterator[Span]:
     if mem0 is not None:
         span.attrs["mem_enter_bytes"] = mem0
     _stack().append(span)
+    profiling = _profiling()
+    start_ns = time.time_ns() if profiling else 0
     t0 = clock.perf()
     try:
-        with _device_annotation(name):
+        with _device_annotation(name, profiling):
             yield span
     except BaseException:
         span.ok = False
         raise
     finally:
         span.seconds = clock.perf() - t0
+        if profiling:
+            _log_profiled(LoggedSpan(
+                name, start_ns, time.time_ns(), span.attrs, span.span_id,
+                span.parent_id,
+            ))
         _stack().pop()
         SPAN_SECONDS.labels(name=name).observe(span.seconds)
         mem1 = _memory_bytes()
         if mem1 is not None:
             span.attrs["mem_exit_bytes"] = mem1
-        fields = dict(span.attrs)
-        fields.update(
-            name=name,
-            seconds=span.seconds,
-            trace_id=span.trace_id,
-            span_id=span.span_id,
-            start_ts=span.start_wall,
-        )
-        if span.parent_id is not None:
-            fields["parent_id"] = span.parent_id
-        if span.parent is not None:
-            fields["parent"] = span.parent.name
-            fields["depth"] = span.depth
-        if not span.ok:
-            fields["ok"] = False
-        log_event(_event, **fields)
+        if _event_logger.isEnabledFor(logging.INFO):  # else log_event drops it
+            fields = dict(span.attrs)
+            fields.update(
+                name=name,
+                seconds=span.seconds,
+                trace_id=span.trace_id,
+                span_id=span.span_id,
+                start_ts=span.start_wall,
+            )
+            if span.parent_id is not None:
+                fields["parent_id"] = span.parent_id
+            if span.parent is not None:
+                fields["parent"] = span.parent.name
+                fields["depth"] = span.depth
+            if not span.ok:
+                fields["ok"] = False
+            log_event(_event, **fields)
         for sink in list(_span_sinks):
             try:
                 sink(span)
             except Exception:  # a broken sink must not fail traced work
                 pass
+
+
+class _Unrecorded:
+    """The span ``trace_if_read`` opens where nothing reads spans: its
+    attrs go nowhere."""
+
+    __slots__ = ("attrs",)
+
+    def __init__(self, attrs: Dict[str, object]) -> None:
+        self.attrs = attrs
+
+    def __enter__(self) -> "_Unrecorded":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+def trace_if_read(name: str, **attrs):
+    """``trace(name, **attrs)`` where something reads closed spans (a torch
+    profiler records, a span sink is installed, or the ``kvtpu`` event log
+    is on), else an unrecorded span: no ids, no nesting, no histogram. For
+    spans on a hot path, an engine's change of a few ms: there a full span
+    costs about 0.1 ms with the host's caches cold, three a change."""
+    if _span_sinks or _event_logger.isEnabledFor(logging.INFO) or _profiling():
+        return trace(name, **attrs)
+    return _Unrecorded(attrs)
 
 
 class Phases:
@@ -343,15 +465,18 @@ class Phases:
     injectable clock the spans themselves stamp from.
     """
 
-    def __init__(self) -> None:
+    def __init__(self, prefix: str = "") -> None:
+        """``prefix`` goes before each phase's name in its span's name (an
+        engine's build: ``engine.build.``), not in ``timings``."""
         self.timings: Dict[str, float] = {}
+        self.prefix = prefix
 
     @contextlib.contextmanager
     def __call__(self, name: str, **attrs) -> Iterator[Span]:
         clock = get_clock()
         t0 = clock.perf()
         try:
-            with trace(name, _event="phase", **attrs) as span:
+            with trace(self.prefix + name, _event="phase", **attrs) as span:
                 yield span
         finally:
             self.timings[name] = self.timings.get(name, 0.0) + (

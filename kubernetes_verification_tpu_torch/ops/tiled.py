@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..encode.encoder import EncodedCluster, GrantBlock
+from ..observe.spans import trace
 from ..resilience.errors import ConfigError
 from ..runtime import resolve_device
 from .bits import (
@@ -260,29 +261,32 @@ def _tiled_step(
     direction_aware_isolation: bool,
     use_kernel: bool,
 ):
-    """The any-port solve over the device operands ``a`` (``_device_args``)."""
+    """The any-port solve over the device operands ``a`` (``_device_args``):
+    the ``solve.maps`` span, then ``solve.kernel`` (two launches of
+    ``packed_reach``'s kernel, or the torch sweep)."""
     col_mask = a.col_mask
-    selected8, sel_ing8, sel_eg8, ing_iso, eg_iso, ing_by_pol, eg_by_pol = (
-        _policy_maps(
-            a, chunk=chunk, direction_aware_isolation=direction_aware_isolation
+    with trace("solve.maps"):
+        selected8, sel_ing8, sel_eg8, ing_iso, eg_iso, ing_by_pol, eg_by_pol = (
+            _policy_maps(
+                a, chunk=chunk, direction_aware_isolation=direction_aware_isolation
+            )
         )
-    )
-    if use_kernel:
-        out = packed_reach(
-            ing_by_pol, sel_ing8, sel_eg8, eg_by_pol,
-            _not_iso(ing_iso), _not_iso(eg_iso),
-            self_traffic=self_traffic,
-            default_allow_unselected=default_allow_unselected,
-        )
-        out &= col_mask[None, :]
-        return out, ing_iso, eg_iso, selected8 > 0
-
-    out = _sweep_packed(
-        sel_ing8, sel_eg8, ing_by_pol, eg_by_pol, ing_iso, eg_iso, col_mask,
-        tile=tile,
-        self_traffic=self_traffic,
-        default_allow_unselected=default_allow_unselected,
-    )
+    with trace("solve.kernel"):
+        if use_kernel:
+            out = packed_reach(
+                ing_by_pol, sel_ing8, sel_eg8, eg_by_pol,
+                _not_iso(ing_iso), _not_iso(eg_iso),
+                self_traffic=self_traffic,
+                default_allow_unselected=default_allow_unselected,
+            )
+            out &= col_mask[None, :]
+        else:
+            out = _sweep_packed(
+                sel_ing8, sel_eg8, ing_by_pol, eg_by_pol, ing_iso, eg_iso, col_mask,
+                tile=tile,
+                self_traffic=self_traffic,
+                default_allow_unselected=default_allow_unselected,
+            )
     return out, ing_iso, eg_iso, selected8 > 0
 
 
@@ -604,45 +608,56 @@ def tiled_k8s_reach(
         direction_aware_isolation=direction_aware_isolation,
     )
     t0 = time.perf_counter()
-    if len(enc.atoms) > 1:
-        from .tiled_ports import ports_step
+    with trace("solve"):
+        if len(enc.atoms) > 1:
+            from .tiled_ports import ports_step
 
-        packed, ing_iso, eg_iso, selected, kernel = ports_step(
-            enc, tile=tile, chunk=chunk, dev=dev, use_kernel=use_kernel, **flags
-        )
-    else:
-        tile = max(32, min(tile, 1 << 20))
-        if tile % 32:
-            raise ConfigError("tile must be a multiple of 32")
-        if use_kernel and tile % N_TILE:
-            raise ConfigError(f"use_kernel requires tile % {N_TILE} == 0 (kernel tile)")
-        packed, ing_iso, eg_iso, selected = _tiled_step(
-            _device_args(enc, tile, chunk, dev),
-            tile=tile, chunk=chunk, use_kernel=use_kernel, **flags,
-        )
-        kernel = "packed_dir_allow" if use_kernel else "torch-sweep"
-    if fetch:
-        packed_out = to_host_words(packed[:n])
-        label = "solve+fetch"
-    else:
-        # synchronise on the pair count, not on the 1.25 GB matrix
-        total = packed_pair_total(packed[:n])
-        packed_out = packed[:n]
-        label = "solve"
-    t1 = time.perf_counter()
+            packed, ing_iso, eg_iso, selected, kernel = ports_step(
+                enc, tile=tile, chunk=chunk, dev=dev, use_kernel=use_kernel, **flags
+            )
+        else:
+            with trace("solve.prologue"):
+                tile = max(32, min(tile, 1 << 20))
+                if tile % 32:
+                    raise ConfigError("tile must be a multiple of 32")
+                if use_kernel and tile % N_TILE:
+                    raise ConfigError(
+                        f"use_kernel requires tile % {N_TILE} == 0 (kernel tile)"
+                    )
+                host = _host_args(enc, tile, chunk)
+            with trace("solve.upload"):
+                a = _put(host, dev)
+            del host
+            packed, ing_iso, eg_iso, selected = _tiled_step(
+                a, tile=tile, chunk=chunk, use_kernel=use_kernel, **flags,
+            )
+            del a
+            kernel = "packed_dir_allow" if use_kernel else "torch-sweep"
+        # where the host waits for the card
+        with trace("solve.sync"):
+            if fetch:
+                packed_out = to_host_words(packed[:n])
+                label = "solve+fetch"
+            else:
+                # synchronise on the pair count, not on the 1.25 GB matrix
+                total = packed_pair_total(packed[:n])
+                packed_out = packed[:n]
+                label = "solve"
+            t1 = time.perf_counter()
+            ing_out = ing_iso[:n].cpu().numpy()
+            eg_out = eg_iso[:n].cpu().numpy()
+            selected_out = selected[:, :n].cpu().numpy() if fetch else None
     out = PackedReach(
         packed=packed_out,
         n_pods=n,
-        ingress_isolated=ing_iso[:n].cpu().numpy(),
-        egress_isolated=eg_iso[:n].cpu().numpy(),
-        selected=None,
+        ingress_isolated=ing_out,
+        egress_isolated=eg_out,
+        selected=selected_out,
         timings={label: t1 - t0},
         meta={"kernel": kernel},
     )
     if not fetch:
         out.timings["reachable_pairs"] = total
-    else:
-        out.selected = selected[:, :n].cpu().numpy()
     return out
 
 

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..encode.encoder import EncodedCluster, GrantBlock
+from ..observe.spans import trace
 from ..resilience.errors import ConfigError
 from .bits import or_diagonal, pack_bool_cols
 from .kernels import K_STEP, N_TILE, check_mask_count, fused_ports_reach
@@ -385,47 +386,51 @@ def _tiled_ports_step(
 
     ``reach = (DI∧DE) ∨ (DI∧GE_any) ∨ (DE∧GI_any) ∨ (∃q: GI_q∧GE_q)``; the
     segment counts are exact float32 products (≤ K < 2²⁴, TF32 off), the src
-    operands converted once."""
-    selected8, sel_ing_ext, sel_eg_ext, ing_iso, eg_iso, vp_peers_i, vp_peers_e = _vp_maps(
-        a, vp, chunk=chunk, direction_aware_isolation=direction_aware_isolation
-    )
-    vp_pol_i, vp_res_i, bank8 = vp.pol_i.long(), vp.res_i.long(), vp.bank8
-    # named ports, egress: the dst operand is the peer map, gated per VP row
-    vp_peers_e = vp_peers_e * bank8[vp.res_e.long()]
-    src_i = vp_peers_i.to(_F32)  # [total_i, N]
-    src_e = sel_eg_ext[vp.pol_e.long()].to(_F32)  # [total_e, N]
-    del vp_peers_i
+    operands converted once. Spans: ``solve.maps``, then ``solve.kernel``
+    over the dst tiles."""
+    with trace("solve.maps"):
+        selected8, sel_ing_ext, sel_eg_ext, ing_iso, eg_iso, vp_peers_i, vp_peers_e = (
+            _vp_maps(a, vp, chunk=chunk,
+                     direction_aware_isolation=direction_aware_isolation)
+        )
+        vp_pol_i, vp_res_i, bank8 = vp.pol_i.long(), vp.res_i.long(), vp.bank8
+        # named ports, egress: the dst operand is the peer map, gated per VP row
+        vp_peers_e = vp_peers_e * bank8[vp.res_e.long()]
+        src_i = vp_peers_i.to(_F32)  # [total_i, N]
+        src_e = sel_eg_ext[vp.pol_e.long()].to(_F32)  # [total_e, N]
+        del vp_peers_i
     N = src_i.shape[1]
-    out = torch.empty((N, N // 32), dtype=_I32, device=src_i.device)
-    for d0 in range(0, N, tile):
-        d1 = d0 + tile
-        sel_ing_t = sel_ing_ext[:, d0:d1]
-        bank_t = bank8[:, d0:d1]
-        vpe_t = vp_peers_e[:, d0:d1]
-        false_t = torch.zeros((N, d1 - d0), dtype=torch.bool, device=out.device)
+    with trace("solve.kernel"):
+        out = torch.empty((N, N // 32), dtype=_I32, device=src_i.device)
+        for d0 in range(0, N, tile):
+            d1 = d0 + tile
+            sel_ing_t = sel_ing_ext[:, d0:d1]
+            bank_t = bank8[:, d0:d1]
+            vpe_t = vp_peers_e[:, d0:d1]
+            false_t = torch.zeros((N, d1 - d0), dtype=torch.bool, device=out.device)
 
-        def ing_dot(start: int, length: int) -> torch.Tensor:
-            """GI of one VP row range; the dst operand (the policy's
-            selection) gated by each VP's restriction row."""
-            sl = slice(start, start + length)
-            b = sel_ing_t[vp_pol_i[sl]] * bank_t[vp_res_i[sl]]
-            with exact_fp32():
-                return (src_i[sl].T @ b.to(_F32)) > 0
+            def ing_dot(start: int, length: int) -> torch.Tensor:
+                """GI of one VP row range; the dst operand (the policy's
+                selection) gated by each VP's restriction row."""
+                sl = slice(start, start + length)
+                b = sel_ing_t[vp_pol_i[sl]] * bank_t[vp_res_i[sl]]
+                with exact_fp32():
+                    return (src_i[sl].T @ b.to(_F32)) > 0
 
-        def eg_dot(start: int, length: int) -> torch.Tensor:
-            sl = slice(start, start + length)
-            with exact_fp32():
-                return (src_e[sl].T @ vpe_t[sl].to(_F32)) > 0
+            def eg_dot(start: int, length: int) -> torch.Tensor:
+                sl = slice(start, start + length)
+                with exact_fp32():
+                    return (src_e[sl].T @ vpe_t[sl].to(_F32)) > 0
 
-        r, gi_any, ge_any = _mask_group_conj(layout, ing_dot, eg_dot, false_t)
-        if default_allow_unselected:
-            di = ~ing_iso[None, d0:d1]
-            de = ~eg_iso[:, None]
-            r = r | (di & de) | (di & ge_any) | (de & gi_any)
-        out[:, d0 // 32 : d1 // 32] = pack_bool_cols(r)
-    if self_traffic:
-        or_diagonal(out)
-    out &= a.col_mask[None, :]
+            r, gi_any, ge_any = _mask_group_conj(layout, ing_dot, eg_dot, false_t)
+            if default_allow_unselected:
+                di = ~ing_iso[None, d0:d1]
+                de = ~eg_iso[:, None]
+                r = r | (di & de) | (di & ge_any) | (de & gi_any)
+            out[:, d0 // 32 : d1 // 32] = pack_bool_cols(r)
+        if self_traffic:
+            or_diagonal(out)
+        out &= a.col_mask[None, :]
     return out, ing_iso, eg_iso, selected8 > 0
 
 
@@ -554,16 +559,21 @@ def _tiled_ports_fused_step(
 ):
     """The fused route (JAX ``_tiled_ports_fused_step``): one
     ``fused_ports_reach`` over all N, then the diagonal and ``col_mask`` on
-    the words. ``k_rows`` goes to the kernel's cost report."""
-    args, ing_iso, eg_iso, selected8 = _fused_inputs(
-        a, vp, layout=layout, chunk=chunk,
-        direction_aware_isolation=direction_aware_isolation,
-    )
-    out = fused_ports_reach(*args, default_allow=default_allow_unselected, k_rows=k_rows)
-    del args  # the two [N, K'] operands
-    if self_traffic:
-        or_diagonal(out)
-    out &= a.col_mask[None, :]
+    the words. ``k_rows`` goes to the kernel's cost report. Spans: ``solve.maps`` (the VP maps and the K-contiguous
+    operands), then ``solve.kernel``."""
+    with trace("solve.maps"):
+        args, ing_iso, eg_iso, selected8 = _fused_inputs(
+            a, vp, layout=layout, chunk=chunk,
+            direction_aware_isolation=direction_aware_isolation,
+        )
+    with trace("solve.kernel"):
+        out = fused_ports_reach(
+            *args, default_allow=default_allow_unselected, k_rows=k_rows
+        )
+        del args  # the two [N, K'] operands
+        if self_traffic:
+            or_diagonal(out)
+        out &= a.col_mask[None, :]
     return out, ing_iso, eg_iso, selected8 > 0
 
 
@@ -662,9 +672,12 @@ def ports_step(
 ):
     """The multi-atom branch of ``ops/tiled.py::tiled_k8s_reach`` (JAX
     ``tiled_k8s_reach`` with ports): ``(packed, ing_iso, eg_iso, selected,
-    kernel_name)`` on ``dev``, N padded."""
-    pro = _prologue(enc, tile=tile, chunk=chunk, use_kernel=use_kernel)
-    _check_resident(pro, dev, use_kernel)
+    kernel_name)`` on ``dev``, N padded. Spans: ``solve.prologue`` (the host
+    prologue and the residency check) and ``solve.upload``, then the
+    route's ``solve.maps`` and ``solve.kernel``."""
+    with trace("solve.prologue"):
+        pro = _prologue(enc, tile=tile, chunk=chunk, use_kernel=use_kernel)
+        _check_resident(pro, dev, use_kernel)
     flags = dict(
         layout=pro.layout,
         chunk=chunk,
@@ -672,7 +685,8 @@ def ports_step(
         default_allow_unselected=default_allow_unselected,
         direction_aware_isolation=direction_aware_isolation,
     )
-    a, vp = _put(pro.host, dev), _put(pro.vp, dev)
+    with trace("solve.upload"):
+        a, vp = _put(pro.host, dev), _put(pro.vp, dev)
     if use_kernel:
         # the real VP rows, counted on the host only for a cost report
         k_rows = lambda: _stats(enc, pro)["K"]  # noqa: E731

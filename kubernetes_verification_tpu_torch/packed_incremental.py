@@ -54,7 +54,7 @@ replicated and holds only its shard of the device state.
 from __future__ import annotations
 
 import dataclasses
-import time
+import functools
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -72,6 +72,7 @@ from .encode.ports import ALL_ATOM
 from .models.core import Cluster, Namespace, NetworkPolicy, Pod
 from .observe import DispatchTracker
 from .observe.metrics import INCREMENTAL_OPS, STRIPE_WIDTH, STRIPES_SOLVED
+from .observe.spans import Phases, trace_if_read
 from .ops.bits import or_diagonal, pack_bool_cols, to_host_words
 from .ops.closure import _words, bool_dot
 from .ops.kernels import packed_dir_allow_pod_major
@@ -94,6 +95,24 @@ _I32 = torch.int32
 _ROW_GROUP = 512
 #: max dst columns recomputed per column patch (bounds the [Np, cols] counts)
 _COL_GROUP = 256
+
+
+def _change(op: str):
+    """Run an engine's public change method in the span ``engine.<op>``.
+    Inside it, ``engine.evaluate`` holds the host evaluation (attrs
+    ``rows``, ``cols``: the pod rows and columns the change re-derives) and
+    ``engine.dispatch`` the uploads and launches. All three are
+    ``trace_if_read`` spans: recorded only where something reads them."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def change(self, *args, **kwargs):
+            with trace_if_read(f"engine.{op}"):
+                return fn(self, *args, **kwargs)
+
+        return change
+
+    return wrap
 
 
 def _groups(idx: np.ndarray, cap: int) -> Iterable[np.ndarray]:
@@ -804,118 +823,114 @@ class PackedIncrementalVerifier:
         self._closure_base = None
         self._closure_dirty: Optional[np.ndarray] = None
         cfg = self.config
-        timings: Dict[str, float] = {}
+        phase = Phases(prefix="engine.build.")
 
-        t0 = time.perf_counter()
-        snapshot = Cluster(
-            pods=self.pods,
-            namespaces=self.namespaces,  # __post_init__ appends missing ns
-            policies=list(cluster.policies),
-        )
-        # label dicts are COPIED: an aliased caller dict mutated in place
-        # would satisfy the relabel no-op guard and silently skip the
-        # re-derivation (pods are deep-copied for the same reason)
-        self._ns_labels = {ns.name: dict(ns.labels) for ns in self.namespaces}
-        enc = encode_cluster(snapshot, compute_ports=False)
-        n = enc.n_pods
-        self.n_pods = n
-        align = 128 * dp
-        self._pod_align = align
-        Np = max(align, -(-(n + pod_headroom) // align) * align)
-        self._n_padded = Np
-        n_pad = Np - n
-        P = enc.n_policies
-        self._capacity = max(slot_round, -(-(P + 8) // slot_round) * slot_round)
-        self._shards = _make_shards(mesh, Np, self._capacity)
-        pod_kv, pod_key, pod_ns = pad_pods(enc.pod_kv, enc.pod_key, enc.pod_ns, n_pad)
-        # pod-slot bookkeeping: [0, n_pods) is the high-water mark of ever-
-        # occupied slots; [n_pods, Np) is headroom; removed slots recycle
-        self.pod_active = np.ones(n, dtype=bool)
-        self._pod_free: List[int] = []
-        self._pod_idx: Dict[str, int] = {}
-        for i, p in enumerate(self.pods):
-            self._pod_idx.setdefault(self._pod_key(p), i)
-        self._col_valid = np.zeros(Np, dtype=bool)
-        self._col_valid[:n] = True
-        col_mask = self._col_mask_host()
-        self._col_mask = self._put(col_mask)
-        rv = np.zeros(Np, dtype=np.int8)
-        rv[:n] = 1
-        self._row_valid = self._put_rows(rv)
-        timings["encode"] = time.perf_counter() - t0
+        with phase("encode"):
+            snapshot = Cluster(
+                pods=self.pods,
+                namespaces=self.namespaces,  # __post_init__ appends missing ns
+                policies=list(cluster.policies),
+            )
+            # label dicts are COPIED: an aliased caller dict mutated in place
+            # would satisfy the relabel no-op guard and silently skip the
+            # re-derivation (pods are deep-copied for the same reason)
+            self._ns_labels = {ns.name: dict(ns.labels) for ns in self.namespaces}
+            enc = encode_cluster(snapshot, compute_ports=False)
+            n = enc.n_pods
+            self.n_pods = n
+            align = 128 * dp
+            self._pod_align = align
+            Np = max(align, -(-(n + pod_headroom) // align) * align)
+            self._n_padded = Np
+            n_pad = Np - n
+            P = enc.n_policies
+            self._capacity = max(slot_round, -(-(P + 8) // slot_round) * slot_round)
+            self._shards = _make_shards(mesh, Np, self._capacity)
+            pod_kv, pod_key, pod_ns = pad_pods(enc.pod_kv, enc.pod_key, enc.pod_ns, n_pad)
+            # pod-slot bookkeeping: [0, n_pods) is the high-water mark of ever-
+            # occupied slots; [n_pods, Np) is headroom; removed slots recycle
+            self.pod_active = np.ones(n, dtype=bool)
+            self._pod_free: List[int] = []
+            self._pod_idx: Dict[str, int] = {}
+            for i, p in enumerate(self.pods):
+                self._pod_idx.setdefault(self._pod_key(p), i)
+            self._col_valid = np.zeros(Np, dtype=bool)
+            self._col_valid[:n] = True
+            col_mask = self._col_mask_host()
+            self._col_mask = self._put(col_mask)
+            rv = np.zeros(Np, dtype=np.int8)
+            rv[:n] = 1
+            self._row_valid = self._put_rows(rv)
 
-        t0 = time.perf_counter()
-        self._slot_round = slot_round
-        g_chunk = max(1, min(chunk, max(enc.ingress.n, enc.egress.n, 1)))
-        args = _put_args(HostArgs(
-            pod_kv, pod_key, pod_ns, enc.ns_kv, enc.ns_key, enc.pol_sel,
-            enc.pol_ns, enc.pol_affects_ingress, enc.pol_affects_egress,
-            pad_grants(enc.ingress, (-enc.ingress.n) % g_chunk, P, n_pad),
-            pad_grants(enc.egress, (-enc.egress.n) % g_chunk, P, n_pad),
-            col_mask,
-        ), self.device)
-        maps = _build_maps(
-            args, self._capacity, chunk=g_chunk,
-            direction_aware=cfg.direction_aware_isolation,
-        )
-        del args
-        # host mirrors of the isolation counts (real pods only) — these plus
-        # the vectorizer make every diff's row/word derivation host-local
-        self._h_ing_cnt = maps[4][:n].cpu().numpy().astype(np.int64)
-        self._h_eg_cnt = maps[5][:n].cpu().numpy().astype(np.int64)
-        if self._shards is not None:
-            # the maps were built whole; this rank keeps its block
-            sh = self._shards
-            cs = slice(sh.c0, sh.c0 + sh.cb)
-            maps = tuple(m[sh.rows, cs].contiguous() for m in maps[:4]) + tuple(
-                c[sh.rows].clone() for c in maps[4:])
-        (
-            self._sel_ing8, self._sel_eg8, self._ing_by_pol, self._eg_by_pol,
-            self._ing_cnt, self._eg_cnt,
-        ) = maps
-        del maps
-        self._free = list(range(P, self._capacity))
-        for i, pol in enumerate(cluster.policies):
-            key = self._key(pol)
-            if key in self.policies:
-                raise KeyError(f"duplicate policy {key}")
-            self.policies[key] = pol
-            self._slot[key] = i
-        self._sync()
-        timings["maps"] = time.perf_counter() - t0
+        with phase("maps"):
+            self._slot_round = slot_round
+            g_chunk = max(1, min(chunk, max(enc.ingress.n, enc.egress.n, 1)))
+            args = _put_args(HostArgs(
+                pod_kv, pod_key, pod_ns, enc.ns_kv, enc.ns_key, enc.pol_sel,
+                enc.pol_ns, enc.pol_affects_ingress, enc.pol_affects_egress,
+                pad_grants(enc.ingress, (-enc.ingress.n) % g_chunk, P, n_pad),
+                pad_grants(enc.egress, (-enc.egress.n) % g_chunk, P, n_pad),
+                col_mask,
+            ), self.device)
+            maps = _build_maps(
+                args, self._capacity, chunk=g_chunk,
+                direction_aware=cfg.direction_aware_isolation,
+            )
+            del args
+            # host mirrors of the isolation counts (real pods only) — these plus
+            # the vectorizer make every diff's row/word derivation host-local
+            self._h_ing_cnt = maps[4][:n].cpu().numpy().astype(np.int64)
+            self._h_eg_cnt = maps[5][:n].cpu().numpy().astype(np.int64)
+            if self._shards is not None:
+                # the maps were built whole; this rank keeps its block
+                sh = self._shards
+                cs = slice(sh.c0, sh.c0 + sh.cb)
+                maps = tuple(m[sh.rows, cs].contiguous() for m in maps[:4]) + tuple(
+                    c[sh.rows].clone() for c in maps[4:])
+            (
+                self._sel_ing8, self._sel_eg8, self._ing_by_pol, self._eg_by_pol,
+                self._ing_cnt, self._eg_cnt,
+            ) = maps
+            del maps
+            self._free = list(range(P, self._capacity))
+            for i, pol in enumerate(cluster.policies):
+                key = self._key(pol)
+                if key in self.policies:
+                    raise KeyError(f"duplicate policy {key}")
+                self.policies[key] = pol
+                self._slot[key] = i
+            self._sync()
 
-        t0 = time.perf_counter()
-        if keep_matrix is None:
-            keep_matrix = mesh is None or Np * (Np // 32) * 4 // dp <= (1 << 30)
-        self.keep_matrix = bool(keep_matrix)
-        #: matrix-free mode: touched rows/cols since the last full re-solve
-        self.dirty_rows = np.zeros(n, dtype=bool)
-        self.dirty_cols = np.zeros(n, dtype=bool)
-        if not self.keep_matrix:
-            self._packed = None
-        elif self._shards is not None:
-            self._packed = self._shards.build_packed(self, self._flags)
-        else:
-            self._packed = _build_packed(
-                self._maps, self._col_mask, self._row_valid, **self._flags)
-        self._sync()
-        timings["kernel"] = time.perf_counter() - t0
+        with phase("kernel"):
+            if keep_matrix is None:
+                keep_matrix = mesh is None or Np * (Np // 32) * 4 // dp <= (1 << 30)
+            self.keep_matrix = bool(keep_matrix)
+            #: matrix-free mode: touched rows/cols since the last full re-solve
+            self.dirty_rows = np.zeros(n, dtype=bool)
+            self.dirty_cols = np.zeros(n, dtype=bool)
+            if not self.keep_matrix:
+                self._packed = None
+            elif self._shards is not None:
+                self._packed = self._shards.build_packed(self, self._flags)
+            else:
+                self._packed = _build_packed(
+                    self._maps, self._col_mask, self._row_valid, **self._flags)
+            self._sync()
 
-        t0 = time.perf_counter()
-        self._vectorizer = PolicyVectorizer(
-            self.pods,
-            self._ns_labels,
-            enc.vocab,
-            {ns.name: i for i, ns in enumerate(self.namespaces)},
-            cfg.direction_aware_isolation,
-        )
-        self._prewarm()
-        timings["vectorizer"] = time.perf_counter() - t0
+        with phase("vectorizer"):
+            self._vectorizer = PolicyVectorizer(
+                self.pods,
+                self._ns_labels,
+                enc.vocab,
+                {ns.name: i for i, ns in enumerate(self.namespaces)},
+                cfg.direction_aware_isolation,
+            )
+            self._prewarm()
         #: seconds of the build's phases: host encode, the maps on the
         #: device, the packed matrix (the two kernel launches; on a mesh the
         #: sub-stripe sweep), the host vectorizer
-        self.build_timings = timings
-        self.init_time = sum(timings.values())
+        self.build_timings = phase.timings
+        self.init_time = sum(phase.timings.values())
 
     def _put(self, x) -> torch.Tensor:
         """A host array as a tensor of its own on the engine's device."""
@@ -1147,10 +1162,12 @@ class PackedIncrementalVerifier:
         for g in _groups(cols, _COL_GROUP):
             self._shards.patch_cols(self, g, self._flags)
 
-    def _set_slot(self, slot: int, old4, new4) -> None:
-        """old4/new4: host int8 [n] vector quadruples (old may be None for a
-        fresh slot). Host math + device calls only: no device→host fetch
-        sits on the diff's path."""
+    def _slot_lines(self, old4, new4, span) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Host math of one slot diff: ``(stacked, rows, cols)``, the slot's
+        padded int8 [4, Np] vectors and the touched rows and columns,
+        counted on ``span``. old4/new4: host int8 [n] vector quadruples (old
+        may be None for a fresh slot). No device→host fetch sits on the
+        diff's path."""
         n = self.n_pods
         zeros = np.zeros(n, dtype=np.int8)
         if old4 is None:
@@ -1172,10 +1189,17 @@ class PackedIncrementalVerifier:
         self._h_eg_cnt = eg2
         stacked = np.zeros((4, self._n_padded), dtype=np.int8)
         stacked[:, :n] = new4
-        self._dispatch_diff(slot, stacked, rows, cols)
+        span.attrs.update(rows=len(rows), cols=len(cols))
+        return stacked, rows, cols
+
+    def _set_slot(self, slot: int, stacked, rows, cols) -> None:
+        """``_slot_lines``' diff written to the device: ``engine.dispatch``."""
+        with trace_if_read("engine.dispatch"):
+            self._dispatch_diff(slot, stacked, rows, cols)
         self.update_count += 1
 
     # ---------------------------------------------------------------- diffs
+    @_change("policy_add")
     def add_policy(self, pol: NetworkPolicy) -> None:
         key = self._key(pol)
         if key in self.policies:
@@ -1184,30 +1208,37 @@ class PackedIncrementalVerifier:
             self._ns_labels[pol.namespace] = {}
         if not self._free:
             self._grow()
-        vecs = self._vectorizer.vectors(pol)
-        slot = self._free.pop()
-        self.policies[key] = pol
-        self._slot[key] = slot
-        self._set_slot(slot, None, vecs)
+        with trace_if_read("engine.evaluate") as ev:
+            vecs = self._vectorizer.vectors(pol)
+            slot = self._free.pop()
+            self.policies[key] = pol
+            self._slot[key] = slot
+            lines = self._slot_lines(None, vecs, ev)
+        self._set_slot(slot, *lines)
         self._count_op("policy_add")
 
+    @_change("policy_remove")
     def remove_policy(self, namespace: str, name: str) -> None:
         key = f"{namespace}/{name}"
-        pol = self.policies.pop(key)  # KeyError if absent
-        slot = self._slot.pop(key)
-        old = self._vectorizer.vectors(pol)
-        zero = np.zeros(self.n_pods, dtype=np.int8)
-        self._set_slot(slot, old, (zero, zero, zero, zero))
+        with trace_if_read("engine.evaluate") as ev:
+            pol = self.policies.pop(key)  # KeyError if absent
+            slot = self._slot.pop(key)
+            zero = np.zeros(self.n_pods, dtype=np.int8)
+            lines = self._slot_lines(self._vectorizer.vectors(pol), (zero,) * 4, ev)
+        self._set_slot(slot, *lines)
         self._free.append(slot)
         self._count_op("policy_remove")
 
+    @_change("policy_update")
     def update_policy(self, pol: NetworkPolicy) -> None:
         key = self._key(pol)
-        slot = self._slot[key]  # KeyError if absent
-        old = self._vectorizer.vectors(self.policies[key])
-        vecs = self._vectorizer.vectors(pol)
-        self.policies[key] = pol
-        self._set_slot(slot, old, vecs)
+        with trace_if_read("engine.evaluate") as ev:
+            slot = self._slot[key]  # KeyError if absent
+            old = self._vectorizer.vectors(self.policies[key])
+            vecs = self._vectorizer.vectors(pol)
+            self.policies[key] = pol
+            lines = self._slot_lines(old, vecs, ev)
+        self._set_slot(slot, *lines)
         self._count_op("policy_update")
 
     def _pod_cols(self, pod: Pod) -> np.ndarray:
@@ -1222,55 +1253,59 @@ class PackedIncrementalVerifier:
             )
         return cols
 
+    @_change("pod_relabel")
     def update_pod_labels(self, idx: int, labels: Dict[str, str]) -> None:
         """Relabel pod ``idx``: one row of each map + the pod's own packed
         row and column are patched; O(P) host evaluation of this pod."""
         if not 0 <= idx < self.n_pods or not self.pod_active[idx]:
             raise KeyError(f"pod slot {idx} is not an active pod")
-        pod = self.pods[idx]
-        pod.labels = dict(labels)
-        self._vectorizer.note_pod(idx)
-        cols = self._pod_cols(pod)
-        if self._shards is not None:
-            self._shards.write_pod_rows(self, [idx], cols[:, None, :])
-        else:
-            _apply_pod_col(self._maps, idx, self._put(cols))
-        self._h_ing_cnt[idx] = int(cols[0].sum())
-        self._h_eg_cnt[idx] = int(cols[1].sum())
-        if self._packed is None:
-            self.dirty_rows[idx] = True
-            self.dirty_cols[idx] = True
-        else:
-            self._patch(np.asarray([idx]), np.asarray([idx]))
+        with trace_if_read("engine.evaluate", rows=1, cols=1):
+            pod = self.pods[idx]
+            pod.labels = dict(labels)
+            self._vectorizer.note_pod(idx)
+            cols = self._pod_cols(pod)
+            self._h_ing_cnt[idx] = int(cols[0].sum())
+            self._h_eg_cnt[idx] = int(cols[1].sum())
+        with trace_if_read("engine.dispatch"):
+            if self._shards is not None:
+                self._shards.write_pod_rows(self, [idx], cols[:, None, :])
+            else:
+                _apply_pod_col(self._maps, idx, self._put(cols))
+            if self._packed is None:
+                self.dirty_rows[idx] = True
+                self.dirty_cols[idx] = True
+            else:
+                one = np.asarray([idx])
+                self._patch(one, one)
         self.update_count += 1
         self._count_op("pod_relabel")
 
     # ------------------------------------------------------------ pod churn
     def _dispatch_pod(self, idx: int, cols4: np.ndarray, active: bool) -> None:
-        """One pod-slot step (occupy or tombstone)."""
-        self._mark_closure_dirty([idx], [idx])
-        if self._shards is not None:
-            self._shards.pod_step(self, idx, cols4, active, self._flags)
-            if self._packed is None:
+        """One pod-slot step (occupy or tombstone): ``engine.dispatch``."""
+        with trace_if_read("engine.dispatch"):
+            self._mark_closure_dirty([idx], [idx])
+            if self._shards is not None:
+                self._shards.pod_step(self, idx, cols4, active, self._flags)
+                if self._packed is None:
+                    self.dirty_rows[idx] = True
+                    self.dirty_cols[idx] = True
+            elif self._packed is None:
+                _TRACKER.track("_pod_step_mf", self._maps)
+                _pod_step_mf(self._maps, self._col_mask, self._row_valid, idx,
+                             self._put(cols4), active)
                 self.dirty_rows[idx] = True
                 self.dirty_cols[idx] = True
-            self.update_count += 1
-            return
-        cols = self._put(cols4)
-        if self._packed is None:
-            _TRACKER.track("_pod_step_mf", self._maps)
-            _pod_step_mf(self._maps, self._col_mask, self._row_valid, idx, cols, active)
-            self.dirty_rows[idx] = True
-            self.dirty_cols[idx] = True
-        else:
-            _TRACKER.track(
-                "_pod_step", self._packed, self._maps,
-                static=tuple(sorted(self._flags.items())),
-            )
-            _pod_step(self._packed, self._maps, self._col_mask, self._row_valid,
-                      idx, cols, active, **self._flags)
+            else:
+                _TRACKER.track(
+                    "_pod_step", self._packed, self._maps,
+                    static=tuple(sorted(self._flags.items())),
+                )
+                _pod_step(self._packed, self._maps, self._col_mask, self._row_valid,
+                          idx, self._put(cols4), active, **self._flags)
         self.update_count += 1
 
+    @_change("namespace_add")
     def add_namespace(self, ns: Namespace) -> bool:
         """Register a namespace created after the freeze (WITH its labels)
         before adding pods into it. Returns True when newly registered; a
@@ -1310,6 +1345,7 @@ class PackedIncrementalVerifier:
                 return
         self.namespaces.append(Namespace(name, dict(labels)))
 
+    @_change("namespace_relabel")
     def update_namespace_labels(self, name: str, labels: Dict[str, str]) -> None:
         """Relabel namespace ``name`` incrementally — a namespace label
         change moves ``namespaceSelector`` peer matches for EVERY pod in the
@@ -1324,25 +1360,32 @@ class PackedIncrementalVerifier:
             return
         self._set_ns_labels(name, labels)
         self._count_op("namespace_relabel")
-        idx_arr = self._ns_pod_slots(name)
+        # the map writes stream behind the host evaluation, one group of
+        # pods at a time, inside ``engine.evaluate``: the group's write is
+        # small next to its evaluation
+        with trace_if_read("engine.evaluate") as ev:
+            idx_arr = self._ns_pod_slots(name)
+            ev.attrs.update(rows=len(idx_arr), cols=len(idx_arr))
+            for g in _groups(idx_arr, _COL_GROUP):
+                cols = np.stack([self._pod_cols(self.pods[int(i)]) for i in g], axis=1)
+                self._h_ing_cnt[g] = cols[0].sum(axis=1)
+                self._h_eg_cnt[g] = cols[1].sum(axis=1)
+                if self._shards is not None:
+                    self._shards.write_pod_rows(self, g, cols)
+                else:
+                    _apply_pod_cols_group(self._maps, self._put(g), self._put(cols))
         if not len(idx_arr):
             return
-        for g in _groups(idx_arr, _COL_GROUP):
-            cols = np.stack([self._pod_cols(self.pods[int(i)]) for i in g], axis=1)
-            self._h_ing_cnt[g] = cols[0].sum(axis=1)
-            self._h_eg_cnt[g] = cols[1].sum(axis=1)
-            if self._shards is not None:
-                self._shards.write_pod_rows(self, g, cols)
+        with trace_if_read("engine.dispatch"):
+            if self._packed is None:
+                self._mark_closure_dirty(idx_arr, idx_arr)
+                self.dirty_rows[idx_arr] = True
+                self.dirty_cols[idx_arr] = True
             else:
-                _apply_pod_cols_group(self._maps, self._put(g), self._put(cols))
-        if self._packed is None:
-            self._mark_closure_dirty(idx_arr, idx_arr)
-            self.dirty_rows[idx_arr] = True
-            self.dirty_cols[idx_arr] = True
-        else:
-            self._patch(idx_arr, idx_arr)
+                self._patch(idx_arr, idx_arr)
         self.update_count += 1
 
+    @_change("namespace_remove")
     def remove_namespace(self, name: str) -> None:
         """Unregister namespace ``name``. Refuses while the namespace still
         holds active pods or policies (remove those first); otherwise drops
@@ -1367,6 +1410,7 @@ class PackedIncrementalVerifier:
         self.namespaces = [ns for ns in self.namespaces if ns.name != name]
         self._count_op("namespace_remove")
 
+    @_change("pod_add")
     def add_pod(self, pod: Pod) -> int:
         """Add a pod in O(P + N). Returns the pod's slot index (its row and
         column in the reach matrix). Reuses a tombstoned slot when one
@@ -1386,7 +1430,8 @@ class PackedIncrementalVerifier:
         # the host evaluation can raise (e.g. a malformed pod IP against an
         # ipBlock peer) — run it BEFORE any bookkeeping mutation so a failed
         # add leaves no phantom half-registered pod
-        cols4 = self._pod_cols(pod)
+        with trace_if_read("engine.evaluate", rows=1, cols=1):
+            cols4 = self._pod_cols(pod)
         if self._pod_free:
             idx = self._pod_free.pop()
             self.pods[idx] = pod
@@ -1411,18 +1456,20 @@ class PackedIncrementalVerifier:
         self._count_op("pod_add")
         return idx
 
+    @_change("pod_remove")
     def remove_pod(self, namespace: str, name: str) -> int:
         """Remove a pod: tombstone its slot (zero row in every map, zero
         isolation counts, clear validity, zero its packed row + bit-column).
         Returns the freed slot index."""
         key = f"{namespace}/{name}"
-        idx = self._pod_idx.pop(key)  # KeyError if absent
-        self.pod_active[idx] = False
-        self._col_valid[idx] = False
-        self._pod_free.append(idx)
-        self._vectorizer.note_removed(idx)
-        self._h_ing_cnt[idx] = 0
-        self._h_eg_cnt[idx] = 0
+        with trace_if_read("engine.evaluate", rows=1, cols=1):
+            idx = self._pod_idx.pop(key)  # KeyError if absent
+            self.pod_active[idx] = False
+            self._col_valid[idx] = False
+            self._pod_free.append(idx)
+            self._vectorizer.note_removed(idx)
+            self._h_ing_cnt[idx] = 0
+            self._h_eg_cnt[idx] = 0
         self._dispatch_pod(idx, np.zeros((4, self._capacity), dtype=np.int8),
                            active=False)
         self._count_op("pod_remove")
@@ -1667,82 +1714,80 @@ class PackedIncrementalVerifier:
             raise ConfigError(
                 f"checkpointed padding {Np} incompatible with a {dp}-way pod axis")
         self._shards = _make_shards(mesh, Np, self._capacity)
-        t0 = time.perf_counter()
-        if self._shards is None:
-            load = lambda key: _unpack_pod_axis(state[key], Np, self.device)
-        else:
-            load = lambda key: self._shards.load_map(state[key])
-        self._sel_ing8 = load("sel_ing")
-        self._sel_eg8 = load("sel_eg")
-        self._ing_by_pol = load("ing_by_pol")
-        self._eg_by_pol = load("eg_by_pol")
-        self._ing_cnt = self._put_rows(np.asarray(state["ing_cnt"], dtype=np.int32))
-        self._eg_cnt = self._put_rows(np.asarray(state["eg_cnt"], dtype=np.int32))
-        self._pod_align = 128 * dp
-        self.pod_active = np.asarray(
-            state.get("pod_active", np.ones(self.n_pods, dtype=bool))
-        ).copy()
-        self._pod_free = [i for i in range(self.n_pods) if not self.pod_active[i]]
-        self._pod_idx = {}
-        for i, p in enumerate(self.pods):
-            if self.pod_active[i]:
-                self._pod_idx.setdefault(self._pod_key(p), i)
-        self._col_valid = np.zeros(Np, dtype=bool)
-        self._col_valid[: self.n_pods] = self.pod_active
-        self._col_mask = self._put(self._col_mask_host())
-        rv = np.zeros(Np, dtype=np.int8)
-        rv[: self.n_pods] = self.pod_active
-        self._row_valid = self._put_rows(rv)
-        keys = [str(k) for k in state["keys"]]
-        slots = [int(s) for s in state["slots"]]
-        by_key = {f"{p.namespace}/{p.name}": p for p in cluster.policies}
-        self.policies = {}
-        self._slot = {}
-        for key, slot in zip(keys, slots):
-            self.policies[key] = by_key[key]
-            self._slot[key] = slot
-        used = set(slots)
-        self._free = [s for s in range(self._capacity) if s not in used]
-        if keep_matrix is None:
-            keep_matrix = "packed" in state
-        elif keep_matrix and "packed" not in state:
-            raise ConfigError(
-                "keep_matrix=True but the checkpoint was saved matrix-free; "
-                "re-solve (or resume matrix-free and use solve_stripe)"
+        phase = Phases(prefix="engine.resume.")
+        with phase("upload"):
+            if self._shards is None:
+                load = lambda key: _unpack_pod_axis(state[key], Np, self.device)
+            else:
+                load = lambda key: self._shards.load_map(state[key])
+            self._sel_ing8 = load("sel_ing")
+            self._sel_eg8 = load("sel_eg")
+            self._ing_by_pol = load("ing_by_pol")
+            self._eg_by_pol = load("eg_by_pol")
+            self._ing_cnt = self._put_rows(np.asarray(state["ing_cnt"], dtype=np.int32))
+            self._eg_cnt = self._put_rows(np.asarray(state["eg_cnt"], dtype=np.int32))
+            self._pod_align = 128 * dp
+            self.pod_active = np.asarray(
+                state.get("pod_active", np.ones(self.n_pods, dtype=bool))
+            ).copy()
+            self._pod_free = [i for i in range(self.n_pods) if not self.pod_active[i]]
+            self._pod_idx = {}
+            for i, p in enumerate(self.pods):
+                if self.pod_active[i]:
+                    self._pod_idx.setdefault(self._pod_key(p), i)
+            self._col_valid = np.zeros(Np, dtype=bool)
+            self._col_valid[: self.n_pods] = self.pod_active
+            self._col_mask = self._put(self._col_mask_host())
+            rv = np.zeros(Np, dtype=np.int8)
+            rv[: self.n_pods] = self.pod_active
+            self._row_valid = self._put_rows(rv)
+            keys = [str(k) for k in state["keys"]]
+            slots = [int(s) for s in state["slots"]]
+            by_key = {f"{p.namespace}/{p.name}": p for p in cluster.policies}
+            self.policies = {}
+            self._slot = {}
+            for key, slot in zip(keys, slots):
+                self.policies[key] = by_key[key]
+                self._slot[key] = slot
+            used = set(slots)
+            self._free = [s for s in range(self._capacity) if s not in used]
+            if keep_matrix is None:
+                keep_matrix = "packed" in state
+            elif keep_matrix and "packed" not in state:
+                raise ConfigError(
+                    "keep_matrix=True but the checkpoint was saved matrix-free; "
+                    "re-solve (or resume matrix-free and use solve_stripe)"
+                )
+            self.keep_matrix = bool(keep_matrix)
+            self._packed = (
+                _words(np.asarray(state["packed"])[self._rows()], self.device)
+                if keep_matrix else None
             )
-        self.keep_matrix = bool(keep_matrix)
-        self._packed = (
-            _words(np.asarray(state["packed"])[self._rows()], self.device)
-            if keep_matrix else None
-        )
-        self.dirty_rows = np.asarray(state["dirty_rows"]).copy()
-        self.dirty_cols = np.asarray(state["dirty_cols"]).copy()
-        if "closure" in state and self._packed is not None:
-            self._closure = _words(state["closure"], self.device)
-            self._closure_dirty = np.asarray(state["closure_dirty"], dtype=bool).copy()
-            if "closure_base" in state:
-                self._closure_base = _words(state["closure_base"], self.device)
-        self._sync()
-        upload_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self._vectorizer = PolicyVectorizer(
-            self.pods,
-            self._ns_labels,
-            cluster_vocab(self.pods, self.namespaces),
-            {ns.name: i for i, ns in enumerate(self.namespaces)},
-            self.config.direction_aware_isolation,
-        )
-        self._vectorizer.inactive = {
-            i for i in range(self.n_pods) if not self.pod_active[i]
-        }
-        self._h_ing_cnt = np.asarray(state["ing_cnt"], dtype=np.int64)[: self.n_pods]
-        self._h_eg_cnt = np.asarray(state["eg_cnt"], dtype=np.int64)[: self.n_pods]
-        self._prewarm()
+            self.dirty_rows = np.asarray(state["dirty_rows"]).copy()
+            self.dirty_cols = np.asarray(state["dirty_cols"]).copy()
+            if "closure" in state and self._packed is not None:
+                self._closure = _words(state["closure"], self.device)
+                self._closure_dirty = np.asarray(state["closure_dirty"], dtype=bool).copy()
+                if "closure_base" in state:
+                    self._closure_base = _words(state["closure_base"], self.device)
+            self._sync()
+        with phase("vectorizer"):
+            self._vectorizer = PolicyVectorizer(
+                self.pods,
+                self._ns_labels,
+                cluster_vocab(self.pods, self.namespaces),
+                {ns.name: i for i, ns in enumerate(self.namespaces)},
+                self.config.direction_aware_isolation,
+            )
+            self._vectorizer.inactive = {
+                i for i in range(self.n_pods) if not self.pod_active[i]
+            }
+            self._h_ing_cnt = np.asarray(state["ing_cnt"], dtype=np.int64)[: self.n_pods]
+            self._h_eg_cnt = np.asarray(state["eg_cnt"], dtype=np.int64)[: self.n_pods]
+            self._prewarm()
         #: seconds of the resume's phases: the state's upload and unpacking
         #: on the device, the host vectorizer over the manifest
-        self.build_timings = {
-            "upload": upload_s, "vectorizer": time.perf_counter() - t0,
-        }
+        self.build_timings = phase.timings
         self.init_time = 0.0
         return self
 

@@ -67,7 +67,6 @@ over ``grants`` before the mask-group combine.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -88,6 +87,7 @@ from .encode.ports import named_resolution
 from .models.core import Cluster, NetworkPolicy, Pod
 from .observe import DispatchTracker
 from .observe.metrics import INCREMENTAL_OPS
+from .observe.spans import Phases, trace_if_read
 from .ops.bits import or_diagonal, pack_bool_cols
 from .ops.closure import _words, bool_dot
 from .ops.kernels import FUSED_MAX_MASKS, fused_ports_reach
@@ -108,6 +108,7 @@ from .packed_incremental import (
     PackedIncrementalVerifier,
     PolicyVectorizer,
     _bit,
+    _change,
     _copy_pods,
     _groups,
     _host_words,
@@ -454,190 +455,186 @@ class PackedPortsIncrementalVerifier:
         self._closure_base = None
         self._closure_dirty: Optional[np.ndarray] = None
         cfg = self.config
-        timings: Dict[str, float] = {}
+        phase = Phases(prefix="engine.build.")
 
-        t0 = time.perf_counter()
-        snapshot = Cluster(
-            pods=self.pods, namespaces=self.namespaces,  # appends missing ns
-            policies=list(cluster.policies),
-        )
-        # label dicts are COPIED: an aliased caller dict mutated in place
-        # would satisfy the relabel no-op guard and silently skip the
-        # re-derivation (pods are deep-copied for the same reason)
-        self._ns_labels = {ns.name: dict(ns.labels) for ns in self.namespaces}
-        enc = encode_cluster(snapshot, compute_ports=True)
-        self._atoms = list(enc.atoms)
-        self._resolution = enc.resolution
-        self._bank_intern = enc.restrict_bank_intern
-        if self._bank_intern is not None:
-            self._bank_intern.frozen = True
-        n = enc.n_pods
-        self.n_pods = n
-        Np = max(128, -(-(n + pod_headroom) // 128) * 128)
-        self._n_padded = Np
-        self._tile = next(t for t in (tile, 512, 256, 128) if t <= Np and Np % t == 0)
-        n_pad = Np - n
-        pod_kv, pod_key, pod_ns = pad_pods(enc.pod_kv, enc.pod_key, enc.pod_ns, n_pad)
-        self._ns_kv = enc.ns_kv
-        self._ns_key = enc.ns_key
-        self.pod_active = np.ones(n, dtype=bool)
-        self._pod_free: List[int] = []
-        self._pod_idx = {self._pod_key(p): i for i, p in enumerate(self.pods)}
-        self._col_valid = np.zeros(Np, dtype=bool)
-        self._col_valid[:n] = True
-        col_mask = self._col_mask_host()
-        self._col_mask = self._put(col_mask)
-        rv = np.zeros(Np, dtype=np.int8)
-        rv[:n] = 1
-        if enc.restrict_bank is not None:
-            bank8 = np.zeros((enc.restrict_bank.shape[0], Np), dtype=np.int8)
-            bank8[:, :n] = enc.restrict_bank
-        else:
-            bank8 = np.ones((1, Np), dtype=np.int8)
-        self._bank8_host = bank8
-
-        P = enc.n_policies
-        ing_block, eg_block, _ = _split_and_check_port_masks(
-            enc.ingress, enc.egress, FUSED_MAX_MASKS
-        )
-        g_chunk = max(1, min(chunk, max(ing_block.n, eg_block.n, 1)))
-        ingress = pad_grants(ing_block, (-ing_block.n) % g_chunk, P, n_pad)
-        egress = pad_grants(eg_block, (-eg_block.n) % g_chunk, P, n_pad)
-        (
-            layout, vp_pol_i, vp_res_i, vp_slot_i,
-            vp_pol_e, vp_res_e, vp_slot_e, ported_masks,
-        ) = _build_port_layout(
-            ingress.ports, egress.ports, ingress.pol, egress.pol,
-            sink_pol=P,
-            ing_restrict=ingress.dst_restrict, eg_restrict=egress.dst_restrict,
-            headroom=headroom,
-        )
-        self._layout = layout
-        self._total_rows = {"i": len(vp_pol_i), "e": len(vp_pol_e)}
-        self._shards = _make_shards(mesh, Np, layout, self._total_rows)
-        self._row_valid = self._put_rows(rv)
-        self._mask_rank = {
-            tuple(bool(b) for b in row): r for r, row in enumerate(ported_masks)
-        }
-        self._sink_pol = P
-        timings["encode"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        a = _put_args(HostArgs(
-            pod_kv, pod_key, pod_ns, enc.ns_kv, enc.ns_key, enc.pol_sel,
-            enc.pol_ns, enc.pol_affects_ingress, enc.pol_affects_egress,
-            ingress, egress, col_mask,
-        ), self.device)
-        vp = _put_args(VPArrays(
-            vp_pol_i, vp_res_i, vp_slot_i, vp_pol_e, vp_res_e, vp_slot_e, bank8
-        ), self.device)
-        _, sel_ing_ext, sel_eg_ext, _, _, vp_peers_i, vp_peers_e = _vp_maps(
-            a, vp, chunk=g_chunk,
-            direction_aware_isolation=cfg.direction_aware_isolation,
-        )
-        del a
-        # the sink policy's row of the selections is zero
-        ing_cnt = sel_ing_ext.sum(dim=0, dtype=_I32)
-        eg_cnt = sel_eg_ext.sum(dim=0, dtype=_I32)
-        self._h_ing_cnt = ing_cnt[:n].cpu().numpy().astype(np.int64)
-        self._h_eg_cnt = eg_cnt[:n].cpu().numpy().astype(np.int64)
-        rows = self._rows()
-        self._ing_cnt = ing_cnt[rows].clone()
-        self._eg_cnt = eg_cnt[rows].clone()
-        del ing_cnt, eg_cnt
-        bank = vp.bank8
-        full = {
-            "vp_peers_i": vp_peers_i,
-            "sel_ing_vp": sel_ing_ext[vp.pol_i.long()] * bank[vp.res_i.long()],
-            "sel_eg_vp": sel_eg_ext[vp.pol_e.long()],
-            "vp_peers_e": vp_peers_e * bank[vp.res_e.long()],
-        }
-        del vp_peers_i, vp_peers_e, sel_ing_ext, sel_eg_ext, vp, bank
-        self._src: Dict[str, List[torch.Tensor]] = {}
-        self._dst: Dict[str, List[torch.Tensor]] = {}
-        for key, d, side in _MAP_KEYS:
-            m = full.pop(key)
-            segs = [m[s : s + l, rows].t().contiguous() for s, l in _spans(layout, d)]
-            if self._shards is not None:
-                # the maps were built whole; this rank keeps its block
-                segs = self._shards.slice_segments(d, segs)
-            (self._dst if side else self._src)[d] = segs
-            del m, segs
-        self._sync()
-        timings["maps"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        if self._shards is not None:
-            self._packed = self._shards.build_packed(self, self._flags)
-        else:
-            self._packed = _build_packed(
-                self._src, self._dst, layout, self._ing_cnt, self._eg_cnt,
-                self._col_mask, self._row_valid, **self._flags,
+        with phase("encode"):
+            snapshot = Cluster(
+                pods=self.pods, namespaces=self.namespaces,  # appends missing ns
+                policies=list(cluster.policies),
             )
-        self._sync()
-        timings["kernel"] = time.perf_counter() - t0
+            # label dicts are COPIED: an aliased caller dict mutated in place
+            # would satisfy the relabel no-op guard and silently skip the
+            # re-derivation (pods are deep-copied for the same reason)
+            self._ns_labels = {ns.name: dict(ns.labels) for ns in self.namespaces}
+            enc = encode_cluster(snapshot, compute_ports=True)
+            self._atoms = list(enc.atoms)
+            self._resolution = enc.resolution
+            self._bank_intern = enc.restrict_bank_intern
+            if self._bank_intern is not None:
+                self._bank_intern.frozen = True
+            n = enc.n_pods
+            self.n_pods = n
+            Np = max(128, -(-(n + pod_headroom) // 128) * 128)
+            self._n_padded = Np
+            self._tile = next(t for t in (tile, 512, 256, 128) if t <= Np and Np % t == 0)
+            n_pad = Np - n
+            pod_kv, pod_key, pod_ns = pad_pods(enc.pod_kv, enc.pod_key, enc.pod_ns, n_pad)
+            self._ns_kv = enc.ns_kv
+            self._ns_key = enc.ns_key
+            self.pod_active = np.ones(n, dtype=bool)
+            self._pod_free: List[int] = []
+            self._pod_idx = {self._pod_key(p): i for i, p in enumerate(self.pods)}
+            self._col_valid = np.zeros(Np, dtype=bool)
+            self._col_valid[:n] = True
+            col_mask = self._col_mask_host()
+            self._col_mask = self._put(col_mask)
+            rv = np.zeros(Np, dtype=np.int8)
+            rv[:n] = 1
+            if enc.restrict_bank is not None:
+                bank8 = np.zeros((enc.restrict_bank.shape[0], Np), dtype=np.int8)
+                bank8[:, :n] = enc.restrict_bank
+            else:
+                bank8 = np.ones((1, Np), dtype=np.int8)
+            self._bank8_host = bank8
+
+            P = enc.n_policies
+            ing_block, eg_block, _ = _split_and_check_port_masks(
+                enc.ingress, enc.egress, FUSED_MAX_MASKS
+            )
+            g_chunk = max(1, min(chunk, max(ing_block.n, eg_block.n, 1)))
+            ingress = pad_grants(ing_block, (-ing_block.n) % g_chunk, P, n_pad)
+            egress = pad_grants(eg_block, (-eg_block.n) % g_chunk, P, n_pad)
+            (
+                layout, vp_pol_i, vp_res_i, vp_slot_i,
+                vp_pol_e, vp_res_e, vp_slot_e, ported_masks,
+            ) = _build_port_layout(
+                ingress.ports, egress.ports, ingress.pol, egress.pol,
+                sink_pol=P,
+                ing_restrict=ingress.dst_restrict, eg_restrict=egress.dst_restrict,
+                headroom=headroom,
+            )
+            self._layout = layout
+            self._total_rows = {"i": len(vp_pol_i), "e": len(vp_pol_e)}
+            self._shards = _make_shards(mesh, Np, layout, self._total_rows)
+            self._row_valid = self._put_rows(rv)
+            self._mask_rank = {
+                tuple(bool(b) for b in row): r for r, row in enumerate(ported_masks)
+            }
+            self._sink_pol = P
+
+        with phase("maps"):
+            a = _put_args(HostArgs(
+                pod_kv, pod_key, pod_ns, enc.ns_kv, enc.ns_key, enc.pol_sel,
+                enc.pol_ns, enc.pol_affects_ingress, enc.pol_affects_egress,
+                ingress, egress, col_mask,
+            ), self.device)
+            vp = _put_args(VPArrays(
+                vp_pol_i, vp_res_i, vp_slot_i, vp_pol_e, vp_res_e, vp_slot_e, bank8
+            ), self.device)
+            _, sel_ing_ext, sel_eg_ext, _, _, vp_peers_i, vp_peers_e = _vp_maps(
+                a, vp, chunk=g_chunk,
+                direction_aware_isolation=cfg.direction_aware_isolation,
+            )
+            del a
+            # the sink policy's row of the selections is zero
+            ing_cnt = sel_ing_ext.sum(dim=0, dtype=_I32)
+            eg_cnt = sel_eg_ext.sum(dim=0, dtype=_I32)
+            self._h_ing_cnt = ing_cnt[:n].cpu().numpy().astype(np.int64)
+            self._h_eg_cnt = eg_cnt[:n].cpu().numpy().astype(np.int64)
+            rows = self._rows()
+            self._ing_cnt = ing_cnt[rows].clone()
+            self._eg_cnt = eg_cnt[rows].clone()
+            del ing_cnt, eg_cnt
+            bank = vp.bank8
+            full = {
+                "vp_peers_i": vp_peers_i,
+                "sel_ing_vp": sel_ing_ext[vp.pol_i.long()] * bank[vp.res_i.long()],
+                "sel_eg_vp": sel_eg_ext[vp.pol_e.long()],
+                "vp_peers_e": vp_peers_e * bank[vp.res_e.long()],
+            }
+            del vp_peers_i, vp_peers_e, sel_ing_ext, sel_eg_ext, vp, bank
+            self._src: Dict[str, List[torch.Tensor]] = {}
+            self._dst: Dict[str, List[torch.Tensor]] = {}
+            for key, d, side in _MAP_KEYS:
+                m = full.pop(key)
+                segs = [m[s : s + l, rows].t().contiguous() for s, l in _spans(layout, d)]
+                if self._shards is not None:
+                    # the maps were built whole; this rank keeps its block
+                    segs = self._shards.slice_segments(d, segs)
+                (self._dst if side else self._src)[d] = segs
+                del m, segs
+            self._sync()
+
+        with phase("kernel"):
+            if self._shards is not None:
+                self._packed = self._shards.build_packed(self, self._flags)
+            else:
+                self._packed = _build_packed(
+                    self._src, self._dst, layout, self._ing_cnt, self._eg_cnt,
+                    self._col_mask, self._row_valid, **self._flags,
+                )
+            self._sync()
 
         # ---- host bookkeeping: segment free lists + per-policy row maps
-        t0 = time.perf_counter()
-        self._seg_spans = {"i": _spans(layout, "i"), "e": _spans(layout, "e")}
-        self._free_rows: Dict[str, Dict[int, List[int]]] = {"i": {}, "e": {}}
-        self._row_owner: Dict[str, Dict[int, str]] = {"i": {}, "e": {}}
-        self._pol_rows: Dict[str, Dict[str, List[int]]] = {}
-        keys = [self._key(p) for p in cluster.policies]
-        for d, vp_pol in (("i", vp_pol_i), ("e", vp_pol_e)):
-            for s_idx, (start, length) in enumerate(self._seg_spans[d]):
-                free = []
-                for row in range(start, start + length):
-                    pol_id = int(vp_pol[row])
-                    if pol_id == P:
-                        free.append(row)
-                    else:
-                        key = keys[pol_id]
-                        self._row_owner[d][row] = key
-                        self._pol_rows.setdefault(key, {"i": [], "e": []})[d].append(row)
-                self._free_rows[d][s_idx] = free
-        # per-row churn caches: the named-port restriction each row bakes in
-        # plus the (rule, peer) provenance of its peer union — a single-pod
-        # churn evaluates the pod object against exactly these (object
-        # semantics; the frozen vocab may never have seen the pod's labels)
-        self._row_res: Dict[str, Dict[int, int]] = {"i": {}, "e": {}}
-        self._row_peers: Dict[str, Dict[int, set]] = {"i": {}, "e": {}}
-        for d, vp_res, block, vp_slot in (
-            ("i", vp_res_i, ingress, vp_slot_i),
-            ("e", vp_res_e, egress, vp_slot_e),
-        ):
-            for row in self._row_owner[d]:
-                self._row_res[d][row] = int(vp_res[row])
-            for g in range(len(block.pol)):
-                if block.pol[g] >= P:
-                    continue  # pad / sink-owned rows
-                row = int(vp_slot[g])
-                if row in self._row_owner[d]:
-                    self._row_peers[d].setdefault(row, set()).add(
-                        (int(block.rule_id[g]), int(block.peer_id[g]))
-                    )
-        for i, pol in enumerate(cluster.policies):
-            key = keys[i]
-            if key in self.policies:
-                raise KeyError(f"duplicate policy {key}")
-            self.policies[key] = pol
-            self._pol_rows.setdefault(key, {"i": [], "e": []})
+        with phase("vectorizer"):
+            self._seg_spans = {"i": _spans(layout, "i"), "e": _spans(layout, "e")}
+            self._free_rows: Dict[str, Dict[int, List[int]]] = {"i": {}, "e": {}}
+            self._row_owner: Dict[str, Dict[int, str]] = {"i": {}, "e": {}}
+            self._pol_rows: Dict[str, Dict[str, List[int]]] = {}
+            keys = [self._key(p) for p in cluster.policies]
+            for d, vp_pol in (("i", vp_pol_i), ("e", vp_pol_e)):
+                for s_idx, (start, length) in enumerate(self._seg_spans[d]):
+                    free = []
+                    for row in range(start, start + length):
+                        pol_id = int(vp_pol[row])
+                        if pol_id == P:
+                            free.append(row)
+                        else:
+                            key = keys[pol_id]
+                            self._row_owner[d][row] = key
+                            self._pol_rows.setdefault(key, {"i": [], "e": []})[d].append(row)
+                    self._free_rows[d][s_idx] = free
+            # per-row churn caches: the named-port restriction each row bakes in
+            # plus the (rule, peer) provenance of its peer union — a single-pod
+            # churn evaluates the pod object against exactly these (object
+            # semantics; the frozen vocab may never have seen the pod's labels)
+            self._row_res: Dict[str, Dict[int, int]] = {"i": {}, "e": {}}
+            self._row_peers: Dict[str, Dict[int, set]] = {"i": {}, "e": {}}
+            for d, vp_res, block, vp_slot in (
+                ("i", vp_res_i, ingress, vp_slot_i),
+                ("e", vp_res_e, egress, vp_slot_e),
+            ):
+                for row in self._row_owner[d]:
+                    self._row_res[d][row] = int(vp_res[row])
+                for g in range(len(block.pol)):
+                    if block.pol[g] >= P:
+                        continue  # pad / sink-owned rows
+                    row = int(vp_slot[g])
+                    if row in self._row_owner[d]:
+                        self._row_peers[d].setdefault(row, set()).add(
+                            (int(block.rule_id[g]), int(block.peer_id[g]))
+                        )
+            for i, pol in enumerate(cluster.policies):
+                key = keys[i]
+                if key in self.policies:
+                    raise KeyError(f"duplicate policy {key}")
+                self.policies[key] = pol
+                self._pol_rows.setdefault(key, {"i": [], "e": []})
 
-        self._vectorizer = PolicyVectorizer(
-            self.pods,
-            self._ns_labels,
-            enc.vocab,
-            {ns.name: i for i, ns in enumerate(self.namespaces)},
-            cfg.direction_aware_isolation,
-        )
-        self._prewarm()
-        self._sync()
-        timings["vectorizer"] = time.perf_counter() - t0
+            self._vectorizer = PolicyVectorizer(
+                self.pods,
+                self._ns_labels,
+                enc.vocab,
+                {ns.name: i for i, ns in enumerate(self.namespaces)},
+                cfg.direction_aware_isolation,
+            )
+            self._prewarm()
+            self._sync()
         #: seconds of the build's phases: host encode and VP layout, the
         #: VP maps on the device, the packed matrix (one kernel launch), the
         #: host bookkeeping and vectorizer
-        self.build_timings = timings
-        self.init_time = sum(timings.values())
+        self.build_timings = phase.timings
+        self.init_time = sum(phase.timings.values())
 
     def _prewarm(self) -> None:
         """What remains of the JAX engine's prewarm, which compiles its diff
@@ -905,10 +902,12 @@ class PackedPortsIncrementalVerifier:
             self._row_peers[d][row] = set(prov)
         return [r for r in old_rows if r not in assigned]
 
-    def _apply(self, old_sel, new_sel, assigned_i, assigned_e, freed_i, freed_e) -> None:
-        """Host math for one policy diff (the touched rows and columns, the
-        count deltas, the new VP-row values), then the VP-row write and the
-        patches."""
+    def _diff_lines(
+        self, old_sel, new_sel, assigned_i, assigned_e, freed_i, freed_e, span
+    ) -> tuple:
+        """Host math for one policy diff: ``(rows, cols, locs, vals, d_ing,
+        d_eg)``, the touched rows and columns (counted on ``span``), the
+        new VP-row values and where they go, and the count deltas."""
         n, Np = self.n_pods, self._n_padded
         old_si, old_se = old_sel
         new_si, new_se = new_sel
@@ -950,16 +949,22 @@ class PackedPortsIncrementalVerifier:
                 for m, row in ((self._seg_of_row(d, r), r) for r in touched)
             ]
             vals[d] = v
-        if self._shards is not None:
-            self._shards.vp_write(self, locs, vals, d_ing, d_eg)
-        else:
-            _TRACKER.track("_vp_write", self._src, self._dst, vals)
-            _vp_write(
-                self._src, self._dst, self._ing_cnt, self._eg_cnt, locs,
-                {d: self._put(v) for d, v in vals.items()},
-                self._put(d_ing), self._put(d_eg),
-            )
-        self._patch(rows, cols)
+        span.attrs.update(rows=len(rows), cols=len(cols))
+        return rows, cols, locs, vals, d_ing, d_eg
+
+    def _apply(self, rows, cols, locs, vals, d_ing, d_eg) -> None:
+        """``_diff_lines``' VP-row write and patches: ``engine.dispatch``."""
+        with trace_if_read("engine.dispatch"):
+            if self._shards is not None:
+                self._shards.vp_write(self, locs, vals, d_ing, d_eg)
+            else:
+                _TRACKER.track("_vp_write", self._src, self._dst, vals)
+                _vp_write(
+                    self._src, self._dst, self._ing_cnt, self._eg_cnt, locs,
+                    {d: self._put(v) for d, v in vals.items()},
+                    self._put(d_ing), self._put(d_eg),
+                )
+            self._patch(rows, cols)
         self.update_count += 1
 
     def _patch(self, rows: np.ndarray, cols: np.ndarray) -> None:
@@ -993,52 +998,63 @@ class PackedPortsIncrementalVerifier:
         aff_e = pol.affects_egress if da else True
         return sel & aff_i, sel & aff_e
 
+    @_change("policy_add")
     def add_policy(self, pol: NetworkPolicy) -> None:
         key = self._key(pol)
         if key in self.policies:
             raise KeyError(f"policy {key} exists; use update_policy")
-        # every step that can raise happens BEFORE any mutation
-        new_si, new_se, gi, ge = self._policy_groups(pol)
-        assigned_i = self._plan_alloc("i", gi, [])
-        assigned_e = self._plan_alloc("e", ge, [])
-        if pol.namespace not in self._ns_labels:
-            self._ns_labels[pol.namespace] = {}
-        self._pol_rows.setdefault(key, {"i": [], "e": []})
-        self._commit_rows("i", key, assigned_i, [])
-        self._commit_rows("e", key, assigned_e, [])
-        self.policies[key] = pol
-        zeros = np.zeros(self.n_pods, dtype=bool)
-        self._apply((zeros, zeros), (new_si, new_se), assigned_i, assigned_e, [], [])
+        with trace_if_read("engine.evaluate") as ev:
+            # every step that can raise happens BEFORE any mutation
+            new_si, new_se, gi, ge = self._policy_groups(pol)
+            assigned_i = self._plan_alloc("i", gi, [])
+            assigned_e = self._plan_alloc("e", ge, [])
+            if pol.namespace not in self._ns_labels:
+                self._ns_labels[pol.namespace] = {}
+            self._pol_rows.setdefault(key, {"i": [], "e": []})
+            self._commit_rows("i", key, assigned_i, [])
+            self._commit_rows("e", key, assigned_e, [])
+            self.policies[key] = pol
+            zeros = np.zeros(self.n_pods, dtype=bool)
+            diff = self._diff_lines((zeros, zeros), (new_si, new_se), assigned_i,
+                                    assigned_e, [], [], ev)
+        self._apply(*diff)
         self._count_op("policy_add")
 
+    @_change("policy_remove")
     def remove_policy(self, namespace: str, name: str) -> None:
         key = f"{namespace}/{name}"
-        pol = self.policies[key]  # KeyError if absent
-        old_si, old_se = self._policy_sel(pol)
-        del self.policies[key]
-        freed_i = self._commit_rows("i", key, {}, list(self._pol_rows[key]["i"]))
-        freed_e = self._commit_rows("e", key, {}, list(self._pol_rows[key]["e"]))
-        del self._pol_rows[key]  # no leak under add/remove churn
-        zeros = np.zeros(self.n_pods, dtype=bool)
-        self._apply((old_si, old_se), (zeros, zeros), {}, {}, freed_i, freed_e)
+        with trace_if_read("engine.evaluate") as ev:
+            pol = self.policies[key]  # KeyError if absent
+            old_si, old_se = self._policy_sel(pol)
+            del self.policies[key]
+            freed_i = self._commit_rows("i", key, {}, list(self._pol_rows[key]["i"]))
+            freed_e = self._commit_rows("e", key, {}, list(self._pol_rows[key]["e"]))
+            del self._pol_rows[key]  # no leak under add/remove churn
+            zeros = np.zeros(self.n_pods, dtype=bool)
+            diff = self._diff_lines((old_si, old_se), (zeros, zeros), {}, {}, freed_i,
+                                    freed_e, ev)
+        self._apply(*diff)
         self._count_op("policy_remove")
 
+    @_change("policy_update")
     def update_policy(self, pol: NetworkPolicy) -> None:
         key = self._key(pol)
-        old = self.policies[key]  # KeyError if absent
-        old_si, old_se = self._policy_sel(old)
-        new_si, new_se, gi, ge = self._policy_groups(pol)
-        old_rows_i = list(self._pol_rows[key]["i"])
-        old_rows_e = list(self._pol_rows[key]["e"])
-        # plan both directions (may raise) before mutating anything; the
-        # policy's own outgoing rows are offered back to the planner
-        assigned_i = self._plan_alloc("i", gi, list(old_rows_i))
-        assigned_e = self._plan_alloc("e", ge, list(old_rows_e))
-        freed_i = self._commit_rows("i", key, assigned_i, old_rows_i)
-        freed_e = self._commit_rows("e", key, assigned_e, old_rows_e)
-        self.policies[key] = pol
-        self._apply((old_si, old_se), (new_si, new_se), assigned_i, assigned_e,
-                    freed_i, freed_e)
+        with trace_if_read("engine.evaluate") as ev:
+            old = self.policies[key]  # KeyError if absent
+            old_si, old_se = self._policy_sel(old)
+            new_si, new_se, gi, ge = self._policy_groups(pol)
+            old_rows_i = list(self._pol_rows[key]["i"])
+            old_rows_e = list(self._pol_rows[key]["e"])
+            # plan both directions (may raise) before mutating anything; the
+            # policy's own outgoing rows are offered back to the planner
+            assigned_i = self._plan_alloc("i", gi, list(old_rows_i))
+            assigned_e = self._plan_alloc("e", ge, list(old_rows_e))
+            freed_i = self._commit_rows("i", key, assigned_i, old_rows_i)
+            freed_e = self._commit_rows("e", key, assigned_e, old_rows_e)
+            self.policies[key] = pol
+            diff = self._diff_lines((old_si, old_se), (new_si, new_se), assigned_i,
+                                    assigned_e, freed_i, freed_e, ev)
+        self._apply(*diff)
         self._count_op("policy_update")
 
     # ------------------------------------------------------------ pod churn
@@ -1128,16 +1144,19 @@ class PackedPortsIncrementalVerifier:
         self, idx: int, ci: np.ndarray, ce: np.ndarray, cnt_i: int, cnt_e: int,
         active: bool, *, bookkeep: bool = True,
     ) -> None:
-        """One pod-slot step (occupy, relabel or tombstone). ``bookkeep`` is
-        False only for the prewarm's tombstone."""
-        if bookkeep:
-            self._mark_closure_dirty([idx], [idx])
-        if self._shards is not None:
-            # SPMD: not retried (a retry on one rank alone would strand the
-            # others in a collective)
-            self._shards.pod_step(self, idx, ci, ce, cnt_i, cnt_e, active, self._flags)
-        else:
-            self._pod_step_one_device(idx, ci, ce, cnt_i, cnt_e, active)
+        """One pod-slot step (occupy, relabel or tombstone):
+        ``engine.dispatch``. ``bookkeep`` is False only for the prewarm's
+        tombstone."""
+        with trace_if_read("engine.dispatch"):
+            if bookkeep:
+                self._mark_closure_dirty([idx], [idx])
+            if self._shards is not None:
+                # SPMD: not retried (a retry on one rank alone would strand
+                # the others in a collective)
+                self._shards.pod_step(self, idx, ci, ce, cnt_i, cnt_e, active,
+                                      self._flags)
+            else:
+                self._pod_step_one_device(idx, ci, ce, cnt_i, cnt_e, active)
         if bookkeep:
             self.update_count += 1
 
@@ -1166,6 +1185,7 @@ class PackedPortsIncrementalVerifier:
     _set_ns_labels = PackedIncrementalVerifier._set_ns_labels
     remove_namespace = PackedIncrementalVerifier.remove_namespace
 
+    @_change("namespace_relabel")
     def update_namespace_labels(self, name: str, labels: Dict[str, str]) -> None:
         """Relabel namespace ``name`` under full port semantics — the
         batched pod relabel. Each pod in the namespace re-evaluates
@@ -1180,30 +1200,37 @@ class PackedPortsIncrementalVerifier:
             return
         self._set_ns_labels(name, labels)
         self._count_op("namespace_relabel")
-        idx_arr = self._ns_pod_slots(name)
+        # the column writes stream behind the host evaluation, one group of
+        # pods at a time, inside ``engine.evaluate``: the group's write is
+        # small next to its evaluation
+        with trace_if_read("engine.evaluate") as ev:
+            idx_arr = self._ns_pod_slots(name)
+            ev.attrs.update(rows=len(idx_arr), cols=len(idx_arr))
+            for g in _groups(idx_arr, _COL_GROUP):
+                cols = [self._pod_vp_cols(self.pods[int(i)]) for i in g]
+                cnt_i = np.asarray([c[2] for c in cols], dtype=np.int32)
+                cnt_e = np.asarray([c[3] for c in cols], dtype=np.int32)
+                self._h_ing_cnt[g] = cnt_i
+                self._h_eg_cnt[g] = cnt_e
+                if self._shards is not None:
+                    self._shards.write_pod_rows(
+                        self, g, np.stack([c[0] for c in cols], axis=-1),
+                        np.stack([c[1] for c in cols], axis=-1), cnt_i, cnt_e)
+                    continue
+                _ports_apply_pod_cols_group(
+                    self._src, self._dst, self._ing_cnt, self._eg_cnt, self._layout,
+                    self._put(g),
+                    self._put(np.stack([c[0] for c in cols], axis=-1)),
+                    self._put(np.stack([c[1] for c in cols], axis=-1)),
+                    self._put(cnt_i), self._put(cnt_e),
+                )
         if not len(idx_arr):
             return
-        for g in _groups(idx_arr, _COL_GROUP):
-            cols = [self._pod_vp_cols(self.pods[int(i)]) for i in g]
-            cnt_i = np.asarray([c[2] for c in cols], dtype=np.int32)
-            cnt_e = np.asarray([c[3] for c in cols], dtype=np.int32)
-            self._h_ing_cnt[g] = cnt_i
-            self._h_eg_cnt[g] = cnt_e
-            if self._shards is not None:
-                self._shards.write_pod_rows(
-                    self, g, np.stack([c[0] for c in cols], axis=-1),
-                    np.stack([c[1] for c in cols], axis=-1), cnt_i, cnt_e)
-                continue
-            _ports_apply_pod_cols_group(
-                self._src, self._dst, self._ing_cnt, self._eg_cnt, self._layout,
-                self._put(g),
-                self._put(np.stack([c[0] for c in cols], axis=-1)),
-                self._put(np.stack([c[1] for c in cols], axis=-1)),
-                self._put(cnt_i), self._put(cnt_e),
-            )
-        self._patch(idx_arr, idx_arr)
+        with trace_if_read("engine.dispatch"):
+            self._patch(idx_arr, idx_arr)
         self.update_count += 1
 
+    @_change("pod_add")
     def add_pod(self, pod: Pod) -> int:
         """Add a pod in O(total VP rows + P) host work + one pod step.
         Returns the pod's slot index. Reuses a tombstoned slot when one
@@ -1219,7 +1246,8 @@ class PackedPortsIncrementalVerifier:
         # evaluation (e.g. a malformed pod IP against an ipBlock peer) —
         # runs BEFORE any bookkeeping mutation, so a failed add leaves no
         # phantom half-registered pod
-        ci, ce, cnt_i, cnt_e, bank_col = self._pod_vp_cols(pod, strict_bank=True)
+        with trace_if_read("engine.evaluate", rows=1, cols=1):
+            ci, ce, cnt_i, cnt_e, bank_col = self._pod_vp_cols(pod, strict_bank=True)
         if pod.namespace not in self._ns_labels:
             # auto-created namespace (empty labels), mirroring
             # Cluster.__post_init__; fresh index, no frozen pods carry it
@@ -1249,18 +1277,20 @@ class PackedPortsIncrementalVerifier:
         self._count_op("pod_add")
         return idx
 
+    @_change("pod_remove")
     def remove_pod(self, namespace: str, name: str) -> int:
         """Remove a pod: tombstone its slot (zero column in every VP map,
         zero isolation counts, clear validity, zero its packed row +
         bit-column) in one pod step. Returns the freed slot index."""
         key = f"{namespace}/{name}"
-        idx = self._pod_idx.pop(key)  # KeyError if absent
-        self.pod_active[idx] = False
-        self._col_valid[idx] = False
-        self._pod_free.append(idx)
-        self._vectorizer.note_removed(idx)
-        self._h_ing_cnt[idx] = 0
-        self._h_eg_cnt[idx] = 0
+        with trace_if_read("engine.evaluate", rows=1, cols=1):
+            idx = self._pod_idx.pop(key)  # KeyError if absent
+            self.pod_active[idx] = False
+            self._col_valid[idx] = False
+            self._pod_free.append(idx)
+            self._vectorizer.note_removed(idx)
+            self._h_ing_cnt[idx] = 0
+            self._h_eg_cnt[idx] = 0
         self._dispatch_pod(
             idx,
             np.zeros((2, self._total_rows["i"]), dtype=np.int8),
@@ -1270,6 +1300,7 @@ class PackedPortsIncrementalVerifier:
         self._count_op("pod_remove")
         return idx
 
+    @_change("pod_relabel")
     def update_pod_labels(self, idx: int, labels: Dict[str, str]) -> None:
         """Relabel pod ``idx`` in place: selector matches and peer
         membership move (object-semantics re-evaluation of this one pod
@@ -1278,13 +1309,14 @@ class PackedPortsIncrementalVerifier:
         restriction bank is unchanged. One pod step."""
         if not 0 <= idx < self.n_pods or not self.pod_active[idx]:
             raise KeyError(f"pod slot {idx} is not an active pod")
-        pod = self.pods[idx]
-        pod.labels = dict(labels)
-        self._vectorizer.note_pod(idx)
-        ci, ce, cnt_i, cnt_e, bank_col = self._pod_vp_cols(pod)
-        self._bank8_host[:, idx] = bank_col
-        self._h_ing_cnt[idx] = cnt_i
-        self._h_eg_cnt[idx] = cnt_e
+        with trace_if_read("engine.evaluate", rows=1, cols=1):
+            pod = self.pods[idx]
+            pod.labels = dict(labels)
+            self._vectorizer.note_pod(idx)
+            ci, ce, cnt_i, cnt_e, bank_col = self._pod_vp_cols(pod)
+            self._bank8_host[:, idx] = bank_col
+            self._h_ing_cnt[idx] = cnt_i
+            self._h_eg_cnt[idx] = cnt_e
         self._dispatch_pod(idx, ci, ce, cnt_i, cnt_e, active=True)
         self._count_op("pod_relabel")
 
@@ -1470,115 +1502,112 @@ class PackedPortsIncrementalVerifier:
         self._atoms = [
             PortAtom(protocol=p, lo=lo, hi=hi, name=name) for p, lo, hi, name in meta["atoms"]
         ]
-        t0 = time.perf_counter()
-        # re-derive the frozen universe from the manifest
-        vocab = cluster_vocab(self.pods, self.namespaces)
-        ns_index = {ns.name: i for i, ns in enumerate(self.namespaces)}
-        self._ns_kv, self._ns_key = vocab.encode_label_matrix(
-            ns.labels for ns in self.namespaces
-        )
-        res_keys = [tuple(k) for k in meta["resolution_keys"]]
-        self._resolution = named_resolution([], self._atoms, self.pods, keys=res_keys)
-        bank = None
-        bank_rows = [np.ones(n, dtype=bool)]
-        if meta["bank_keys"]:
-            bank = _RestrictBank(n)
-            for proto, name, q in (tuple(k) for k in meta["bank_keys"]):
-                bank.intern(
-                    (proto, name, int(q)),
-                    self._resolution[(proto, name)][:, int(q)].copy(),
-                )
-            bank.frozen = True
-            bank_rows = bank.rows
-        self._bank_intern = bank
-        bank8 = np.zeros((len(bank_rows), Np), dtype=np.int8)
-        for i, row in enumerate(bank_rows):
-            bank8[i, :n] = row
-        self._bank8_host = bank8
-        if "res_i" not in arrays or "prov_i" not in arrays:
-            raise ConfigError(
-                "checkpoint predates pod-churn support (missing VP row "
-                "restriction/provenance vectors); re-save from a fresh build"
+        phase = Phases(prefix="engine.resume.")
+        with phase("host"):
+            # re-derive the frozen universe from the manifest
+            vocab = cluster_vocab(self.pods, self.namespaces)
+            ns_index = {ns.name: i for i, ns in enumerate(self.namespaces)}
+            self._ns_kv, self._ns_key = vocab.encode_label_matrix(
+                ns.labels for ns in self.namespaces
             )
-        self.pod_active = np.asarray(arrays.get("pod_active", np.ones(n, dtype=bool))).copy()
-        self._pod_free = [i for i in range(n) if not self.pod_active[i]]
-        self._pod_idx = {}
-        for i, p in enumerate(self.pods):
-            if self.pod_active[i]:
-                self._pod_idx.setdefault(self._pod_key(p), i)
-        self._col_valid = np.zeros(Np, dtype=bool)
-        self._col_valid[:n] = self.pod_active
-        self._col_mask = self._put(self._col_mask_host())
-        rv = np.zeros(Np, dtype=np.int8)
-        rv[:n] = self.pod_active
-        self._row_valid = self._put_rows(rv)
+            res_keys = [tuple(k) for k in meta["resolution_keys"]]
+            self._resolution = named_resolution([], self._atoms, self.pods, keys=res_keys)
+            bank = None
+            bank_rows = [np.ones(n, dtype=bool)]
+            if meta["bank_keys"]:
+                bank = _RestrictBank(n)
+                for proto, name, q in (tuple(k) for k in meta["bank_keys"]):
+                    bank.intern(
+                        (proto, name, int(q)),
+                        self._resolution[(proto, name)][:, int(q)].copy(),
+                    )
+                bank.frozen = True
+                bank_rows = bank.rows
+            self._bank_intern = bank
+            bank8 = np.zeros((len(bank_rows), Np), dtype=np.int8)
+            for i, row in enumerate(bank_rows):
+                bank8[i, :n] = row
+            self._bank8_host = bank8
+            if "res_i" not in arrays or "prov_i" not in arrays:
+                raise ConfigError(
+                    "checkpoint predates pod-churn support (missing VP row "
+                    "restriction/provenance vectors); re-save from a fresh build"
+                )
+            self.pod_active = np.asarray(arrays.get("pod_active", np.ones(n, dtype=bool))).copy()
+            self._pod_free = [i for i in range(n) if not self.pod_active[i]]
+            self._pod_idx = {}
+            for i, p in enumerate(self.pods):
+                if self.pod_active[i]:
+                    self._pod_idx.setdefault(self._pod_key(p), i)
+            self._col_valid = np.zeros(Np, dtype=bool)
+            self._col_valid[:n] = self.pod_active
+            self._col_mask = self._put(self._col_mask_host())
+            rv = np.zeros(Np, dtype=np.int8)
+            rv[:n] = self.pod_active
+            self._row_valid = self._put_rows(rv)
 
-        # ownership + free lists from the saved owner vectors
-        keys = [str(k) for k in arrays["keys"]]
-        by_key = {f"{p.namespace}/{p.name}": p for p in cluster.policies}
-        self.policies = {k: by_key[k] for k in keys}
-        self._seg_spans = {"i": _spans(self._layout, "i"), "e": _spans(self._layout, "e")}
-        self._free_rows = {"i": {}, "e": {}}
-        self._row_owner = {"i": {}, "e": {}}
-        self._pol_rows = {k: {"i": [], "e": []} for k in keys}
-        self._row_res = {"i": {}, "e": {}}
-        self._row_peers = {"i": {}, "e": {}}
-        for d in ("i", "e"):
-            owners = np.asarray(arrays[f"owners_{d}"])
-            res = np.asarray(arrays[f"res_{d}"])
-            for s_idx, (start, length) in enumerate(self._seg_spans[d]):
-                free = []
-                for row in range(start, start + length):
-                    oid = int(owners[row])
-                    if oid < 0:
-                        free.append(row)
-                    else:
-                        key = keys[oid]
-                        self._row_owner[d][row] = key
-                        self._pol_rows[key][d].append(row)
-                        self._row_res[d][row] = int(res[row])
-                self._free_rows[d][s_idx] = free
-            for row, rid, pid in np.asarray(arrays[f"prov_{d}"]).reshape(-1, 3):
-                self._row_peers[d].setdefault(int(row), set()).add((int(rid), int(pid)))
-        host_s = time.perf_counter() - t0
+            # ownership + free lists from the saved owner vectors
+            keys = [str(k) for k in arrays["keys"]]
+            by_key = {f"{p.namespace}/{p.name}": p for p in cluster.policies}
+            self.policies = {k: by_key[k] for k in keys}
+            self._seg_spans = {"i": _spans(self._layout, "i"), "e": _spans(self._layout, "e")}
+            self._free_rows = {"i": {}, "e": {}}
+            self._row_owner = {"i": {}, "e": {}}
+            self._pol_rows = {k: {"i": [], "e": []} for k in keys}
+            self._row_res = {"i": {}, "e": {}}
+            self._row_peers = {"i": {}, "e": {}}
+            for d in ("i", "e"):
+                owners = np.asarray(arrays[f"owners_{d}"])
+                res = np.asarray(arrays[f"res_{d}"])
+                for s_idx, (start, length) in enumerate(self._seg_spans[d]):
+                    free = []
+                    for row in range(start, start + length):
+                        oid = int(owners[row])
+                        if oid < 0:
+                            free.append(row)
+                        else:
+                            key = keys[oid]
+                            self._row_owner[d][row] = key
+                            self._pol_rows[key][d].append(row)
+                            self._row_res[d][row] = int(res[row])
+                    self._free_rows[d][s_idx] = free
+                for row, rid, pid in np.asarray(arrays[f"prov_{d}"]).reshape(-1, 3):
+                    self._row_peers[d].setdefault(int(row), set()).add((int(rid), int(pid)))
 
         # device state: each segment's rows unpacked pod-major
-        t0 = time.perf_counter()
-        self._src, self._dst = {}, {}
-        for key, d, side in _MAP_KEYS:
-            packed = np.asarray(arrays[key])
-            if self._shards is not None:
-                segs = self._shards.load_segments(d, packed, self._seg_spans[d])
-            else:
-                segs = [_unpack_pod_axis(packed[s : s + l], Np, self.device)
-                        for s, l in self._seg_spans[d]]
-            (self._dst if side else self._src)[d] = segs
-        self._ing_cnt = self._put_rows(np.asarray(arrays["ing_cnt"], dtype=np.int32))
-        self._eg_cnt = self._put_rows(np.asarray(arrays["eg_cnt"], dtype=np.int32))
-        self._packed = _words(np.asarray(arrays["packed"])[self._rows()], self.device)
-        if "closure" in arrays:
-            self._closure = _words(arrays["closure"], self.device)
-            self._closure_dirty = np.asarray(arrays["closure_dirty"], dtype=bool).copy()
-            if "closure_base" in arrays:
-                self._closure_base = _words(arrays["closure_base"], self.device)
-        self._sync()
-        upload_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self._vectorizer = PolicyVectorizer(
-            self.pods, self._ns_labels, vocab, ns_index,
-            self.config.direction_aware_isolation,
-        )
-        self._vectorizer.inactive = {i for i in range(n) if not self.pod_active[i]}
-        self._h_ing_cnt = np.asarray(arrays["ing_cnt"], dtype=np.int64)[:n]
-        self._h_eg_cnt = np.asarray(arrays["eg_cnt"], dtype=np.int64)[:n]
-        self._prewarm()
-        self._sync()
+        with phase("upload"):
+            self._src, self._dst = {}, {}
+            for key, d, side in _MAP_KEYS:
+                packed = np.asarray(arrays[key])
+                if self._shards is not None:
+                    segs = self._shards.load_segments(d, packed, self._seg_spans[d])
+                else:
+                    segs = [_unpack_pod_axis(packed[s : s + l], Np, self.device)
+                            for s, l in self._seg_spans[d]]
+                (self._dst if side else self._src)[d] = segs
+            self._ing_cnt = self._put_rows(np.asarray(arrays["ing_cnt"], dtype=np.int32))
+            self._eg_cnt = self._put_rows(np.asarray(arrays["eg_cnt"], dtype=np.int32))
+            self._packed = _words(np.asarray(arrays["packed"])[self._rows()], self.device)
+            if "closure" in arrays:
+                self._closure = _words(arrays["closure"], self.device)
+                self._closure_dirty = np.asarray(arrays["closure_dirty"], dtype=bool).copy()
+                if "closure_base" in arrays:
+                    self._closure_base = _words(arrays["closure_base"], self.device)
+            self._sync()
+        with phase("vectorizer"):
+            self._vectorizer = PolicyVectorizer(
+                self.pods, self._ns_labels, vocab, ns_index,
+                self.config.direction_aware_isolation,
+            )
+            self._vectorizer.inactive = {i for i in range(n) if not self.pod_active[i]}
+            self._h_ing_cnt = np.asarray(arrays["ing_cnt"], dtype=np.int64)[:n]
+            self._h_eg_cnt = np.asarray(arrays["eg_cnt"], dtype=np.int64)[:n]
+            self._prewarm()
+            self._sync()
         #: seconds of the resume's phases: the host universe and
         #: bookkeeping, the state's upload and unpacking on the device, the
         #: host vectorizer (and the prewarm's tombstone)
-        self.build_timings = {
-            "host": host_s, "upload": upload_s, "vectorizer": time.perf_counter() - t0,
-        }
+        self.build_timings = phase.timings
         self.init_time = 0.0
         return self
 
