@@ -22,7 +22,7 @@ scenario gives the same arrays in both packages.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -238,14 +238,18 @@ class _RestrictBank:
         self._ids: Dict[Tuple[str, str, int], int] = {}
         self.frozen = False
 
-    def intern(self, key: Tuple[str, str, int], mask: np.ndarray) -> int:
+    def intern(
+        self, key: Tuple[str, str, int], mask: Callable[[], np.ndarray]
+    ) -> int:
+        """The row id of ``key``; ``mask()`` makes its row, and is called
+        only for a key the bank does not hold yet."""
         if key not in self._ids:
             if self.frozen:
                 raise FrozenBankMiss(
                     f"named-port restriction {key} not in the frozen bank"
                 )
             self._ids[key] = len(self.rows)
-            self.rows.append(mask)
+            self.rows.append(mask())
         return self._ids[key]
 
     def array(self) -> Optional[np.ndarray]:
@@ -260,7 +264,12 @@ def _encode_grants(
     vocab: Vocab,
     resolution: Optional[Dict] = None,
     bank: Optional[_RestrictBank] = None,
+    counts: Optional[Dict] = None,
 ) -> GrantBlock:
+    """One direction's grant rows. With ``counts`` (a span's attrs), a call
+    that looked up ports records ``port_lookups`` (port-spec sets and named
+    specs its rules asked for) and ``port_builds`` (the distinct ones it
+    computed)."""
     pols: List[int] = []
     match_all: List[bool] = []
     pod_sels: List[Optional[Selector]] = []
@@ -276,6 +285,27 @@ def _encode_grants(
 
     n = len(pods)
     Q = len(atoms)
+    any_port_axis = len(atoms) == 1 and atoms[0] == ALL_ATOM
+    # port lookups are made once per distinct key in this call: a rule's
+    # set of specs → its mask (an OR over the specs, so order and repeats do
+    # not change it), a (protocol, name) → its named variants
+    masks: Dict[frozenset, np.ndarray] = {}
+    named: Dict[Tuple[str, str], List[Tuple[np.ndarray, int]]] = {}
+    lookups = 0
+
+    def named_variants(key: Tuple[str, str]) -> List[Tuple[np.ndarray, int]]:
+        res = resolution.get(key)
+        if res is None:
+            return []
+        out = []
+        for q in np.nonzero(res.any(axis=0))[0]:
+            # the bank copies the column only for a key it does not hold
+            rid = bank.intern((key[0], key[1], int(q)), res[:, q].copy)
+            onehot = np.zeros(Q, dtype=bool)
+            onehot[q] = True
+            out.append((onehot, rid))
+        return out
+
     for pi, pol in enumerate(policies):
         rules = pol.ingress if direction == "ingress" else pol.egress
         if not rules:
@@ -284,24 +314,25 @@ def _encode_grants(
             # rule_port_mask ignores port specs when atoms == [ALL_ATOM];
             # in resolution mode it covers the numeric specs only — named
             # specs become extra single-atom variants with a dst restriction
-            pmask = rule_port_mask(rule, atoms)
+            if not rule.ports or any_port_axis:
+                pmask = rule_port_mask(rule, atoms)
+            else:
+                lookups += 1
+                spec_key = frozenset(rule.ports)
+                pmask = masks.get(spec_key)
+                if pmask is None:
+                    pmask = masks[spec_key] = rule_port_mask(rule, atoms)
             # the base row is emitted even with an all-false mask (a rule
             # whose only specs are unresolvable named ports): it grants no
             # edges but its peer rows still feed the per-policy src/dst edge
             # sets and has-grant flags, matching the oracle
             variants: List[Tuple[np.ndarray, int]] = [(pmask, 0)]
             if resolution is not None:
-                for proto, name in rule_named_specs(rule):
-                    res = resolution.get((proto, name))
-                    if res is None:
-                        continue
-                    for q in np.nonzero(res.any(axis=0))[0]:
-                        rid = bank.intern(
-                            (proto, name, int(q)), res[:, q].copy()
-                        )
-                        onehot = np.zeros(Q, dtype=bool)
-                        onehot[q] = True
-                        variants.append((onehot, rid))
+                for key in rule_named_specs(rule):
+                    lookups += 1
+                    if key not in named:
+                        named[key] = named_variants(key)
+                    variants.extend(named[key])
             def emit_row(mask, rid, peer=None, ip_row=None, peer_i=-1, rule_i=ri):
                 g = len(pols)
                 pols.append(pi)
@@ -347,6 +378,8 @@ def _encode_grants(
                     for mask, rid in variants:
                         emit_row(mask, rid, peer, ip_row, peer_i=qi)
 
+    if counts is not None and lookups:
+        counts.update(port_lookups=lookups, port_builds=len(masks) + len(named))
     G = len(pols)
     ip_match = None
     if ip_rows:
@@ -421,10 +454,10 @@ def encode_cluster(
             atoms = [ALL_ATOM]
         blocks = {}
         for direction in ("ingress", "egress"):
-            with trace("encode.grants", direction=direction):
+            with trace("encode.grants", direction=direction) as span:
                 blocks[direction] = _encode_grants(
                     policies, cluster.pods, direction, atoms, vocab, resolution,
-                    bank,
+                    bank, counts=span.attrs,
                 )
         return EncodedCluster(
             n_pods=cluster.n_pods,

@@ -137,27 +137,44 @@ def named_resolution(
     in atom ``q``. Pods not declaring the name match nothing — the real-k8s
     behaviour the by-name approximation missed. ``keys`` overrides the
     referenced-name scan (checkpoint resume reconstructs the exact frozen
-    key set, which may include names no current policy references)."""
-    out: Dict[Tuple[str, str], np.ndarray] = {}
+    key set, which may include names no current policy references).
+
+    One pass over the pods gathers each key's (pod, number) pairs; each
+    protocol's numeric atoms then take the numbers by a binary search over
+    their bounds, so they must be disjoint, as ``compute_port_atoms`` makes
+    them."""
     n, Q = len(pods), len(atoms)
     key_list = (
         sorted(_named_specs_used(policies)) if keys is None else list(keys)
     )
+    hits: Dict[Tuple[str, str], List[Tuple[int, int]]] = {
+        key: [] for key in key_list
+    }
+    for d, pod in enumerate(pods):
+        for name, (proto, num) in pod.container_ports.items():
+            found = hits.get((proto, name))
+            if found is not None:
+                found.append((d, int(num)))
+    bounds: Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+    out: Dict[Tuple[str, str], np.ndarray] = {}
     for key in key_list:
-        proto, name = key
+        proto = key[0]
+        if proto not in bounds:
+            qs = sorted(
+                (q for q, a in enumerate(atoms)
+                 if a.name is None and a.protocol == proto),
+                key=lambda q: atoms[q].lo,
+            )
+            lo = np.array([atoms[q].lo for q in qs], dtype=np.int64)
+            hi = np.array([atoms[q].hi for q in qs], dtype=np.int64)
+            bounds[proto] = (np.array(qs, dtype=np.int64), lo, hi)
+        qs, lo, hi = bounds[proto]
         mask = np.zeros((n, Q), dtype=bool)
-        for d, pod in enumerate(pods):
-            entry = pod.container_ports.get(name)
-            if entry is None or entry[0] != proto:
-                continue
-            num = int(entry[1])
-            for q, atom in enumerate(atoms):
-                if (
-                    atom.name is None
-                    and atom.protocol == proto
-                    and atom.lo <= num <= atom.hi
-                ):
-                    mask[d, q] = True
+        if hits[key] and len(qs):
+            d, num = np.array(hits[key], dtype=np.int64).T
+            at = np.searchsorted(lo, num, side="right") - 1
+            inside = (at >= 0) & (num <= hi[np.maximum(at, 0)])
+            mask[d[inside], qs[at[inside]]] = True
         out[key] = mask
     return out
 

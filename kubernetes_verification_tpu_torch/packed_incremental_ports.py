@@ -1519,7 +1519,7 @@ class PackedPortsIncrementalVerifier:
                 for proto, name, q in (tuple(k) for k in meta["bank_keys"]):
                     bank.intern(
                         (proto, name, int(q)),
-                        self._resolution[(proto, name)][:, int(q)].copy(),
+                        self._resolution[(proto, name)][:, int(q)].copy,
                     )
                 bank.frozen = True
                 bank_rows = bank.rows

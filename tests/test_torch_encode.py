@@ -58,6 +58,33 @@ def test_encoding_matches_jax_leaf_by_leaf(seed, compute_ports):
     assert enc.vocab.pair_ids == jenc.vocab.pair_ids
 
 
+#: rules drawn from the generator's first four fixed port specs, and many
+#: named ones: spec sets and named keys repeat across hundreds of rules
+_REUSED = dict(
+    n_pods=2000, n_policies=400, n_namespaces=6, p_ports=0.8, p_named_port=0.3,
+    p_container_ports=0.5, port_library_size=4,
+)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_encoding_matches_jax_where_the_port_tables_are_reused(seed):
+    cluster = random_cluster(GeneratorConfig(seed=seed, **_REUSED))
+    enc = encode_cluster(cluster)
+    jenc = jax_encode(jax_random_cluster(JaxGeneratorConfig(seed=seed, **_REUSED)))
+    arrays = encoding_to_arrays(enc)
+    _assert_same_arrays(arrays, encoding_to_arrays(jenc))
+    for leaf in ("restrict_bank", "ingress.dst_restrict", "egress.dst_restrict"):
+        assert leaf in arrays, leaf
+    assert [(a.protocol, a.lo, a.hi, a.name) for a in enc.atoms] == [
+        (a.protocol, a.lo, a.hi, a.name) for a in jenc.atoms]
+    assert sorted(enc.resolution) == sorted(jenc.resolution)
+    for key, mask in jenc.resolution.items():
+        np.testing.assert_array_equal(enc.resolution[key], mask, err_msg=str(key))
+    rules = [r for p in cluster.policies for r in (p.ingress or ()) + (p.egress or ())]
+    ported = [frozenset(r.ports) for r in rules if r.ports]
+    assert len(ported) > 4 * len(set(ported))  # the tables were reused
+
+
 @pytest.mark.parametrize("compute_ports", [True, False])
 def test_carry_round_trip(compute_ports):
     enc = encode_cluster(

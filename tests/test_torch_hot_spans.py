@@ -14,6 +14,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import kubernetes_verification_tpu_torch as kvt
+from kubernetes_verification_tpu_torch.encode.ports import rule_named_specs
 from kubernetes_verification_tpu_torch.observe import spans
 from kubernetes_verification_tpu_torch.observe.metrics import SPAN_SECONDS
 
@@ -69,8 +70,11 @@ def test_encode_and_solve_spans_nest_as_in_the_table(ports, use_kernel):
     kids = _children(log, encode)
     want = ["encode.labels"] + (["encode.ports"] if ports else []) + ["encode.grants"] * 2
     assert [s.name for s in kids] == want
-    assert [s.attrs for s in kids[-2:]] == [{"direction": "ingress"},
-                                            {"direction": "egress"}]
+    grants = [dict(s.attrs) for s in kids[-2:]]
+    assert [g.pop("direction") for g in grants] == ["ingress", "egress"]
+    # port lookups are counted only where the port axis has atoms
+    assert all(set(g) <= ({"port_lookups", "port_builds"} if ports else set())
+               for g in grants)
     assert [s.name for s in _children(log, solve)] == [
         "solve.prologue", "solve.upload", "solve.maps", "solve.kernel", "solve.sync"]
     # only what a reader reads is counted: these spans carry no attrs
@@ -79,6 +83,31 @@ def test_encode_and_solve_spans_nest_as_in_the_table(ports, use_kernel):
         assert s.start_ns <= s.end_ns
         kids = _children(log, s)
         assert all(s.start_ns <= k.start_ns and k.end_ns <= s.end_ns for k in kids)
+
+
+def _port_lookups(cluster, direction):
+    """The port lookups an encode's rules ask for in one direction, and the
+    distinct keys among them: port-spec sets, then named specs."""
+    rules = [r for p in cluster.policies
+             for r in (p.ingress if direction == "ingress" else p.egress) or ()]
+    specs = [frozenset(r.ports) for r in rules if r.ports]
+    named = [k for r in rules for k in rule_named_specs(r)]
+    return len(specs) + len(named), len(set(specs)) + len(set(named))
+
+
+def test_encode_grants_counts_its_port_lookups_and_the_ones_it_built():
+    cluster = _cluster(seed=5, n_pods=300, n_policies=80, port_library_size=4)
+    _, log, _ = _profiled(lambda: kvt.encode_cluster(cluster, compute_ports=True))
+    grants = [s for s in log if s.name == "encode.grants"]
+    assert [s.attrs["direction"] for s in grants] == ["ingress", "egress"]
+    for s in grants:
+        lookups, builds = _port_lookups(cluster, s.attrs["direction"])
+        assert (s.attrs["port_lookups"], s.attrs["port_builds"]) == (lookups, builds)
+        assert lookups > builds > 0  # repeated keys were served, not rebuilt
+    _, log, _ = _profiled(lambda: kvt.encode_cluster(cluster, compute_ports=False))
+    # the any-port axis ignores port specs: nothing looked up, nothing counted
+    assert [s.attrs for s in log if s.name == "encode.grants"] == [
+        {"direction": "ingress"}, {"direction": "egress"}]
 
 
 def _engines():

@@ -24,6 +24,13 @@ from kubernetes_verification_tpu.ops import tiled as jax_tiled_mod
 from kubernetes_verification_tpu.ops.pallas_kernels import fused_ports_stripe
 from kubernetes_verification_tpu.ops.tiled import tiled_k8s_reach as jax_tiled
 from kubernetes_verification_tpu.parallel.sharded_ops import pad_grants as jax_pad_grants
+import kubernetes_verification_tpu_torch as kvt
+from kubernetes_verification_tpu_torch.encode.encoder import (
+    FrozenBankMiss,
+    encode_cluster,
+    encode_policy_delta,
+)
+from kubernetes_verification_tpu_torch.encode.ports import compute_port_atoms, named_resolution
 from kubernetes_verification_tpu_torch.ops import tiled_ports
 from kubernetes_verification_tpu_torch.ops.bits import pack_bool_cols
 from kubernetes_verification_tpu_torch.ops.kernels import (
@@ -342,3 +349,89 @@ def test_fused_wrapper_rejects_what_the_kernel_does_not_take():
         fused_ports_reach(at, bt, plan, none, niso, niso, default_allow=False),
         fused_ports_reach_reference(at, bt, plan, none, niso, niso, default_allow=False),
     )
+
+
+# ---------------------------------------------------------------------------
+# named resolution in one pass, against a scan of every pod and atom
+# ---------------------------------------------------------------------------
+
+
+def _resolution_scan(atoms, pods, keys):
+    """The per-pod, per-atom scan that defines ``named_resolution``."""
+    out = {}
+    for proto, name in keys:
+        mask = np.zeros((len(pods), len(atoms)), dtype=bool)
+        for d, pod in enumerate(pods):
+            entry = pod.container_ports.get(name)
+            if entry is None or entry[0] != proto:
+                continue
+            for q, atom in enumerate(atoms):
+                if atom.name is None and atom.protocol == proto and atom.lo <= int(entry[1]) <= atom.hi:
+                    mask[d, q] = True
+        out[(proto, name)] = mask
+    return out
+
+
+def _named_cluster():
+    """Named ports on an atom's bounds (8000, 8999) and past it (9000), one
+    declared under the other protocol, and a name no policy uses."""
+    web = kvt.Selector({"app": "web"})
+    declared = [{"http": ("TCP", 8000)}, {"http": ("TCP", 8999)}, {"http": ("TCP", 9000)},
+                {"http": ("UDP", 8000)}, {"http": ("TCP", 1), "grpc": ("TCP", 65535)},
+                {"grpc": ("TCP", 50051), "metrics": ("UDP", 9100)}, {}]
+    pods = [kvt.Pod(f"web-{i}", "prod", {"app": "web"}, container_ports=ports)
+            for i, ports in enumerate(declared)]
+    pol = kvt.NetworkPolicy("p", namespace="prod", pod_selector=web, ingress=(
+        kvt.Rule(peers=(kvt.Peer(pod_selector=web),),
+                 ports=(kvt.PortSpec("TCP", 8000, end_port=8999), kvt.PortSpec("TCP", "http"))),
+        kvt.Rule(ports=(kvt.PortSpec("UDP", "metrics"), kvt.PortSpec("UDP", 53))),
+    ))
+    return kvt.Cluster(pods=pods, policies=[pol])
+
+
+@pytest.mark.parametrize("refined", [True, False], ids=["resolution-atoms", "by-name-atoms"])
+def test_named_resolution_matches_a_scan_of_every_pod_and_atom(refined):
+    cluster = _named_cluster()
+    pols, pods = cluster.policies, cluster.pods
+    # without pods the atoms keep their ranges and carry by-name atoms, which
+    # resolution must skip; the numbers then fall on the range's bounds
+    atoms = compute_port_atoms(pols, pods if refined else None)
+    assert any(a.lo == 8000 and a.hi == 8999 for a in atoms) != refined
+    got = named_resolution(pols, atoms, pods)
+    assert sorted(got) == [("TCP", "http"), ("UDP", "metrics")]
+    keys = [("TCP", "http"), ("TCP", "grpc"), ("UDP", "http"), ("SCTP", "none")]
+    got_keys = named_resolution(pols, atoms, pods, keys=keys)
+    assert list(got_keys) == keys
+    for res, ks in ((got, sorted(got)), (got_keys, keys)):
+        want = _resolution_scan(atoms, pods, ks)
+        for key in ks:
+            assert res[key].dtype == bool and res[key].shape == (len(pods), len(atoms))
+            np.testing.assert_array_equal(res[key], want[key], err_msg=str(key))
+    http = got[("TCP", "http")]
+    assert http[:3].sum(axis=1).tolist() == [1, 1, 1] and not http[3].any()
+    if not refined:  # 8000 and 8999 share the range's atom, 9000 lies past it
+        assert (http[0] == http[1]).all() and not (http[1] & http[2]).any()
+    assert got_keys[("UDP", "http")][3].sum() == 1 and not got_keys[("SCTP", "none")].any()
+
+
+def test_a_frozen_bank_raises_on_the_first_new_named_row():
+    cluster = _named_cluster()
+    enc = encode_cluster(cluster)
+    bank = enc.restrict_bank_intern
+    bank.frozen = True
+    rows = list(bank.rows)
+    vocab, ns_index = enc.vocab, cluster.namespace_index()
+    pol = cluster.policies[0]
+    # a policy whose named rows the bank holds: the same rows, no new one
+    delta = encode_policy_delta(pol, vocab, enc.atoms, ns_index, cluster.pods,
+                                enc.resolution, bank)
+    np.testing.assert_array_equal(delta.ingress.dst_restrict, enc.ingress.dst_restrict)
+    # a name the frozen universe resolves (resume's keys) but no row holds
+    resolution = named_resolution(cluster.policies, enc.atoms, cluster.pods,
+                                  keys=sorted(enc.resolution) + [("TCP", "grpc")])
+    grpc = dataclasses.replace(pol, name="grpc", ingress=(
+        kvt.Rule(ports=(kvt.PortSpec("TCP", "http"), kvt.PortSpec("TCP", "grpc"))),))
+    with pytest.raises(FrozenBankMiss, match="'grpc'"):
+        encode_policy_delta(grpc, vocab, enc.atoms, ns_index, cluster.pods,
+                            resolution, bank)
+    assert len(bank.rows) == len(rows) and bank.frozen
