@@ -26,14 +26,16 @@ Two routes compute the same int32 [N, N/32] words:
   ``ops/kernels.py::fused_ports_reach`` over all N (the TPU's 2048-column
   stripes existed only for VMEM).
 
-The host layout functions are numpy copies of the JAX package's; they raise
-``ConfigError`` where it raises ``ValueError``.
+The host layout functions give the JAX package's arrays byte for byte, with
+whole-array numpy on packed row keys in place of its per-grant loops and its
+structured-row sort; they raise ``ConfigError`` where it raises
+``ValueError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,53 +93,74 @@ def _take_rows(block, idx: np.ndarray):
     return type(block)(**vals)
 
 
+def _unique_rows(ports: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(first, inverse)`` over the distinct rows of the bool [G, Q]
+    ``ports``, in ``np.unique(axis=0)``'s order: ``ports[first]`` is its
+    ``masks`` (from each row's first occurrence) and ``inverse`` its
+    ``return_inverse``.
+
+    Each row is keyed by its atoms packed MSB-first into ⌈Q/64⌉ big-endian
+    uint64 words, zero-filled past atom Q − 1. Compared word by word, the
+    first word first, keys order rows lexicographically (False < True), as
+    ``np.unique(axis=0)``'s structured-row sort does, and two rows share a
+    key exactly when they are equal; one stable sort of the keys groups
+    them."""
+    G, Q = ports.shape
+    W = max(1, -(-Q // 64))
+    packed = np.zeros((G, 8 * W), dtype=np.uint8)
+    packed[:, : -(-Q // 8)] = np.packbits(ports, axis=1, bitorder="big")
+    keys = packed.view(">u8").astype(np.uint64)
+    order = np.lexsort(keys.T[::-1])  # the first word is the primary key
+    sk = keys[order]
+    new = np.ones(G, dtype=bool)
+    new[1:] = (sk[1:] != sk[:-1]).any(axis=1)
+    inverse = np.empty(G, dtype=np.intp)
+    inverse[order] = np.cumsum(new) - 1
+    return order[new], inverse
+
+
 def _split_grant_ports(block: GrantBlock) -> GrantBlock:
     """Split each grant's port mask into maximal consecutive atom runs,
     duplicating the grant row once per run (JAX ``ops/tiled.py::
     _split_grant_ports``). Exact by union semantics: ``allow = ∨_g peers_g ∧
     ports_g`` is unchanged under any partition of a grant's atom set; full
-    masks stay whole."""
+    masks are one run and stay whole.
+
+    Row order is the JAX loop's: grants in order, a split grant's runs in
+    ascending atom order, so every leaf comes out byte-identical. A block
+    with no multi-run row comes back as the same object."""
     ports = np.asarray(block.ports)
     G, Q = ports.shape
-    full = ports.all(axis=1)
-    starts = ports & ~np.concatenate(
-        [np.zeros((G, 1), dtype=bool), ports[:, :-1]], axis=1
-    )
-    n_runs = np.where(full, 1, starts.sum(axis=1))
-    if (n_runs <= 1).all():
+    no = np.zeros((G, 1), dtype=bool)
+    starts = ports & ~np.concatenate([no, ports[:, :-1]], axis=1)
+    n_runs = starts.sum(axis=1)
+    split = n_runs > 1
+    if not split.any():
         return block
-    rows: List[int] = []
-    masks: List[np.ndarray] = []
-    for g in range(G):
-        if full[g] or n_runs[g] <= 1:
-            rows.append(g)
-            masks.append(ports[g])
-            continue
-        for lo in np.nonzero(starts[g])[0]:
-            hi = lo
-            while hi + 1 < Q and ports[g, hi + 1]:
-                hi += 1
-            m = np.zeros(Q, dtype=bool)
-            m[lo : hi + 1] = True
-            rows.append(g)
-            masks.append(m)
-    out = _take_rows(block, np.asarray(rows))
-    return dataclasses.replace(out, ports=np.asarray(masks))
+    reps = np.where(split, n_runs, 1)  # an empty mask keeps its one row
+    rows = np.repeat(np.arange(G), reps)
+    ends = ports & ~np.concatenate([ports[:, 1:], no], axis=1)
+    # row-major: the k-th start of the split rows pairs with their k-th end
+    _, lo = np.nonzero(starts[split])
+    _, hi = np.nonzero(ends[split])
+    atoms = np.arange(Q)
+    masks = ports[rows]
+    masks[np.repeat(split, reps)] = (atoms >= lo[:, None]) & (atoms <= hi[:, None])
+    return dataclasses.replace(_take_rows(block, rows), ports=masks)
 
 
 def _split_and_check_port_masks(
     ing_block: GrantBlock, eg_block: GrantBlock, limit: int
 ) -> Tuple[GrantBlock, GrantBlock, int]:
     """Run-split both directions' grant port masks and enforce the cap on R,
-    the distinct ported masks (JAX ``_split_and_check_port_masks``)."""
+    the distinct ported masks (JAX ``_split_and_check_port_masks``): R
+    counts the distinct split rows by their packed keys (``_unique_rows``),
+    all-False and all-True rows left out, so it is the JAX set's size."""
     ing_block = _split_grant_ports(ing_block)
     eg_block = _split_grant_ports(eg_block)
-    all_masks = {
-        m
-        for m in map(tuple, np.concatenate([ing_block.ports, eg_block.ports], 0))
-        if any(m) and not all(m)
-    }
-    R = max(1, len(all_masks))
+    ports = np.concatenate([ing_block.ports, eg_block.ports], 0)
+    ported = ports.any(axis=1) & ~ports.all(axis=1)
+    R = max(1, len(_unique_rows(ports[ported])[0]))
     if R > limit:
         raise ConfigError(
             f"{R} distinct ported atom masks after run-splitting exceeds the "
@@ -202,35 +225,31 @@ def _build_port_layout(
     its restriction-bank row (0 = none), ``vp_slot_*[g]`` the VP row of
     grant ``g``, and ``ported_masks`` the bool [R, Q] masks in segment
     order. Empty-mask grants go to the sink row; segments are padded to a
-    multiple of 8 with sink rows (plus ``headroom`` free rows)."""
+    multiple of 8 with sink rows (plus ``headroom`` free rows).
+
+    Masks group by their packed row keys (``_unique_rows``), whose order is
+    ``np.unique(axis=0)``'s lexicographic row order, and the VP rows are
+    placed from offsets, so every output is byte-identical to the JAX
+    package's."""
     all_ports = np.concatenate([ing_ports, eg_ports], axis=0)
-    masks, inverse = np.unique(all_ports, axis=0, return_inverse=True)
-    inverse = inverse.reshape(-1)
-    full_ids = np.nonzero(masks.all(axis=1))[0]
-    empty_ids = np.nonzero(~masks.any(axis=1))[0]
-    full_id = int(full_ids[0]) if full_ids.size else -1
-    empty_id = int(empty_ids[0]) if empty_ids.size else -2
-    ported = [m for m in range(masks.shape[0]) if m not in (full_id, empty_id)]
+    first, inverse = _unique_rows(all_ports)
+    masks = all_ports[first]
+    # one full and one empty row at most, as masks are distinct
+    full = masks.all(axis=1)
+    ported = np.nonzero(~full & masks.any(axis=1))[0]
     pm = masks[ported].astype(np.int64)  # [R, Q]
-    ov = (pm @ pm.T) > 0 if ported else np.zeros((0, 0), dtype=bool)
-    ov_rows = tuple(
-        tuple(int(j) for j in np.nonzero(ov[r])[0]) for r in range(len(ported))
-    )
-    # mask id → bucket: ported rank r, then full (R), sink (R + 1)
     R = len(ported)
+    ov = (pm @ pm.T) > 0 if R else np.zeros((0, 0), dtype=bool)
+    ov_rows = tuple(tuple(int(j) for j in np.nonzero(ov[r])[0]) for r in range(R))
+    # mask id → bucket: ported rank r, then full (R), sink (R + 1)
     bucket_of_mask = np.full(masks.shape[0], R + 1, dtype=np.int64)
-    for r, m in enumerate(ported):
-        bucket_of_mask[m] = r
-    if full_id >= 0:
-        bucket_of_mask[full_id] = R
+    bucket_of_mask[ported] = np.arange(R)
+    bucket_of_mask[full] = R
 
     def restrict_max(x):
         return int(x.max()) if x is not None and len(x) else 0
 
     n_restrict = 1 + max(restrict_max(ing_restrict), restrict_max(eg_restrict))
-
-    def padded(length: int) -> int:
-        return (-(length + headroom)) % 8 + headroom if (length or headroom) else 0
 
     def one_direction(pol, mask_ids, restrict):
         if restrict is None:
@@ -243,33 +262,30 @@ def _build_port_layout(
         vp_bp = uniq // n_restrict
         vp_bucket = vp_bp // (sink_pol + 1)
         vp_pols = vp_bp % (sink_pol + 1)
-        vp_pol_rows: List[int] = []
-        vp_res_rows: List[int] = []
-        row_of_vp = np.empty(len(uniq), dtype=np.int64)
-
-        def block_of(b: int) -> Tuple[int, int]:
-            """Append bucket ``b``'s VPs, padded; its (start, length)."""
-            members = np.nonzero(vp_bucket == b)[0]
-            start = len(vp_pol_rows)
-            for u in members:
-                row_of_vp[u] = len(vp_pol_rows)
-                vp_pol_rows.append(int(vp_pols[u]))
-                vp_res_rows.append(int(vp_restricts[u]))
-            pad = padded(len(members))
-            vp_pol_rows.extend([sink_pol] * pad)
-            vp_res_rows.extend([0] * pad)
-            return (start, len(members) + pad)
-
-        seg = tuple(block_of(r) for r in range(R))
-        full = block_of(R)
-        row_of_vp[vp_bucket == R + 1] = len(vp_pol_rows)  # the sink row
-        vp_pol_rows.append(sink_pol)
-        vp_res_rows.append(0)
+        # keys sort bucket-major, so bucket b's VPs are one run of uniq; each
+        # block is padded to a multiple of 8 (plus headroom) with sink rows
+        count = np.bincount(vp_bucket, minlength=R + 2)
+        blocks = count[: R + 1]
+        pad = np.where(
+            (blocks > 0) | (headroom > 0), (-(blocks + headroom)) % 8 + headroom, 0
+        )
+        length = blocks + pad
+        start = np.concatenate([[0], np.cumsum(length)])  # start[R + 1]: sink row
+        first_vp = np.concatenate([[0], np.cumsum(count)])
+        # a VP's row: its rank in uniq plus the pad rows of the buckets before
+        row_of_vp = np.arange(len(uniq)) - first_vp[vp_bucket] + start[vp_bucket]
+        sink = vp_bucket == R + 1
+        row_of_vp[sink] = start[R + 1]
+        vp_pol_rows = np.full(start[R + 1] + 1, sink_pol, dtype=np.int32)
+        vp_res_rows = np.zeros(start[R + 1] + 1, dtype=np.int32)
+        vp_pol_rows[row_of_vp[~sink]] = vp_pols[~sink]
+        vp_res_rows[row_of_vp[~sink]] = vp_restricts[~sink]
+        spans = [(int(s), int(l)) for s, l in zip(start, length)]
         return (
-            seg,
-            full,
-            np.asarray(vp_pol_rows, dtype=np.int32),
-            np.asarray(vp_res_rows, dtype=np.int32),
+            tuple(spans[:R]),
+            spans[R],
+            vp_pol_rows,
+            vp_res_rows,
             row_of_vp[slot_of_grant].astype(np.int32),
         )
 

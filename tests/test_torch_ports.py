@@ -8,6 +8,7 @@ a multiple of the kernel tile as well), so words are compared over the first
 ⌈n/32⌉ columns, and every pad word must be zero."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,7 +104,14 @@ def test_split_and_layout_match_jax(seed, headroom):
     _assert_blocks_equal(pi, ji)
     _assert_blocks_equal(pe, je)
     assert pi.n > penc.ingress.n  # the run split did duplicate rows
-    P = penc.n_policies
+    _assert_layouts_equal(ji, je, pi, pe, penc.n_policies, headroom, jr)
+
+
+def _assert_layouts_equal(ji, je, pi, pe, P, headroom, R):
+    """Pad both packages' split blocks to a multiple of 8 (one row at
+    least, so the sink row is used) and hold the port's
+    ``_build_port_layout`` to the JAX package's, array for array and dtype
+    for dtype."""
     ji, je = (jax_pad_grants(b, 8 - b.n % 8, P, 0) for b in (ji, je))
     pi, pe = (pad_grants(b, 8 - b.n % 8, P, 0) for b in (pi, pe))
 
@@ -120,10 +128,137 @@ def test_split_and_layout_match_jax(seed, headroom):
     want = layout(jax_tiled_mod, ji, je)
     got = layout(tiled_ports, pi, pe)
     assert tuple(got[0]) == tuple(want[0])  # the PortLayout, field by field
-    assert got[0].n_masks == jr
+    assert got[0].n_masks == R
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(g, w)
         assert g.dtype == w.dtype
+
+
+def _synthetic_ports(G: int, Q: int, seed: int) -> np.ndarray:
+    """bool [G, Q] port masks: every ninth row all-True, all-False or one
+    atom; the rest unions of 1–3 runs from a library that has runs at atom
+    0 and at atom Q − 1 and ones touching both, so rows split, repeat, and
+    (Q > 64) differ only past the first word."""
+    rng = np.random.default_rng(seed)
+    lib = [(0, 0), (Q - 1, Q - 1), (0, 2), (Q - 3, Q - 1), (0, Q - 2), (1, Q - 1)]
+    for _ in range(12):
+        lo = int(rng.integers(0, Q))
+        lib.append((lo, int(rng.integers(lo, min(Q, lo + 9)))))
+    out = np.zeros((G, Q), dtype=bool)
+    for g in range(G):
+        kind = g % 9
+        if kind == 0:
+            out[g] = True
+        elif kind == 2:
+            out[g, rng.integers(0, Q)] = True
+        elif kind != 1:  # kind 1 stays all-False
+            for k in rng.choice(len(lib), size=int(rng.integers(1, 4)), replace=False):
+                lo, hi = lib[k]
+                out[g, lo : hi + 1] = True
+    return out
+
+
+@pytest.fixture(scope="module")
+def wide_pair():
+    """A generated cluster with ~1,900 grant rows after the run split, R >
+    1 in both directions."""
+    return _ported(240, 11, n_policies=400)
+
+
+def _with_ports(jenc, penc, q):
+    """Both packages' grant blocks, with ``_synthetic_ports`` of width
+    ``q`` in place of the encoded masks unless ``q`` is ``"generated"``."""
+    blocks = (jenc.ingress, jenc.egress, penc.ingress, penc.egress)
+    if q == "generated":
+        return blocks
+    masks = [_synthetic_ports(b.n, q, seed) for seed, b in enumerate(blocks[2:])]
+    masks = masks + [m.copy() for m in masks]
+    return tuple(dataclasses.replace(b, ports=m) for b, m in zip(blocks, masks))
+
+
+@pytest.mark.parametrize("headroom", [0, 128])
+@pytest.mark.parametrize("q", ["generated", 13, 64, 70, 130])
+def test_packed_key_split_and_layout_match_jax(wide_pair, q, headroom):
+    """The packed-key grouping, the vectorised run split and the VP layout
+    against the JAX package's loops and ``np.unique(axis=0)``: a generated
+    cluster, and synthetic masks of Q not a multiple of 8, of one full word
+    and of two and three words."""
+    jenc, penc = wide_pair
+    ji, je, pi, pe = _with_ports(jenc, penc, q)
+    limit = 1 << 20  # the synthetic masks' R is over the path's cap
+    ji, je, jr = jax_tiled_mod._split_and_check_port_masks(ji, je, limit)
+    pi, pe, pr = tiled_ports._split_and_check_port_masks(pi, pe, limit)
+    assert pr == jr > 1
+    _assert_blocks_equal(pi, ji)
+    _assert_blocks_equal(pe, je)
+    assert pi.n + pe.n > 1000
+    for b in (pi, pe):  # every direction has split rows and ported masks
+        ports = np.asarray(b.ports)
+        ported = ports[ports.any(axis=1) & ~ports.all(axis=1)]
+        assert len(np.unique(ported, axis=0)) > 1
+    assert pi.n > penc.ingress.n and pe.n > penc.egress.n
+    both = np.concatenate([pi.ports, pe.ports])
+    masks, inverse = np.unique(both, axis=0, return_inverse=True)
+    first, got_inverse = tiled_ports._unique_rows(both)
+    np.testing.assert_array_equal(both[first], masks)
+    np.testing.assert_array_equal(got_inverse, inverse.reshape(-1))
+    _assert_layouts_equal(ji, je, pi, pe, penc.n_policies, headroom, jr)
+
+
+@pytest.mark.parametrize("q", ["generated", 70])
+def test_split_without_multi_run_rows_is_the_same_object(wide_pair, q):
+    """A block whose rows are each one run, empty or full comes back as the
+    very object passed in (the engines split a change's rows on every
+    change)."""
+    _, _, pi, _ = _with_ports(*wide_pair, q)
+    ports = np.asarray(pi.ports)
+    starts = ports & ~np.concatenate([np.zeros((pi.n, 1), bool), ports[:, :-1]], 1)
+    one = np.nonzero(starts.sum(axis=1) <= 1)[0]
+    if q != "generated":
+        assert ports[one].all(axis=1).any() and (~ports[one].any(axis=1)).any()
+    block = tiled_ports._take_rows(pi, one)
+    assert tiled_ports._split_grant_ports(block) is block
+
+
+#: row picks of one and two grants, the engines' per-change shape: a
+#: multi-run grant, a named-port grant (a ``dst_restrict`` row) and a full
+#: one, alone and in pairs
+_SMALL_BLOCKS = [("multi",), ("multi", "named"), ("named", "multi"), ("multi", "multi2"),
+                 ("full", "multi"), ("named",)]
+
+
+@pytest.mark.parametrize("pick", _SMALL_BLOCKS, ids=lambda p: "+".join(p))
+def test_small_block_split_matches_jax(wide_pair, pick):
+    jenc, penc = wide_pair
+    jb, pb = jenc.ingress, penc.ingress
+    ports = np.asarray(pb.ports)
+    starts = ports & ~np.concatenate([np.zeros((pb.n, 1), bool), ports[:, :-1]], 1)
+    multi = np.nonzero(starts.sum(axis=1) > 1)[0]
+    rows = dict(
+        multi=multi[0], multi2=multi[-1],
+        named=np.nonzero(np.asarray(pb.dst_restrict) > 0)[0][0],
+        full=np.nonzero(ports.all(axis=1))[0][0],
+    )
+    idx = np.asarray([rows[k] for k in pick])
+    want = jax_tiled_mod._split_grant_ports(
+        jax.tree.map(lambda x: np.asarray(x)[idx], jb)
+    )
+    got = tiled_ports._split_grant_ports(tiled_ports._take_rows(pb, idx))
+    for leaf in ("dst_restrict", "rule_id", "peer_id"):
+        assert getattr(got, leaf) is not None, leaf
+    _assert_blocks_equal(got, want)
+    assert got.n == want.n
+
+
+@pytest.mark.parametrize("q", ["generated", 70])
+def test_port_mask_cap_at_r_minus_one_and_r(wide_pair, q):
+    ji, je, pi, pe = _with_ports(*wide_pair, q)
+    _, _, R = tiled_ports._split_and_check_port_masks(pi, pe, 1 << 20)
+    with pytest.raises(ValueError):
+        jax_tiled_mod._split_and_check_port_masks(ji, je, R - 1)
+    with pytest.raises(ConfigError, match=f"cap of {R - 1}"):
+        tiled_ports._split_and_check_port_masks(pi, pe, R - 1)
+    assert tiled_ports._split_and_check_port_masks(pi, pe, R)[2] == R
 
 
 def test_port_mask_cap_raises(monkeypatch):
